@@ -1,0 +1,1 @@
+"""configs layer of the PyTorch/CUDA port (twin of ``repro.configs``)."""

@@ -1,0 +1,1 @@
+"""graphs layer of the PyTorch/CUDA port (twin of ``repro.graphs``)."""
