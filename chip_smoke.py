@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's retrieval main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -29,6 +29,41 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              Each bound counts the distinct 32-byte sectors the run's own
              inputs touch (repeat reads of a row are L2 hits), plus the
              lanes and walker state read or written once.
+ 6. ranked   on the same graph, the reference's default ranker
+             (RankerConfig(n_items=140M): d_model 32, 8 neighbors, 64
+             candidates, final 16, two scenario heads), its 17.9 GB item
+             table drawn on the card from a seeded generator after the
+             graph build has freed its scratch; the 24 requests through
+             PixieServer(ranker=...) with alternating scenarios, every
+             result held against the plain path (walk twins plus the bag
+             twin): ids, scores, steps_taken and n_high bit-identical.
+             p50/max latency and one request's split (retrieval,
+             neighborhoods, bags, heads, top-k).
+ 7. open     run_open_loop on that ranked replica: 200 Poisson requests
+             offered at half of 1000 / p50 ms, admission-bounded
+             (ResilienceConfig(elastic=False, max_queue_per_bucket=8));
+             achieved QPS, p50/p99, the wait/compute split, drops and
+             rejections.
+ 8. bag      the embedding-bag kernel against its twin, bit for bit, at the
+             ranked path's shapes (a (1, 64, 8) neighbor bag and a (1, 1,
+             64) query bag over the 140M x 32 table) and at edge shapes
+             (bf16, d = 48, bag size 1, an all-padding bag, 37 bags, sum
+             and mean); device ms beside the twin, the byte bound and
+             torch's F.embedding_bag(mode="sum") on the same bags (which
+             omits the mean's division).
+ 9. users    on the 20k graph: ranked buckets (16, 4) and (8, 8) with
+             mixed scenarios, both walk backends identical and equal to
+             the single-bucket flush oracle; submit_user users equal to
+             per-cluster walks merged by merge_interest_topk, and
+             recommend_multi_interest(rank=...) equal to those merged
+             lanes ranked.
+10. chaos    on the 20k retrieval replica with elastic resilience: one
+             seeded ChaosConfig (latency spikes, traffic bursts) run twice
+             must give identical results and budgets; a zero-fault
+             schedule must equal the plain open-loop run bit for bit.
+
+Launch counts are reset just before and read just after each path that
+is driven (phases 2, 4, 6, 7, 9, 10); the kernels line sums them.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -38,6 +73,7 @@ outside a checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -50,6 +86,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 SECTOR = 32                        # bytes per DRAM sector touched at random
 REQUEST_PINS = (8, 3, 1, 5, 8, 2) * 4  # pins per full-width request
+OPEN_LOOP_REQUESTS = 200
 
 
 def log(phase: str, **fields) -> None:
@@ -427,6 +464,333 @@ def check_counter_kernel(name, kernel, plain, n_bins, lanes, kw, replaces):
 
 
 # ---------------------------------------------------------------------------
+# Phases 6-8: ranked serving, the open loop, the bag kernel
+# ---------------------------------------------------------------------------
+
+
+def ranked_plain(graph, rank, pins, weights, feats, keys, cfg, scen):
+    """The plain ranked path: the walk twins, then stage 2 with the bag
+    twin (``use_kernel=False``)."""
+    from repro_torch.core import service
+    from repro_torch.serving import ranker
+
+    retrieval = dataclasses.replace(cfg, top_k=rank.cfg.n_candidates)
+    s, i, steps, n_high = service.serve_batch(
+        graph, pins, weights, feats, keys, retrieval, backend="xla",
+        with_stats=True)
+    s, i = ranker.rank_candidates(rank.params, rank.cfg, graph, i, s, scen,
+                                  use_kernel=False)
+    return s, i, steps, n_high
+
+
+def ranked_split_ms(graph, rank, pins, weights, feats, keys, cfg, scen):
+    """One ranked request's phases, each timed alone with a synchronise:
+    retrieval (the walk with top_k = n_candidates), the 2-hop
+    neighborhoods, the bags (both bag launches and the self-row gather),
+    the scenario heads and the final top-k."""
+    import torch
+    from repro_torch.core import counter as counter_lib
+    from repro_torch.core import service
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ranker
+
+    rc = rank.cfg
+    table = rank.params["items"]
+    retrieval = dataclasses.replace(cfg, top_k=rc.n_candidates)
+    out = {}
+    ms = {"retrieval": wall_ms(lambda: out.setdefault("walk", service.serve_batch(
+        graph, pins, weights, feats, keys, retrieval)))}
+    s, i = out["walk"]
+    valid = s > 0
+    ms["neighborhoods"] = wall_ms(lambda: out.setdefault(
+        "nbr", ranker.candidate_neighborhoods(graph, i, valid, rc.n_neighbors)))
+
+    def bags():
+        nbr_ids, nbr_w = out["nbr"]
+        q_ids, q_w = ranker.query_bag(i, s)
+        out["emb"] = (
+            table[torch.where(valid, i, 0).long()] * valid[..., None].to(table.dtype),
+            ops.embedding_bag_batched(table, nbr_ids, nbr_w, mode="mean"),
+            ops.embedding_bag_batched(table, q_ids, q_w, mode="mean")[:, 0],
+        )
+
+    ms["bags"] = wall_ms(bags)
+    ms["heads"] = wall_ms(lambda: out.setdefault("raw", ranker.score_heads(
+        rank.params["heads"], torch.as_tensor(scen).long(), *out["emb"])))
+    ms["topk"] = wall_ms(lambda: counter_lib.topk_dense(
+        torch.where(valid, out["raw"], float("-inf")), rc.final_k))
+    return ms
+
+
+def check_ranked(scores, ids, k: int, n_pins: int, what: str) -> None:
+    """A full-width ranked result: k real candidates, finite scores in
+    descending order."""
+    import torch
+
+    scores, ids = torch.as_tensor(scores), torch.as_tensor(ids)
+    if scores.shape[-1] != k or ids.shape[-1] != k:
+        raise AssertionError(f"{what}: expected {k} ranked, got {tuple(ids.shape)}")
+    if not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"{what}: non-finite ranked scores")
+    if int(ids.min()) < 0 or int(ids.max()) >= n_pins:
+        raise AssertionError(f"{what}: ranked ids outside [0, {n_pins})")
+    if bool((scores[..., 1:] > scores[..., :-1]).any()):
+        raise AssertionError(f"{what}: ranked scores not descending")
+
+
+def connected_pins(graph, n: int):
+    """Up to ``n`` seeded random pins with at least one board."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 3)
+    cand = torch.from_numpy(
+        rng.integers(0, graph.n_pins, n).astype(np.int32)).to(graph.device)
+    return cand[graph.pin_degree(cand) > 0].cpu().numpy()
+
+
+def bag_sector_bytes(table, ids) -> int:
+    """Bytes of the distinct 32-byte sectors of table rows that the bags
+    read (an invalid id reads row 0)."""
+    import torch
+
+    v, d = table.shape
+    row_bytes = d * table.element_size()
+    rows = torch.where((ids >= 0) & (ids < v), ids, 0).long().unique()
+    first = rows * row_bytes // SECTOR
+    last = ((rows + 1) * row_bytes - 1) // SECTOR
+    span = torch.arange(int((last - first).max()) + 1, device=rows.device)
+    sec = first[:, None] + span[None, :]
+    return SECTOR * int(sec[sec <= last[:, None]].unique().numel())
+
+
+def check_bag(table, ids, weights, mode: str, what: str):
+    """The bag kernel against its twin on the same inputs, bit for bit."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb
+
+    if ids.dim() == 3:
+        got = eb.embedding_bag_batched(table, ids, weights, mode=mode)
+        want = eb.embedding_bag_batched_plain(table, ids, weights, mode=mode)
+    else:
+        got = eb.embedding_bag(table, ids, weights, mode=mode)
+        want = eb.embedding_bag_plain(table, ids, weights, mode=mode)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        raise AssertionError(f"embedding_bag {what}: differs from its twin, max err {err}")
+    return got
+
+
+def time_bag(table, ids, weights, mode: str, what: str) -> dict:
+    """Device ms of the kernel (back to back), the twin's ms, torch's
+    F.embedding_bag(mode="sum") on the same bags (no mean division) and
+    the byte bound: ids, weights and output once plus the distinct table
+    sectors the bags read."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
+
+    out = check_bag(table, ids, weights, mode, what)
+    l = ids.shape[-1]
+    ids2, w2 = ids.reshape(-1, l), weights.reshape(-1, l)
+    valid = (ids2 >= 0) & (ids2 < table.shape[0])
+    lib_ids = torch.where(valid, ids2, 0).long()
+    lib_w = w2 * valid
+    nbytes = (4 * ids.numel() + 4 * weights.numel()
+              + out.numel() * out.element_size() + bag_sector_bytes(table, ids))
+    row = dict(
+        ms=device_ms(lambda: eb.embedding_bag_batched(table, ids, weights, mode=mode), 50),
+        plain_ms=cuda_ms(lambda: eb.embedding_bag_batched_plain(table, ids, weights, mode=mode), 5),
+        library_ms=device_ms(lambda: F.embedding_bag(
+            lib_ids, table, per_sample_weights=lib_w, mode="sum"), 50),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+    )
+    log("bag", shape=list(ids.shape), table=list(table.shape), mode=mode,
+        bound_bytes=nbytes, **row)
+    return row
+
+
+EDGE_BAGS = [  # (table dtype, d, ids shape): beside the main path's shapes
+    ("bfloat16", 32, (4, 16, 8)),
+    ("float32", 48, (3, 7, 5)),
+    ("float32", 32, (37, 1)),
+    ("bfloat16", 48, (13, 3)),
+]
+
+
+def check_edge_bags(dev) -> int:
+    """The kernel against its twin at the edge shapes, in sum and mean
+    mode, with weights and without, each with an all-padding bag."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n = 0
+    for dtype, d, shape in EDGE_BAGS:
+        table = torch.randn((1000, d), generator=gen, device=dev).to(
+            getattr(torch, dtype))
+        ids = torch.randint(-1, 1000, shape, generator=gen, device=dev,
+                            dtype=torch.int32)
+        ids.reshape(-1, shape[-1])[0] = -1
+        w = torch.rand(shape, generator=gen, device=dev) * 2
+        for mode in ("sum", "mean"):
+            for weights in (w, None):
+                got = check_bag(table, ids, weights, mode, f"{dtype} d={d} {shape}")
+                if got.reshape(-1, d)[0].any():
+                    raise AssertionError("an all-padding bag pooled to non-zero")
+                n += 1
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Phases 9-10: batched ranked serving, multi-interest users, chaos
+# ---------------------------------------------------------------------------
+
+
+def serve_requests(server, reqs, scenarios=None):
+    """Submit every request at t=0, dispatch at t=1, results by id."""
+    for rid, (p, w, f) in enumerate(reqs):
+        kw = {} if scenarios is None else dict(scenario=scenarios[rid])
+        server.submit(p, w, user_feat=f, now=0.0, req_id=rid, **kw)
+    server.pump(now=1.0)
+    return sorted(server.harvest(), key=lambda r: r.req_id)
+
+
+def assert_results_equal(a, b, what: str) -> None:
+    if [r.req_id for r in a] != [r.req_id for r in b]:
+        raise AssertionError(f"{what}: different request ids")
+    for x, y in zip(a, b):
+        if not (np.array_equal(x.scores, y.scores) and np.array_equal(x.ids, y.ids)):
+            raise AssertionError(f"{what}: request {x.req_id} differs")
+
+
+def lane_oracle(graph, uq, user_id, cfg, dev):
+    """One user's cluster lanes walked one query at a time with the
+    server's per-(user, cluster) keys and budgets, then merged."""
+    import torch
+    from repro_torch.core import prng, service, walk
+
+    server_key = prng.key(SEED, dev)
+    budgets = service.cluster_step_budgets(uq.importance, cfg.n_steps)
+    scores, ids = [], []
+    for ci in range(uq.n_clusters):
+        t = lambda a: torch.as_tensor(a, device=dev)
+        key = prng.fold_in(prng.fold_in(server_key, user_id), ci)[None, :]
+        s, i = service.serve_batch(
+            graph, t(uq.cluster_pins[ci][None]), t(uq.cluster_weights[ci][None]),
+            t(np.array([uq.user_feat], np.int32)), key, cfg,
+            step_budgets=t(np.array([budgets[ci]], np.int32)))
+        scores.append(s[0])
+        ids.append(i[0])
+    return walk.merge_interest_topk(torch.stack(scores), torch.stack(ids),
+                                    torch.as_tensor(uq.importance, device=dev))
+
+
+def multi_interest_users(sg, cfg, rank, dev, n_users: int = 8):
+    """submit_user against the per-cluster oracle, then the same users
+    ranked by recommend_multi_interest against the oracle's merged lanes
+    ranked by rank_candidates.  Returns the submit_user run's launches."""
+    import torch
+    from repro_torch.core import prng, service
+    from repro_torch.graphs import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ranker
+    from repro_torch.serving.recommend import recommend_multi_interest
+    from repro_torch.serving.server import PixieServer
+
+    hist = synthetic.sample_user_histories(sg, synthetic.UserHistoryConfig(
+        n_users=n_users, n_interests=3, mean_actions=20, seed=SEED))
+    srv = PixieServer(sg.graph, cfg, buckets=[(16, 4), (8, 8)], seed=SEED,
+                      pin_topics=sg.pin_topics, n_clusters=3)
+    _build.reset_launches()
+    for u, h in enumerate(hist):
+        srv.submit_user(h.actions, user_feat=u % 4, now=0.0, req_id=u)
+    srv.pump(now=1.0)
+    got = {r.req_id: r for r in srv.harvest()}
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    uqs = [service.build_user_query(h.actions, sg.pin_topics, n_slots=srv.max_slots,
+                                    n_clusters=3, user_feat=u % 4)
+           for u, h in enumerate(hist)]
+    n_lanes = 0
+    for u, uq in enumerate(uqs):
+        ms, mi = lane_oracle(sg.graph, uq, u, cfg, dev)
+        if not (np.array_equal(got[u].scores, ms.cpu().numpy())
+                and np.array_equal(got[u].ids, mi.cpu().numpy())):
+            raise AssertionError(f"user {u}: submit_user differs from the per-cluster oracle")
+        n_lanes += uq.n_clusters
+
+    retrieval = dataclasses.replace(cfg, top_k=rank.cfg.n_candidates)
+    batch = service.batch_user_queries(uqs, cfg.n_steps, device=dev)
+    server_key = prng.key(SEED, dev)
+    keys = []
+    for li, u in enumerate(batch.lane_user):
+        ci = int(np.nonzero(batch.lane_of_user[u] == li)[0][0])
+        keys.append(prng.fold_in(prng.fold_in(server_key, int(u)), ci))
+    scen = torch.arange(len(uqs), device=dev, dtype=torch.int32) % 2
+    rs, ri = recommend_multi_interest(sg.graph, batch, torch.stack(keys), cfg,
+                                      rank=rank, scenario=scen)
+    merged = [lane_oracle(sg.graph, uq, u, retrieval, dev) for u, uq in enumerate(uqs)]
+    ws, wi = ranker.rank_candidates(
+        rank.params, rank.cfg, sg.graph, torch.stack([m[1] for m in merged]),
+        torch.stack([m[0] for m in merged]), scen)
+    if not (torch.equal(rs, ws) and torch.equal(ri, wi)):
+        raise AssertionError("recommend_multi_interest(rank=...) differs from the ranked oracle")
+    log("users", users=len(uqs), lanes=n_lanes, batches=srv.stats.batches,
+        identical=True, ranked_identical=True, launches=launches)
+    return launches
+
+
+def chaos_runs(sg, cfg, dev, n_requests: int = 64):
+    """A seeded chaos schedule twice (identical results and budgets), and a
+    zero-fault schedule against the plain run (bit-identical).  Returns
+    the first chaos run's launches."""
+    import torch
+    from repro_torch.graphs import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.serving import traffic
+    from repro_torch.serving.resilience import ResilienceConfig
+    from repro_torch.serving.server import PixieServer
+
+    reqs = traffic.poisson_requests(
+        synthetic.top_degree_pins(sg, 256),
+        traffic.OpenLoopConfig(offered_qps=2000.0, n_requests=n_requests,
+                               seed=SEED, max_pins=8, n_feats=4))
+    faults = traffic.sample_fault_schedule(traffic.ChaosConfig(
+        horizon_s=reqs[-1].t_arrival, seed=SEED, n_spikes=3,
+        spike_duration_s=0.005, n_bursts=2, burst_duration_s=0.005))
+    shed = ResilienceConfig(deadline_ms=20.0, shed_start_ms=2.0)
+
+    def run(resilience, schedule):
+        srv = PixieServer(sg.graph, cfg, buckets=[(16, 4), (8, 8)], seed=SEED,
+                          resilience=resilience)
+        return traffic.run_open_loop(srv, reqs, faults=schedule)
+
+    _build.reset_launches()
+    a = run(shed, faults)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    b = run(shed, faults)
+    if a.budgets != b.budgets or sorted(a.results) != sorted(b.results):
+        raise AssertionError("chaos replay: budgets or served requests differ")
+    assert_results_equal([a.results[k] for k in sorted(a.results)],
+                         [b.results[k] for k in sorted(b.results)], "chaos replay")
+    if min(a.budgets.values()) >= cfg.n_steps:
+        raise AssertionError("chaos run shed no budget: the schedule did not engage")
+    plain = run(None, None)
+    idle = run(ResilienceConfig(deadline_ms=1e6, shed_start_ms=1e5),
+               traffic.FaultSchedule())
+    assert_results_equal([plain.results[k] for k in sorted(plain.results)],
+                         [idle.results[k] for k in sorted(idle.results)],
+                         "zero-fault chaos vs plain")
+    log("chaos", requests=n_requests, events=len(faults.events),
+        served=a.n_served, shed_requests=sum(v < cfg.n_steps for v in a.budgets.values()),
+        min_budget=min(a.budgets.values()), replay_identical=True,
+        zero_fault_identical=True, launches=launches,
+        chaos_p99_ms=a.percentile(99), plain_p99_ms=plain.percentile(99))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -443,6 +807,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import visit_counter as vc
     from repro_torch.kernels import walk_step as ws
+    from repro_torch.serving import ranker, traffic
+    from repro_torch.serving.resilience import ResilienceConfig
     from repro_torch.serving.server import PixieServer
 
     dev = torch.device("cuda", 0)
@@ -530,7 +896,120 @@ def main() -> int:
         dict(n_slots=shape.n_slots, n_pins=graph.n_pins, n_v=cfg.n_v, n_queries=1),
         "src/repro/kernels/visit_counter.py:329",
     )
-    del graph, winp, lanes, qev, sev, pev, kern, plain, server, results
+    del winp, lanes, qev, sev, pev, kern, plain, server, results
+    torch.cuda.empty_cache()
+
+    # 6. full-width ranked serving ------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    rcfg = ranker.RankerConfig(n_items=graph.n_pins)
+    t = time.perf_counter()
+    rank = ranker.RankRequest(ranker.init_ranker_params(
+        torch.Generator(device=dev).manual_seed(SEED), rcfg), rcfg)
+    torch.cuda.synchronize()
+    table = rank.params["items"]
+    log("ranker", n_items=rcfg.n_items, d_model=rcfg.d_model,
+        n_neighbors=rcfg.n_neighbors, n_candidates=rcfg.n_candidates,
+        final_k=rcfg.final_k, scenarios=list(rcfg.scenarios),
+        table_gb=table.numel() * table.element_size() / 1e9,
+        init_s=time.perf_counter() - t,
+        resident_gb=torch.cuda.memory_allocated() / 1e9)
+    rwalk = dataclasses.replace(cfg, top_k=rcfg.n_candidates)
+    scen = [rid % 2 for rid in range(len(reqs))]
+    service.serve_batch(graph, *padded_batch(reqs[:1], shape.n_slots, dev),
+                        prng.key(SEED, dev), rwalk, rank=rank)   # warm-up
+    rserver = PixieServer(graph, rwalk, buckets=[(1, shape.n_slots)],
+                          seed=SEED, ranker=rank)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    ranked = []
+    for rid, (p, w, f) in enumerate(reqs):
+        rserver.submit(p, w, user_feat=f, req_id=rid, scenario=scen[rid])
+        rserver.pump()
+        ranked += rserver.harvest()
+    torch.cuda.synchronize()
+    ranked_launches = dict(_build.launches)
+    for name in ("walk_steps_fused", "visit_counter_update_high", "embedding_bag"):
+        if ranked_launches[name] == 0:
+            raise AssertionError(f"the full-width ranked run never launched {name}")
+    server_key = prng.key(SEED, dev)
+    for r in ranked:
+        check_ranked(r.scores, r.ids, rcfg.final_k, graph.n_pins, f"ranked {r.req_id}")
+        batch = padded_batch([reqs[r.req_id]], shape.n_slots, dev)
+        keys = prng.fold_in(server_key, r.req_id)[None, :]
+        sc = torch.tensor([scen[r.req_id]], dtype=torch.int32, device=dev)
+        kern = service.serve_batch(graph, *batch, keys, rwalk, backend="pallas",
+                                   rank=rank, scenario=sc, with_stats=True)
+        assert_same(kern, ranked_plain(graph, rank, *batch, keys, rwalk, sc),
+                    f"full-width ranked request {r.req_id}")
+        if not (np.array_equal(kern[0][0].cpu().numpy(), r.scores)
+                and np.array_equal(kern[1][0].cpu().numpy(), r.ids)):
+            raise AssertionError(f"ranked request {r.req_id}: server differs from serve_batch")
+    rlat = [r.latency_ms for r in ranked]
+    r_p50 = float(np.percentile(rlat, 50))
+    split = ranked_split_ms(
+        graph, rank, *padded_batch(reqs[:1], shape.n_slots, dev),
+        prng.fold_in(server_key, 0)[None, :], rwalk,
+        torch.zeros(1, dtype=torch.int32, device=dev))
+    log("ranked", requests=len(ranked), p50_ms=r_p50, max_ms=float(np.max(rlat)),
+        latencies_ms=rlat, split_ms=split, launches=ranked_launches,
+        identical_to_plain=True,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        resident_gb=torch.cuda.memory_allocated() / 1e9)
+
+    # 7. open loop on the full-width ranked replica ----------------------------------
+    offered = 0.5 * 1000.0 / r_p50
+    oreqs = traffic.poisson_requests(
+        connected_pins(graph, 1024), traffic.OpenLoopConfig(
+            offered_qps=offered, n_requests=OPEN_LOOP_REQUESTS, seed=SEED,
+            max_pins=shape.n_slots, n_feats=4))
+    oserver = PixieServer(
+        graph, rwalk, buckets=[(1, shape.n_slots)], seed=SEED, ranker=rank,
+        resilience=ResilienceConfig(elastic=False, max_queue_per_bucket=8))
+    _build.reset_launches()
+    t = time.perf_counter()
+    report = traffic.run_open_loop(oserver, oreqs)
+    torch.cuda.synchronize()
+    open_wall = time.perf_counter() - t
+    open_launches = dict(_build.launches)
+    if report.n_served + report.n_dropped != OPEN_LOOP_REQUESTS or not report.n_served:
+        raise AssertionError(f"open loop: {report.summary()}")
+    for r in report.results.values():
+        check_ranked(r.scores, r.ids, rcfg.final_k, graph.n_pins, f"open-loop {r.req_id}")
+    log("open_loop", offered_qps=report.offered_qps, target_qps=offered,
+        achieved_qps=report.achieved_qps, served=report.n_served,
+        dropped=report.n_dropped, rejected=report.n_rejected,
+        drop_rate=report.drop_rate, p50_ms=report.percentile(50),
+        p99_ms=report.percentile(99), max_ms=float(report.latency_ms.max()),
+        mean_wait_ms=float(report.wait_ms.mean()),
+        mean_queue_ms=float(report.queue_ms.mean()),
+        mean_compute_ms=float(report.compute_ms.mean()),
+        p99_compute_ms=float(np.percentile(report.compute_ms, 99)),
+        batches=oserver.stats.batches, makespan_s=report.makespan_s,
+        wall_s=open_wall, launches=open_launches)
+
+    # 8. the bag kernel at the ranked path's shapes, then edge shapes -----------------
+    s0, i0 = service.serve_batch(
+        graph, *padded_batch(reqs[:1], shape.n_slots, dev),
+        prng.fold_in(server_key, 0)[None, :], rwalk)
+    nbr_ids, nbr_w = ranker.candidate_neighborhoods(graph, i0, s0 > 0,
+                                                    rcfg.n_neighbors)
+    q_ids, q_w = ranker.query_bag(i0, s0)
+    nbr = time_bag(table, nbr_ids, nbr_w, "mean", "neighbor bag")
+    qry = time_bag(table, q_ids, q_w, "mean", "query bag")
+    n_edge = check_edge_bags(dev)
+    bag_row = dict(
+        name="embedding_bag", route="cuda",
+        source="src/repro_torch/kernels/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag.py:108",
+        launches=None, max_abs_err=0.0,
+        **{k: nbr[k] + qry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="bytes",
+    )
+    log("bag_kernel", main_shapes=[list(nbr_ids.shape), list(q_ids.shape)],
+        identical=True, edge_cases_identical=n_edge,
+        row_is="the sum of the two launches of one ranked request")
+    del graph, rank, table, rserver, oserver, report, ranked, kern
+    del s0, i0, nbr_ids, nbr_w, q_ids, q_w
     torch.cuda.empty_cache()
 
     # 4. batched qid lanes, count_boards -----------------------------------------
@@ -560,7 +1039,8 @@ def main() -> int:
         outs[backend] = sorted(srv.harvest(), key=lambda r: r.req_id)
         torch.cuda.synchronize()
         batch_launches[backend] = dict(_build.launches)
-    if any(batch_launches["pallas"][k] == 0 for k in batch_launches["pallas"]):
+    if any(batch_launches["pallas"][k] == 0 for k in
+           ("walk_steps_fused", "visit_counter_update_high", "visit_counter_wide")):
         raise AssertionError(f"batched run missed a kernel: {batch_launches['pallas']}")
     if any(batch_launches["xla"].values()):
         raise AssertionError("the plain path launched a kernel")
@@ -593,11 +1073,51 @@ def main() -> int:
         "src/repro/kernels/visit_counter.py:196",
     )
 
-    # 6. the kernels line -----------------------------------------------------------
-    for row in (walk_row, high_row, wide_row):
-        row["launches"] = (serve_launches[row["name"]]
-                           + batch_launches["pallas"][row["name"]])
-    print(json.dumps({"kernels": [walk_row, high_row, wide_row]}), flush=True)
+    # 9. batched ranked serving and multi-interest users -----------------------------
+    rcfg20 = ranker.RankerConfig(n_items=sg.graph.n_pins)
+    rank20 = ranker.RankRequest(ranker.init_ranker_params(
+        torch.Generator(device=dev).manual_seed(SEED + 2), rcfg20), rcfg20)
+    rscen = [rid % 2 for rid in range(len(breqs))]
+    routs, rlaunches = {}, {}
+    for backend in ("pallas", "xla"):
+        srv = PixieServer(sg.graph, cfg, buckets=[(16, 4), (8, 8)], seed=SEED,
+                          backend=backend, ranker=rank20)
+        _build.reset_launches()
+        routs[backend] = serve_requests(srv, breqs, rscen)
+        torch.cuda.synchronize()
+        rlaunches[backend] = dict(_build.launches)
+    if any(rlaunches["pallas"][k] == 0 for k in
+           ("walk_steps_fused", "visit_counter_update_high", "embedding_bag")):
+        raise AssertionError(f"batched ranked run missed a kernel: {rlaunches['pallas']}")
+    if rlaunches["xla"]["walk_steps_fused"] or rlaunches["xla"]["visit_counter_update_high"]:
+        raise AssertionError("the plain walk launched a walk kernel")
+    assert_results_equal(routs["pallas"], routs["xla"], "batched ranked backends")
+    oracle = PixieServer(sg.graph, cfg, buckets=[(8, 8)], seed=SEED, ranker=rank20)
+    for rid, (p, w, f) in enumerate(breqs):
+        oracle.submit(p, w, user_feat=f, now=0.0, req_id=rid, scenario=rscen[rid])
+    assert_results_equal(routs["pallas"], oracle.flush(now=0.0), "ranked flush oracle")
+    for r in routs["pallas"]:
+        if r.ids.shape != (rcfg20.final_k,) or not np.isfinite(r.scores).all():
+            raise AssertionError(f"batched ranked {r.req_id}: bad result")
+    log("batched_ranked", requests=len(breqs), identical=True,
+        flush_oracle_identical=True, launches=rlaunches["pallas"])
+    user_launches = multi_interest_users(sg, cfg, rank20, dev)
+
+    # 10. chaos on the 20k retrieval replica --------------------------------------
+    chaos_launches = chaos_runs(sg, cfg, dev)
+
+    # the kernels line ---------------------------------------------------------------
+    paths = [serve_launches, batch_launches["pallas"], ranked_launches,
+             open_launches, rlaunches["pallas"], user_launches, chaos_launches]
+    for row in (walk_row, high_row, wide_row, bag_row):
+        row["launches"] = sum(p[row["name"]] for p in paths)
+    if bag_row["launches"] == 0 or ranked_launches["embedding_bag"] == 0:
+        raise AssertionError("the embedding bag never launched on the ranked path")
+    log("launches", retrieval=serve_launches, batched=batch_launches["pallas"],
+        ranked=ranked_launches, open_loop=open_launches,
+        batched_ranked=rlaunches["pallas"], users=user_launches,
+        chaos=chaos_launches)
+    print(json.dumps({"kernels": [walk_row, high_row, wide_row, bag_row]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

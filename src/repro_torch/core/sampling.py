@@ -9,10 +9,9 @@ in the same order:
 
   * every sum over query slots is an explicit left-to-right chain (XLA's
     CPU reduction order for these short rows);
-  * ``log`` is computed in float64 and rounded to float32, so the CPU and
-    the card agree with each other (torch's float32 ``log`` differs
-    between devices; ``jnp.log`` on XLA's CPU is itself not correctly
-    rounded at some integers, e.g. 7 — see ROADMAP Queue 3);
+  * ``log`` is XLA's CPU float32 ``log`` rebuilt op for op (``log_f32``):
+    ``jnp.log`` is not correctly rounded (at 7, for one), and a correctly
+    rounded ``log`` moved an Eq. 2 budget by a step;
   * every argsort is stable, as JAX's is.
 
 All functions take a leading batch shape: the last axis is the query's
@@ -36,9 +35,77 @@ def _sum_last_f32(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+# Cephes' logf polynomial (the form of Eigen's plog that XLA's CPU
+# backend emits), highest degree first, and ln 2 split in two parts
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1 = -2.12194440e-4
+_LOG_Q2 = 0.693359375
+_SQRTHF = 0.707106781186547524
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to the nearest float32, as a Python float."""
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
+def _fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """Correctly rounded float32 ``a * b + c`` (one rounding, as an FMA
+    unit gives), from float64 ops that round alike on every device.
+
+    The product of two float32 values is exact in float64; the float64
+    sum is made round-to-odd (its exact error, from Knuth's two-sum,
+    nudges an even result one ulp toward the exact value), and a
+    round-to-odd float64 rounds to float32 exactly as the exact value
+    would (53 >= 24 + 2 bits).
+    """
+    p = a.double() * (b.double() if torch.is_tensor(b) else float(b))
+    cd = c.double() if torch.is_tensor(c) else torch.full_like(p, float(c))
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf"))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def log_f32(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``log`` rounded from float64: the same bits on every device."""
-    return torch.log(x.double()).float()
+    """float32 ``log`` with the bits of ``jnp.log`` on XLA's CPU.
+
+    XLA's CPU backend emits Cephes' ``logf``: frexp to [0.5, 1), a shift
+    below sqrt(1/2), the degree-8 polynomial in three interleaved Horner
+    parts, and ln 2 added back in two parts.  Its multiply-adds are fused,
+    and so is ``y * x^3 + e * q1``; this function makes the same fused
+    roundings with ``_fma_f32``.  It equals ``jnp.log`` at every integer
+    in [1, 2**24] (checked) and gives the same bits on the CPU and the
+    card.  0 and subnormals give -inf (XLA's CPU flushes subnormals to
+    0), +inf gives +inf, negatives and NaN give NaN.
+    """
+    x = x.float()
+    m, e = torch.frexp(x)
+    e = e.float()
+    below = m < _f32(_SQRTHF)
+    e = e - below.float()
+    m = (m - 1.0) + torch.where(below, m, 0.0)
+    x2 = m * m
+    x3 = x2 * m
+    p = [_f32(c) for c in _LOG_P]
+    y = _fma_f32(m, p[0], p[1])
+    y1 = _fma_f32(m, p[3], p[4])
+    y2 = _fma_f32(m, p[6], p[7])
+    y = _fma_f32(y, m, p[2])
+    y1 = _fma_f32(y1, m, p[5])
+    y2 = _fma_f32(y2, m, p[8])
+    y = _fma_f32(y, x3, y1)
+    y = _fma_f32(y, x3, y2)
+    y = _fma_f32(y, x3, e * _f32(_LOG_Q1))
+    out = (m - x2 * 0.5) + y
+    out = out + e * _f32(_LOG_Q2)
+    out = torch.where(x < 2.0**-126, float("-inf"), out)
+    out = torch.where(x == float("inf"), float("inf"), out)
+    return torch.where((x < 0) | torch.isnan(x), float("nan"), out)
 
 
 def scaling_factor(degree: torch.Tensor, max_degree: IntLike) -> torch.Tensor:

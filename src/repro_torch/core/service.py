@@ -1,27 +1,36 @@
-"""Query construction and batched retrieval serving (paper §5), twin of
-``repro/core/service.py`` (unsharded, unranked).
+"""Query construction and batched serving (paper §5), twin of
+``repro/core/service.py`` (unsharded).
 
 * Homefeed (§5.1): each acted pin gets an action-type weight decayed with
   half-life lambda; the top ``n_slots`` pins form the query.
 * Related pins (§5.2): shorter walks (higher alpha).
 * Board recs (§5.3): board counting on.
+* Multi-interest users (PinnerSage): a user's action history clusters
+  host-side into k interest lanes over pin topic vectors; each lane is one
+  weighted query with its own Eq. 2 step budget, every lane rides the
+  batch axis of one ``serve_batch`` call, and ``walk.merge_interest_topk``
+  merges a user's lanes back (Eq. 3 across clusters).
 
-``serve_batch`` runs one batch of padded queries: the batch-native engine
+````serve_batch`` runs one batch of padded queries: the batch-native engine
 for ``backend="pallas"`` (the hand kernels on the card), or query by
 query for ``backend="xla"`` and for batches whose query-major bins would
-not fit int32.
+not fit int32; with ``rank=`` it runs stage 2 (``serving/ranker.py``) on
+the retrieved candidates.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import prng, walk as walk_lib
+from repro_torch.core.graph import PinBoardGraph
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.serving import ranker as ranker_lib
 
 ACTION_WEIGHTS: Dict[str, float] = {
     "save": 1.0,
@@ -141,6 +150,193 @@ def batch_queries(
     return pins, weights, feats
 
 
+# ---------------------------------------------------------------------------
+# Multi-interest user queries (PinnerSage-style clustering)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class UserQuery:
+    """One user's multi-interest query: k interest-cluster lanes.
+
+    Each row of ``cluster_pins`` / ``cluster_weights`` is a weighted query
+    for one interest cluster; ``importance`` is the cluster's share of the
+    user's action weight, summing to 1.  Lanes are ordered by importance
+    descending (ties: smallest member pin id).
+    """
+
+    cluster_pins: np.ndarray     # (k, n_slots) int32, -1 padded
+    cluster_weights: np.ndarray  # (k, n_slots) float32, 0 padded
+    importance: np.ndarray       # (k,) float32, sums to 1
+    user_feat: int = 0
+
+    @property
+    def n_clusters(self) -> int:
+        return int(self.cluster_pins.shape[0])
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.cluster_pins.shape[1])
+
+
+def _agglomerate(
+    vecs: np.ndarray, mass: np.ndarray, n_clusters: int
+) -> List[List[int]]:
+    """Deterministic weighted-centroid agglomeration to ``n_clusters``:
+    repeatedly merge the pair of clusters with the closest centroids.
+    Distances are float64 and the argmin scans row-major, so ties break on
+    the smallest (i, j)."""
+    members = [[i] for i in range(vecs.shape[0])]
+    cent = np.asarray(vecs, np.float64).copy()
+    mass = np.asarray(mass, np.float64).copy()
+    while len(members) > n_clusters:
+        diff = cent[:, None, :] - cent[None, :, :]
+        d2 = np.einsum("ijk,ijk->ij", diff, diff)
+        iu = np.triu_indices(len(members), k=1)
+        flat = np.full_like(d2, np.inf)
+        flat[iu] = d2[iu]
+        i, j = np.unravel_index(int(np.argmin(flat)), flat.shape)
+        tot = mass[i] + mass[j]
+        cent[i] = (mass[i] * cent[i] + mass[j] * cent[j]) / tot
+        mass[i] = tot
+        members[i] = members[i] + members[j]
+        del members[j]
+        cent = np.delete(cent, j, axis=0)
+        mass = np.delete(mass, j, axis=0)
+    return members
+
+
+def build_user_query(
+    actions: Sequence[UserAction],
+    pin_topics: np.ndarray,   # (n_pins, n_topics) pin embedding table
+    n_slots: int,
+    n_clusters: int = 3,
+    half_life_hours: float = 24.0,
+    default_weight: Optional[float] = None,
+    user_feat: int = 0,
+) -> UserQuery:
+    """Cluster a user's action history into a multi-interest ``UserQuery``.
+
+    The distinct acted pins are clustered over their topic vectors; each
+    cluster becomes a lane of pins with their decayed weights (top
+    ``n_slots`` by weight desc, pin asc) and an importance equal to its
+    share of the total action weight (``math.fsum``).  Users with fewer
+    distinct pins than ``n_clusters`` get one cluster per pin;
+    ``n_clusters=1`` is the flat homefeed query.  Deterministic: the same
+    action multiset gives the same ``UserQuery``.
+    """
+    if n_clusters < 1:
+        raise ValueError(f"n_clusters must be >= 1, got {n_clusters}")
+    acc = _decayed_pin_weights(actions, half_life_hours, default_weight)
+    if not acc:
+        raise ValueError("build_user_query needs at least one action")
+    topics = np.asarray(pin_topics)
+    pins = sorted(acc)
+    if pins[0] < 0 or pins[-1] >= topics.shape[0]:
+        raise ValueError(
+            f"action pin ids span [{pins[0]}, {pins[-1]}] but pin_topics "
+            f"covers [0, {topics.shape[0]})"
+        )
+    w64 = np.array([acc[p] for p in pins], dtype=np.float64)
+    k = min(n_clusters, len(pins))
+    members = _agglomerate(topics[pins].astype(np.float64), w64, k)
+
+    clusters = []
+    for mem in members:
+        mem_pins = sorted(pins[m] for m in mem)
+        imp = math.fsum(acc[p] for p in mem_pins)
+        clusters.append((imp, mem_pins))
+    clusters.sort(key=lambda c: (-c[0], c[1][0]))
+
+    cluster_pins = np.full((k, n_slots), -1, dtype=np.int32)
+    cluster_weights = np.zeros((k, n_slots), dtype=np.float32)
+    imp64 = np.array([c[0] for c in clusters], dtype=np.float64)
+    for ci, (_, mem_pins) in enumerate(clusters):
+        items = sorted(
+            ((p, acc[p]) for p in mem_pins), key=lambda kv: (-kv[1], kv[0])
+        )[:n_slots]
+        for si, (p, w) in enumerate(items):
+            cluster_pins[ci, si] = p
+            cluster_weights[ci, si] = w
+    importance = (imp64 / imp64.sum()).astype(np.float32)
+    return UserQuery(
+        cluster_pins=cluster_pins,
+        cluster_weights=cluster_weights,
+        importance=importance,
+        user_feat=int(user_feat),
+    )
+
+
+def cluster_step_budgets(importance: np.ndarray, n_steps: int) -> np.ndarray:
+    """Eq. 2 at cluster granularity: ``N_c = floor(I_c * N)``, at least 1
+    for a live cluster; every budget is <= ``n_steps``."""
+    imp = np.asarray(importance, np.float32)
+    n_c = np.floor(imp * np.float32(n_steps)).astype(np.int32)
+    return np.where(imp > 0, np.maximum(n_c, 1), 0).astype(np.int32)
+
+
+class UserBatch(NamedTuple):
+    """A batch of multi-interest users flattened to cluster lanes.
+
+    The lane axis L (the sum of every user's k) is ``serve_batch``'s query
+    axis.  ``lane_user`` / ``lane_of_user`` are host-side numpy: the
+    per-user lane map the merge gathers with.
+    """
+
+    pins: torch.Tensor          # (L, n_slots) int32
+    weights: torch.Tensor       # (L, n_slots) float32
+    feats: torch.Tensor         # (L,) int32
+    importance: torch.Tensor    # (L,) float32, per-user normalized
+    step_budgets: torch.Tensor  # (L,) int32 per-lane Eq. 2 totals
+    lane_user: np.ndarray       # (L,) int32 lane -> user index
+    lane_of_user: np.ndarray    # (n_users, k_max) int32 lane ids, -1 pad
+    n_users: int
+
+
+def batch_user_queries(
+    users: Sequence[UserQuery], n_steps: int, device: DeviceLike = None
+) -> UserBatch:
+    """Flatten users -> cluster lanes for one batched call, on ``device``.
+
+    ``n_steps`` is the per-user walk budget (the flat path's
+    ``cfg.n_steps``), split across each user's lanes by importance.
+    """
+    dev = resolve_device(device)
+    if not users:
+        raise ValueError("batch_user_queries needs at least one user")
+    n_slots = users[0].n_slots
+    for i, u in enumerate(users):
+        if u.n_slots != n_slots:
+            raise ValueError(
+                f"user {i} has {u.n_slots} slots but the batch has "
+                f"{n_slots}; build every UserQuery with the same n_slots"
+            )
+    k_max = max(u.n_clusters for u in users)
+    pins, weights, feats, imps, budgets, lane_user = [], [], [], [], [], []
+    lane_of_user = np.full((len(users), k_max), -1, dtype=np.int32)
+    for ui, u in enumerate(users):
+        u_budgets = cluster_step_budgets(u.importance, n_steps)
+        for ci in range(u.n_clusters):
+            lane_of_user[ui, ci] = len(pins)
+            lane_user.append(ui)
+            pins.append(u.cluster_pins[ci])
+            weights.append(u.cluster_weights[ci])
+            feats.append(u.user_feat)
+            imps.append(u.importance[ci])
+            budgets.append(u_budgets[ci])
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return UserBatch(
+        pins=t(np.stack(pins)),
+        weights=t(np.stack(weights)),
+        feats=t(np.asarray(feats, np.int32)),
+        importance=t(np.asarray(imps, np.float32)),
+        step_budgets=t(np.asarray(budgets, np.int32)),
+        lane_user=np.asarray(lane_user, np.int32),
+        lane_of_user=lane_of_user,
+        n_users=len(users),
+    )
+
+
 def serve_batch(
     graph,
     pins: torch.Tensor,        # (batch, n_slots) int32, -1 padded
@@ -151,6 +347,8 @@ def serve_batch(
     backend: Optional[str] = None,
     with_stats: bool = False,
     step_budgets: Optional[torch.Tensor] = None,
+    rank: Optional[ranker_lib.RankRequest] = None,
+    scenario: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """One serving step: Pixie over a whole query batch, on the graph's
     device.
@@ -167,11 +365,33 @@ def serve_batch(
     depends on batch composition).  ``step_budgets`` (optional ``(batch,)``
     int32) overrides each query's Eq. 2 total as data.
 
+    ``rank`` (a ``serving.ranker.RankRequest``) makes the step two-stage:
+    retrieval runs with ``top_k`` overridden to ``rank.cfg.n_candidates``,
+    then ``ranker.rank_candidates`` re-scores the candidates with each
+    request's ``scenario`` head (``(batch,)`` int32; head 0 by default).
+    The returned ``(scores, ids)`` are then ``(batch, final_k)``; the
+    stats stay stage 1's.  The bag op in stage 2 follows the device, not
+    the backend, so both backends give the same ranked bits.
+
     Returns ``(scores, ids)``, plus ``(steps_taken, n_high)`` with
     ``with_stats=True``, each leading with the batch axis.
     """
     if backend is not None and backend != cfg.backend:
         cfg = dataclasses.replace(cfg, backend=backend)
+    if scenario is not None and rank is None:
+        raise ValueError(
+            "scenario= selects a ranker head and needs rank=; a bare "
+            "retrieval step has no scenario axis"
+        )
+    if rank is not None:
+        if not isinstance(graph, PinBoardGraph):
+            raise ValueError(
+                "serve_batch(rank=...) needs the full PinBoardGraph: stage 2 "
+                "gathers candidate neighborhoods from the whole CSR, which a "
+                "node-range shard doesn't hold"
+            )
+        if cfg.top_k != rank.cfg.n_candidates:
+            cfg = dataclasses.replace(cfg, top_k=rank.cfg.n_candidates)
     dev = graph.device
     pins = torch.as_tensor(pins, device=dev)
     weights = torch.as_tensor(weights, device=dev)
@@ -210,6 +430,12 @@ def serve_batch(
         ]
         scores, ids, steps, n_high = (
             torch.stack(parts) for parts in zip(*per_query)
+        )
+    if rank is not None:
+        if scenario is None:
+            scenario = torch.zeros((n_queries,), dtype=torch.int32, device=dev)
+        scores, ids = ranker_lib.rank_candidates(
+            rank.params, rank.cfg, graph, ids, scores, scenario
         )
     if with_stats:
         return scores, ids, steps, n_high

@@ -536,3 +536,88 @@ def recommend_with_stats_batched(
     boosted = counter_lib.boost_combine(res.counts)
     scores, ids = counter_lib.topk_dense(boosted, cfg.top_k)
     return scores, ids, res.steps_taken, res.n_high
+
+
+# ---------------------------------------------------------------------------
+# Multi-interest merge: Eq. 3 across a user's interest-cluster lanes
+# ---------------------------------------------------------------------------
+
+# id-lane sentinel that sorts after every real pin id
+_MERGE_ID_SENTINEL = 2**31 - 1
+
+
+def merge_interest_topk(
+    scores: torch.Tensor,      # (..., k, top_k) float32 per-cluster scores
+    ids: torch.Tensor,         # (..., k, top_k) int32 pin ids, -1 padded
+    importance: torch.Tensor,  # (..., k) float32, 0 for padding lanes
+    top_k: Optional[int] = None,
+):
+    """Merge each user's per-cluster top-k lists: Eq. 3 across clusters,
+    ``V[p] = (sum_c I_c * sqrt(V_c[p]))**2``; leading axes are users.
+
+    The reference's bit-reproducible construction, step for step:
+
+      * entries are put in (id, contribution) order — the reference's
+        two-key ``lax.sort`` as two stable sorts, contribution first,
+        then id;
+      * per-id sums are left-to-right shift-adds (a pin appears in at
+        most k lanes);
+      * the final top-k takes the lower entry index among equal scores,
+        i.e. the lower pin id (``counter.topk_dense``);
+      * a user with exactly one live lane gets that lane verbatim.
+
+    ``sqrt`` is taken in float64 and rounded, as ``jnp.sqrt`` rounds.
+    Returns ``(scores (..., top_k), ids (..., top_k))``, id -1 / score 0
+    padded, ``top_k`` defaulting to the per-lane top_k.
+    """
+    if scores.dim() < 2 or scores.shape != ids.shape:
+        raise ValueError(
+            f"scores/ids must be matching (..., k, top_k), got "
+            f"{tuple(scores.shape)} vs {tuple(ids.shape)}"
+        )
+    k, per_lane_k = scores.shape[-2], scores.shape[-1]
+    lead = scores.shape[:-2]
+    out_k = per_lane_k if top_k is None else top_k
+    live_lane = importance > 0
+    valid = live_lane[..., None] & (ids >= 0) & (scores > 0)
+    root = torch.sqrt(scores.double()).float()
+    contrib = torch.where(valid, importance[..., None] * root, 0.0)
+    contrib = contrib.reshape(*lead, k * per_lane_k)
+    sort_ids = torch.where(valid, ids, _MERGE_ID_SENTINEL).to(torch.int32)
+    sort_ids = sort_ids.reshape(*lead, k * per_lane_k)
+    sc, order = torch.sort(contrib, dim=-1, stable=True)
+    sid = torch.gather(sort_ids, -1, order)
+    sid, order = torch.sort(sid, dim=-1, stable=True)
+    sc = torch.gather(sc, -1, order)
+
+    acc = sc
+    for d in range(1, k):
+        pad_b = torch.zeros((*lead, d), dtype=torch.bool, device=sc.device)
+        pad_f = torch.zeros((*lead, d), dtype=sc.dtype, device=sc.device)
+        same = torch.cat([sid[..., d:] == sid[..., :-d], pad_b], dim=-1)
+        shifted = torch.cat([sc[..., d:], pad_f], dim=-1)
+        acc = acc + torch.where(same, shifted, 0.0)
+
+    first = torch.cat(
+        [torch.ones((*lead, 1), dtype=torch.bool, device=sc.device),
+         sid[..., 1:] != sid[..., :-1]], dim=-1,
+    )
+    owner = first & (sid != _MERGE_ID_SENTINEL)
+    merged = torch.where(owner, acc * acc, float("-inf"))
+    vals, idx = counter_lib.topk_dense(merged, out_k)
+    got = vals > float("-inf")
+    merged_scores = torch.where(got, vals, 0.0).to(scores.dtype)
+    merged_ids = torch.where(
+        got, torch.gather(sid, -1, idx.long()), -1
+    ).to(torch.int32)
+
+    if out_k == per_lane_k:
+        single = live_lane.to(torch.int32).sum(-1) == 1        # lead
+        lane = live_lane.to(torch.int32).argmax(-1)            # lead
+        pick = lane[..., None, None].expand(*lead, 1, per_lane_k)
+        lane_scores = torch.gather(scores, -2, pick)[..., 0, :]
+        lane_ids = torch.gather(ids, -2, pick)[..., 0, :]
+        merged_scores = torch.where(single[..., None], lane_scores, merged_scores)
+        merged_ids = torch.where(single[..., None], lane_ids.to(torch.int32),
+                                 merged_ids)
+    return merged_scores, merged_ids

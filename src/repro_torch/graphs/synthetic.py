@@ -10,7 +10,7 @@ requested device.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,6 +176,93 @@ def small_test_graph(seed: int = 0, device: DeviceLike = None) -> SyntheticGraph
         ),
         device=device,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class UserHistoryConfig:
+    """Knobs of the planted multi-topic user sampler."""
+
+    n_users: int = 16
+    n_interests: int = 3        # planted topics per user
+    mean_actions: int = 30      # Poisson mean actions per user
+    max_age_hours: float = 72.0
+    offtopic_frac: float = 0.1  # actions ignoring the planted interests
+    seed: int = 0
+
+
+class UserHistory(NamedTuple):
+    """One sampled user: an action history plus its planted ground truth."""
+
+    actions: list              # List[service.UserAction]
+    topics: np.ndarray         # (n_interests,) planted interest topic ids
+    mixture: np.ndarray        # (n_interests,) interest mixture weights
+
+
+_ACTION_TYPES = ("save", "click", "like", "view")
+_ACTION_PROBS = (0.3, 0.3, 0.2, 0.2)
+
+
+def sample_user_histories(
+    sg: SyntheticGraph, cfg: UserHistoryConfig
+) -> List[UserHistory]:
+    """Seeded action histories with planted multi-topic users, drawn with
+    the reference's numpy calls in the reference's order, so a seed gives
+    the reference's histories.
+
+    Each user gets ``n_interests`` distinct planted topics and a Dirichlet
+    mixture over them; each action picks a planted topic by the mixture
+    (or, with ``offtopic_frac``, any connected pin), then a pin of that
+    topic weighted by graph degree.
+    """
+    from repro_torch.core.service import UserAction
+
+    if cfg.n_interests < 1:
+        raise ValueError(f"n_interests must be >= 1, got {cfg.n_interests}")
+    rng = np.random.default_rng(cfg.seed)
+    nt = sg.pin_topics.shape[1]
+    if cfg.n_interests > nt:
+        raise ValueError(
+            f"n_interests={cfg.n_interests} exceeds the graph's "
+            f"{nt} topics"
+        )
+    pin_main_topic = sg.pin_topics.argmax(axis=1)
+    degs = sg.graph.p2b.degrees().cpu().numpy().astype(np.float64)
+    pools, pool_probs = [], []
+    for t in range(nt):
+        pool = np.where((pin_main_topic == t) & (degs > 0))[0]
+        pools.append(pool)
+        w = degs[pool] if pool.size else None
+        pool_probs.append(w / w.sum() if pool.size else None)
+    plantable = np.array([t for t in range(nt) if pools[t].size > 0])
+    if plantable.size < cfg.n_interests:
+        raise ValueError(
+            f"only {plantable.size} topics have connected pins; cannot "
+            f"plant {cfg.n_interests} interests per user"
+        )
+    connected = np.where(degs > 0)[0]
+    conn_probs = degs[connected] / degs[connected].sum()
+
+    users: List[UserHistory] = []
+    for _ in range(cfg.n_users):
+        topics = rng.choice(plantable, size=cfg.n_interests, replace=False)
+        mixture = rng.dirichlet(np.full(cfg.n_interests, 2.0))
+        n_actions = max(cfg.n_interests, int(rng.poisson(cfg.mean_actions)))
+        actions = []
+        for _ in range(n_actions):
+            if rng.random() < cfg.offtopic_frac:
+                pin = int(rng.choice(connected, p=conn_probs))
+            else:
+                t = int(topics[rng.choice(cfg.n_interests, p=mixture)])
+                pin = int(rng.choice(pools[t], p=pool_probs[t]))
+            kind = str(rng.choice(_ACTION_TYPES, p=_ACTION_PROBS))
+            age = float(rng.uniform(0.0, cfg.max_age_hours))
+            actions.append(UserAction(pin=pin, action=kind, age_hours=age))
+        users.append(UserHistory(
+            actions=actions,
+            topics=np.asarray(topics, np.int32),
+            mixture=mixture.astype(np.float32),
+        ))
+    return users
 
 
 def top_degree_pins(sg: SyntheticGraph, k: int = 16) -> np.ndarray:

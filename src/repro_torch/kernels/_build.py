@@ -32,12 +32,13 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("walk_steps_fused", "visit_counter")
+SOURCES = ("walk_steps_fused", "visit_counter", "embedding_bag")
 
 launches: Dict[str, int] = {
     "walk_steps_fused": 0,
     "visit_counter_update_high": 0,
     "visit_counter_wide": 0,
+    "embedding_bag": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -9,6 +9,11 @@ device of the tensors decides.  Every op takes ``use_kernel``:
     for a CPU tensor, and an error for any other device.  There is no
     fallback: a CUDA tensor whose kernel fails to build or launch raises.
 
+The bag ops default to ``use_kernel=True``: the device decides, never the
+walk backend, so both walk backends share one stage 2 on a device and
+ranked serving keeps the walk's bit parity (the reference's rule,
+``repro/kernels/ops.py:334``).
+
 The reference's ``block_w`` and ``gather_mode`` are TPU knobs (walkers per
 grid cell; blocking scalar loads vs. the double-buffered DMA pipeline).
 The CUDA walk kernel has one design for every value of both, so they are
@@ -21,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import visit_counter as vc
 from repro_torch.kernels import walk_step as ws
 
@@ -113,3 +119,34 @@ def walk_chunk_fused_batched(
                                    qid, **kw)
     return ws.walk_chunk_batched_plain(curr, query, feat, slot, qid, rbits,
                                        *csr, **kw)
+
+
+def embedding_bag(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    *,
+    mode: str = "sum",
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Pooled (sum/mean) embedding lookup: ``(n, l)`` bags -> ``(n, d)``."""
+    fn = eb.embedding_bag if _kernel_for(use_kernel, table) else (
+        eb.embedding_bag_plain
+    )
+    return fn(table, ids, weights, mode=mode)
+
+
+def embedding_bag_batched(
+    table: torch.Tensor,
+    ids: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    *,
+    mode: str = "sum",
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Query-batched pooled lookup: ``(b, k, l)`` bags -> ``(b, k, d)``;
+    the two-stage serving path's bag op."""
+    fn = eb.embedding_bag_batched if _kernel_for(use_kernel, table) else (
+        eb.embedding_bag_batched_plain
+    )
+    return fn(table, ids, weights, mode=mode)

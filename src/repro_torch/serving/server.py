@@ -1,5 +1,5 @@
-"""Pixie serving replica (paper §3.3 "Pixie Server"), twin of the retrieval
-part of ``repro/serving/server.py``.
+"""Pixie serving replica (paper §3.3 "Pixie Server"), twin of the
+unsharded part of ``repro/serving/server.py``.
 
   * requests route into shape buckets, ``(batch_size, n_slots)`` pairs: a
     request goes to the smallest bucket whose ``n_slots`` fits its pins;
@@ -15,7 +15,21 @@ part of ``repro/serving/server.py``.
     ``block_until_ready`` in the reference);
   * ``swap_graph`` is the daily reload behind a generation barrier: queued
     requests dispatch on the old graph first, and each result carries the
-    generation its batch dispatched under.
+    generation its batch dispatched under;
+  * ``ranker=`` makes a two-stage replica: every batch runs retrieval and
+    the scenario ranker heads, and ``submit(scenario=...)`` picks each
+    request's head;
+  * ``pin_topics=`` opens the multi-interest intake (``submit_user``): a
+    user's history clusters into interest lanes, each lane is queued like
+    a request with an importance-scaled budget, and ``harvest`` merges a
+    user's lanes once all have returned;
+  * ``max_queue_per_bucket`` bounds admission (a full queue refuses the
+    request, counted per bucket), and ``resilience=`` sheds step budgets
+    of requests that waited past ``shed_start_ms`` (serving/resilience.py).
+
+Shard liveness (``kill_shard``) belongs to a sharded replica, which the
+port does not have yet: on this replica those calls raise, as the
+reference's do on an unsharded graph.
 
 Latency per query = queue wait (logical clock, stamped at ``submit``) +
 compute (wall clock from dispatch to the end of ``harvest``'s wait).
@@ -32,6 +46,7 @@ import torch
 
 from repro_torch.core import prng, service, walk as walk_lib
 from repro_torch.core.graph import PinBoardGraph
+from repro_torch.serving.resilience import ResilienceConfig, elastic_step_budget
 
 # the padding lanes' stream: fold_in(server_key, int32 max)
 _PAD_REQ = 2**31 - 1
@@ -86,7 +101,10 @@ class LatencyRing:
 @dataclasses.dataclass
 class ServerStats:
     """Serving telemetry with bounded memory; ``latencies_ms[i] =
-    wait_ms[i] + compute_ms[i]`` per query."""
+    wait_ms[i] + compute_ms[i]`` per query.  ``dropped`` counts all refused
+    work (admission rejections and the traffic harness's sheds);
+    ``rejected`` breaks the admission rejections down by bucket
+    (``n_slots``)."""
 
     capacity: int = 4096
     latencies_ms: LatencyRing = None
@@ -94,6 +112,8 @@ class ServerStats:
     compute_ms: LatencyRing = None
     queries: int = 0
     batches: int = 0
+    dropped: int = 0
+    rejected: Dict[int, int] = None
     graph_generation: int = 0
 
     def __post_init__(self):
@@ -103,6 +123,13 @@ class ServerStats:
             self.wait_ms = LatencyRing(self.capacity)
         if self.compute_ms is None:
             self.compute_ms = LatencyRing(self.capacity)
+        if self.rejected is None:
+            self.rejected = {}
+
+    @property
+    def rejected_total(self) -> int:
+        """Admission rejections across every bucket."""
+        return sum(self.rejected.values())
 
     def percentile(self, p: float, which: str = "latency") -> float:
         ring = {
@@ -158,7 +185,29 @@ class _Pending:
     feat: int
     key: torch.Tensor     # (2,) per-request PRNG key (fold_in at submit)
     t_enqueue: float      # logical seconds (wall by default)
+    scenario: int = 0     # ranker head index (ranked replicas only)
     budget: int = 0       # Eq. 2 step total (0 = cfg.n_steps)
+    user_id: Optional[int] = None   # owning user (cluster lanes)
+    cluster_idx: int = 0  # lane index within the owning user
+
+
+@dataclasses.dataclass
+class _UserAssembly:
+    """One multi-interest user awaiting its lanes.  ``generation`` is
+    stamped at ``submit_user``: ``swap_graph`` drains every queue before
+    the handle moves, so all lanes run under it."""
+
+    n_clusters: int
+    importance: np.ndarray           # (k,) float32, normalized
+    t_enqueue: float
+    generation: int
+    parts: Dict[int, Tuple[np.ndarray, np.ndarray]] = dataclasses.field(
+        default_factory=dict
+    )
+    wait_ms: float = 0.0
+    compute_ms: float = 0.0
+    batch_seq: int = -1
+    budget: int = 0                  # summed dispatched lane budgets
 
 
 @dataclasses.dataclass
@@ -187,16 +236,69 @@ class PixieServer:
         backend: Optional[str] = None,
         buckets: Optional[Sequence[Tuple[int, int]]] = None,
         max_wait_ms: float = 5.0,
+        max_queue_per_bucket: Optional[int] = None,
         stats_capacity: int = 4096,
+        ranker=None,
+        pin_topics: Optional[np.ndarray] = None,
+        n_clusters: int = 3,
+        resilience: Optional[ResilienceConfig] = None,
     ):
         """Serve ``graph`` on its device.  ``backend`` overrides
         ``cfg.backend``; ``buckets`` is the ``(batch_size, n_slots)`` shape
         table (``None``: the single bucket ``(batch_size, n_slots)``);
-        ``max_wait_ms`` is the batch-formation deadline.  Production
-        configs (``configs.pixie.FULL_WALK``) carry ``backend="pallas"``,
-        the hand kernels; ``"xla"`` selects the plain twins, the oracle."""
+        ``max_wait_ms`` is the batch-formation deadline;
+        ``max_queue_per_bucket`` bounds each bucket's queue (a full queue
+        refuses the request: ``submit`` returns None).  Production configs
+        (``configs.pixie.FULL_WALK``) carry ``backend="pallas"``, the hand
+        kernels; ``"xla"`` selects the plain twins, the oracle.
+
+        ``ranker`` (a ``serving.ranker.RankRequest``) makes a two-stage
+        replica: each batch runs retrieval with ``top_k`` overridden to
+        ``ranker.cfg.n_candidates`` and then the scenario heads; results
+        are ``final_k`` wide.  ``pin_topics`` opens ``submit_user`` with up
+        to ``n_clusters`` interest lanes per user; it cannot be combined
+        with ``ranker`` (rank a merged set with
+        ``recommend.recommend_multi_interest(rank=...)``).  ``resilience``
+        turns on the elastic shed; a ranked replica carries no budgets and
+        needs ``ResilienceConfig(elastic=False)``."""
         if backend is not None and backend != cfg.backend:
             cfg = dataclasses.replace(cfg, backend=backend)
+        if pin_topics is not None and ranker is not None:
+            raise ValueError(
+                "a multi-interest replica can't rank in-batch: stage 2 "
+                "re-scores the MERGED per-user candidate bag, which only "
+                "exists after harvest; rank via "
+                "recommend.recommend_multi_interest(rank=...) instead"
+            )
+        if n_clusters < 1:
+            raise ValueError(f"n_clusters must be >= 1, got {n_clusters}")
+        if resilience is not None:
+            if ranker is not None and resilience.elastic:
+                raise ValueError(
+                    "elastic shedding rides the step_budgets axis, which a "
+                    "ranked replica's batches don't carry (its batch axis "
+                    "is scenario); use ResilienceConfig(elastic=False) for "
+                    "admission-only"
+                )
+            if resilience.max_queue_per_bucket is not None:
+                if (max_queue_per_bucket is not None
+                        and max_queue_per_bucket
+                        != resilience.max_queue_per_bucket):
+                    raise ValueError(
+                        f"max_queue_per_bucket given twice and disagreeing: "
+                        f"server={max_queue_per_bucket} vs "
+                        f"resilience={resilience.max_queue_per_bucket}"
+                    )
+                max_queue_per_bucket = resilience.max_queue_per_bucket
+        self.pin_topics = (
+            None if pin_topics is None else np.asarray(pin_topics)
+        )
+        self.n_clusters = int(n_clusters)
+        self.ranker = ranker
+        self.resilience = resilience
+        self.max_queue_per_bucket = max_queue_per_bucket
+        # ranked batches carry scenarios instead of step budgets
+        self._takes_budgets = ranker is None
         self.graph = graph
         self.cfg = cfg
         self.batch_size = batch_size
@@ -230,6 +332,7 @@ class PixieServer:
             s: [] for _, s in self._buckets
         }
         self._inflight: List[_InFlight] = []
+        self._users: Dict[int, _UserAssembly] = {}
 
     # -- request path ---------------------------------------------------------
     def _route(self, n_pins: int) -> Tuple[int, int]:
@@ -251,13 +354,19 @@ class PixieServer:
         user_feat: int = 0,
         now: Optional[float] = None,
         req_id: Optional[int] = None,
+        scenario: int = 0,
         budget: Optional[int] = None,
-    ) -> int:
-        """Enqueue one request; returns its id.
+    ) -> Optional[int]:
+        """Enqueue one request; returns its id, or None when its bucket's
+        queue is full (counted in ``stats.dropped`` and
+        ``stats.rejected``).
 
-        ``budget`` pins its Eq. 2 step total (1..cfg.n_steps); ``now``
-        injects a logical clock (default: wall time); ``req_id`` overrides
-        the auto-assigned id, which seeds the request's PRNG stream.
+        ``scenario`` picks the ranker head on a two-stage replica
+        (``ranker.cfg.scenario_id`` maps names to indices); ``budget`` pins
+        the Eq. 2 step total (1..cfg.n_steps) on a replica that carries
+        budgets; ``now`` injects a logical clock (default: wall time);
+        ``req_id`` overrides the auto-assigned id, which seeds the
+        request's PRNG stream.
         """
         if len(weights) != len(pins):
             raise ValueError(
@@ -265,11 +374,27 @@ class PixieServer:
                 "one weight per pin required (mismatched lengths silently "
                 "misalign weights to the wrong pins)"
             )
+        if self.ranker is None:
+            if scenario != 0:
+                raise ValueError(
+                    f"scenario={scenario} on a retrieval-only server; pass "
+                    "ranker= to PixieServer to open the scenario axis"
+                )
+        elif not 0 <= int(scenario) < self.ranker.cfg.n_scenarios:
+            raise ValueError(
+                f"scenario={scenario} out of range for heads "
+                f"{list(self.ranker.cfg.scenarios)}"
+            )
         if budget is not None and not 1 <= int(budget) <= self.cfg.n_steps:
             raise ValueError(
                 f"budget={budget} outside [1, cfg.n_steps="
                 f"{self.cfg.n_steps}]: the engine's chunk grid is sized "
                 "for cfg.n_steps and a zero-step walk is a drop"
+            )
+        if budget is not None and not self._takes_budgets:
+            raise ValueError(
+                "a ranked replica's batches carry no budgets; per-request "
+                "budgets need a plain or multi-interest replica"
             )
         n = len(pins)
         _, slots = self._route(n)
@@ -280,15 +405,94 @@ class PixieServer:
             self._seq += 1
         else:
             self._seq = max(self._seq, req_id + 1)
+        queue = self._queues[slots]
+        if (self.max_queue_per_bucket is not None
+                and len(queue) >= self.max_queue_per_bucket):
+            self._reject(slots)
+            return None
         qp = np.full(slots, -1, np.int32)
         qw = np.zeros(slots, np.float32)
         qp[:n] = np.asarray(pins, np.int32)
         qw[:n] = np.asarray(weights, np.float32)
-        self._queues[slots].append(_Pending(
+        queue.append(_Pending(
             req_id=req_id, pins=qp, weights=qw, feat=int(user_feat),
             key=prng.fold_in(self._key, req_id), t_enqueue=now,
+            scenario=int(scenario),
             budget=0 if budget is None else int(budget),
         ))
+        return req_id
+
+    def _reject(self, slots: int) -> None:
+        self.stats.dropped += 1
+        self.stats.rejected[slots] = self.stats.rejected.get(slots, 0) + 1
+
+    def submit_user(
+        self,
+        actions: Sequence[service.UserAction],
+        user_feat: int = 0,
+        now: Optional[float] = None,
+        req_id: Optional[int] = None,
+        half_life_hours: float = 24.0,
+    ) -> Optional[int]:
+        """Enqueue one multi-interest user (an action history).
+
+        The history clusters into up to ``n_clusters`` lanes
+        (``service.build_user_query`` over ``pin_topics``); each lane is
+        queued like a request in the smallest bucket fitting its own pins,
+        with the importance-scaled budget of
+        ``service.cluster_step_budgets`` and the key
+        ``fold_in(fold_in(server_key, req_id), cluster_idx)``.  ``harvest``
+        emits one merged result under the returned id once every lane has
+        returned.  Admission is all or nothing: if any lane would overflow
+        its bucket the whole user is refused (None, one ``stats.dropped``).
+        """
+        if self.pin_topics is None:
+            raise ValueError(
+                "submit_user needs a multi-interest replica; pass "
+                "pin_topics= to PixieServer to open the clustered intake"
+            )
+        uq = service.build_user_query(
+            actions, self.pin_topics, n_slots=self.max_slots,
+            n_clusters=self.n_clusters, half_life_hours=half_life_hours,
+            user_feat=user_feat,
+        )
+        budgets = service.cluster_step_budgets(uq.importance, self.cfg.n_steps)
+        if now is None:
+            now = time.perf_counter()
+        if req_id is None:
+            req_id = self._seq
+            self._seq += 1
+        else:
+            self._seq = max(self._seq, req_id + 1)
+        lanes = []
+        demand: Dict[int, int] = {}
+        for ci in range(uq.n_clusters):
+            n = int(np.sum(uq.cluster_pins[ci] >= 0))
+            _, slots = self._route(n)
+            demand[slots] = demand.get(slots, 0) + 1
+            lanes.append((ci, slots, n))
+        if self.max_queue_per_bucket is not None:
+            for slots, extra in demand.items():
+                if len(self._queues[slots]) + extra > self.max_queue_per_bucket:
+                    self._reject(slots)
+                    return None
+        user_key = prng.fold_in(self._key, req_id)
+        for ci, slots, n in lanes:
+            qp = np.full(slots, -1, np.int32)
+            qw = np.zeros(slots, np.float32)
+            qp[:n] = uq.cluster_pins[ci][:n]
+            qw[:n] = uq.cluster_weights[ci][:n]
+            self._queues[slots].append(_Pending(
+                req_id=req_id, pins=qp, weights=qw, feat=int(user_feat),
+                key=prng.fold_in(user_key, ci), t_enqueue=now,
+                budget=int(budgets[ci]), user_id=req_id, cluster_idx=ci,
+            ))
+        self._users[req_id] = _UserAssembly(
+            n_clusters=uq.n_clusters,
+            importance=np.asarray(uq.importance, np.float32),
+            t_enqueue=now,
+            generation=self.stats.graph_generation,
+        )
         return req_id
 
     # -- batch formation ------------------------------------------------------
@@ -303,22 +507,39 @@ class PixieServer:
         pins = np.full((batch_size, slots), -1, np.int32)
         weights = np.zeros((batch_size, slots), np.float32)
         feats = np.zeros((batch_size,), np.int32)
-        budgets = np.full((batch_size,), self.cfg.n_steps, np.int32)
+        scen = np.zeros((batch_size,), np.int32)
         for i, e in enumerate(entries):
             pins[i] = e.pins
             weights[i] = e.weights
             feats[i] = e.feat
-            budgets[i] = e.budget if e.budget else self.cfg.n_steps
+            scen[i] = e.scenario
         keys = torch.stack([e.key for e in entries] + [self._pad_key] * pad)
         dev = self.graph.device
+        extra = {}
+        if self._takes_budgets:
+            rcfg = self.resilience
+            shed = rcfg is not None and rcfg.elastic
+            budgets = np.full((batch_size,), self.cfg.n_steps, np.int32)
+            for i, e in enumerate(entries):
+                b = e.budget if e.budget else self.cfg.n_steps
+                if shed:
+                    # queue wait on the logical clock: a replay sheds alike
+                    wait_ms = max(0.0, (now - e.t_enqueue) * 1e3)
+                    b = elastic_step_budget(b, wait_ms, rcfg)
+                budgets[i] = b
+            extra["step_budgets"] = torch.as_tensor(budgets, device=dev)
+            entry_budgets = [int(budgets[i]) for i in range(n_real)]
+        else:
+            extra["rank"] = self.ranker
+            extra["scenario"] = torch.as_tensor(scen, device=dev)
+            entry_budgets = [self.cfg.n_steps] * n_real
         t_wall = time.perf_counter()
         scores, ids = service.serve_batch(
             self.graph,
             torch.as_tensor(pins, device=dev),
             torch.as_tensor(weights, device=dev),
             torch.as_tensor(feats, device=dev),
-            keys.to(dev), self.cfg,
-            step_budgets=torch.as_tensor(budgets, device=dev),
+            keys.to(dev), self.cfg, **extra,
         )
         done = None
         if dev.type == "cuda":
@@ -328,8 +549,7 @@ class PixieServer:
             entries=entries, scores=scores, ids=ids, done=done,
             generation=self.stats.graph_generation,
             t_dispatch=now, t_dispatch_wall=t_wall,
-            batch_seq=self._batch_seq,
-            budgets=[int(budgets[i]) for i in range(n_real)],
+            batch_seq=self._batch_seq, budgets=entry_budgets,
         ))
         self._batch_seq += 1
         self.stats.batches += 1
@@ -369,7 +589,13 @@ class PixieServer:
     def harvest(self) -> List[QueryResult]:
         """Wait for every in-flight batch and account latency per query:
         ``wait = dispatch - enqueue`` (logical clock), ``compute`` = wall
-        time from dispatch to completion, ``latency = wait + compute``."""
+        time from dispatch to completion, ``latency = wait + compute``.
+
+        A cluster lane parks in its user's assembly; a user whose lanes
+        have all returned is emitted as one result merged by
+        ``walk.merge_interest_topk`` (on the host), with the max wait and
+        compute over its lanes, the last lane's ``batch_seq``, the summed
+        lane budgets and the generation stamped at ``submit_user``."""
         out: List[QueryResult] = []
         for fl in self._inflight:
             if fl.done is not None:
@@ -379,6 +605,14 @@ class PixieServer:
             s_np, i_np = fl.scores.cpu().numpy(), fl.ids.cpu().numpy()
             for i, e in enumerate(fl.entries):
                 wait_ms = max(0.0, (fl.t_dispatch - e.t_enqueue) * 1e3)
+                if e.user_id is not None:
+                    asm = self._users[e.user_id]
+                    asm.parts[e.cluster_idx] = (s_np[i], i_np[i])
+                    asm.wait_ms = max(asm.wait_ms, wait_ms)
+                    asm.compute_ms = max(asm.compute_ms, compute_ms)
+                    asm.batch_seq = max(asm.batch_seq, fl.batch_seq)
+                    asm.budget += fl.budgets[i]
+                    continue
                 out.append(QueryResult(
                     req_id=e.req_id, scores=s_np[i], ids=i_np[i],
                     generation=fl.generation, wait_ms=wait_ms,
@@ -390,6 +624,26 @@ class PixieServer:
                 self.stats.compute_ms.append(compute_ms)
                 self.stats.latencies_ms.append(wait_ms + compute_ms)
         self._inflight = []
+        done = [rid for rid, a in self._users.items()
+                if len(a.parts) == a.n_clusters]
+        for rid in sorted(done):
+            asm = self._users.pop(rid)
+            lanes = range(asm.n_clusters)
+            ms, mi = walk_lib.merge_interest_topk(
+                torch.from_numpy(np.stack([asm.parts[c][0] for c in lanes])),
+                torch.from_numpy(np.stack([asm.parts[c][1] for c in lanes])),
+                torch.from_numpy(asm.importance),
+            )
+            out.append(QueryResult(
+                req_id=rid, scores=ms.numpy(), ids=mi.numpy(),
+                generation=asm.generation, wait_ms=asm.wait_ms,
+                compute_ms=asm.compute_ms, batch_seq=asm.batch_seq,
+                budget=asm.budget,
+            ))
+            self.stats.queries += 1
+            self.stats.wait_ms.append(asm.wait_ms)
+            self.stats.compute_ms.append(asm.compute_ms)
+            self.stats.latencies_ms.append(asm.wait_ms + asm.compute_ms)
         return out
 
     def flush(self, now: Optional[float] = None) -> List[QueryResult]:
@@ -418,3 +672,19 @@ class PixieServer:
                 self._dispatch(batch_size, slots, now)
         self.graph = new_graph
         self.stats.graph_generation += 1
+
+    # -- shard liveness --------------------------------------------------------
+    def kill_shard(self, shard: int, at_superstep: int = 0) -> None:
+        """Shard deaths need a sharded replica; this one holds the whole
+        graph, so it raises (as the reference's unsharded replica does)."""
+        raise ValueError(
+            "kill_shard needs a sharded replica; a plain graph has no "
+            "shards to lose"
+        )
+
+    def revive_shards(self) -> None:
+        raise ValueError("revive_shards needs a sharded replica")
+
+    def dead_shards(self) -> List[int]:
+        """Shards currently marked dead: none on an unsharded replica."""
+        return []

@@ -9,7 +9,10 @@ with
 
 Integer outputs must match exactly: the kernels and the twins do the same
 integer arithmetic on the same random bits, and every count increment is
-1, so the atomics' order cannot show.
+1, so the atomics' order cannot show.  The embedding bag must match its
+twin bit for bit too: both round every multiply, add and divide in the
+same order (the kernel with ``_rn`` intrinsics, so nothing becomes an
+FMA), and ranked serving through it must equal the plain path.
 """
 
 import dataclasses
@@ -20,7 +23,9 @@ import torch
 
 from repro_torch.core import prng, service, walk
 from repro_torch.graphs import synthetic
+from repro_torch.serving import ranker
 from repro_torch.kernels import _build
+from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import visit_counter as vc
 from repro_torch.kernels import walk_step as ws
 
@@ -196,3 +201,94 @@ def test_serve_batch_kernel_path_matches_plain_path(sg, count_boards):
                               with_stats=True)
     for a, b in zip(got, cpu):
         assert torch.equal(a.cpu(), b)
+
+
+# the bag shapes of chip_smoke.py's kernel check: the ranked main path's
+# neighbor bag (1, 64, 8) and query bag (1, 1, 64), then edge shapes
+BAG_CASES = [
+    ("float32", 32, (1, 64, 8)),
+    ("float32", 32, (1, 1, 64)),
+    ("bfloat16", 32, (4, 16, 8)),
+    ("float32", 48, (3, 7, 5)),
+    ("float32", 32, (37, 1)),
+    ("bfloat16", 48, (13, 3)),
+]
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype,d,shape", BAG_CASES)
+def test_embedding_bag_kernel_matches_twin(cuda_device, dtype, d, shape, mode):
+    rng = np.random.default_rng(len(shape) * 100 + d)
+    v = 1000
+    table = torch.as_tensor(rng.standard_normal((v, d)).astype(np.float32),
+                            device=cuda_device).to(getattr(torch, dtype))
+    ids = rng.integers(-1, v, shape).astype(np.int32)
+    ids.reshape(-1, shape[-1])[0] = -1                # an all-padding bag
+    w = rng.uniform(0.0, 2.0, shape).astype(np.float32)
+    ids_t = torch.as_tensor(ids, device=cuda_device)
+    for weights in (torch.as_tensor(w, device=cuda_device), None):
+        if len(shape) == 3:
+            got = eb.embedding_bag_batched(table, ids_t, weights, mode=mode)
+            want = eb.embedding_bag_batched_plain(table, ids_t, weights,
+                                                  mode=mode)
+        else:
+            got = eb.embedding_bag(table, ids_t, weights, mode=mode)
+            want = eb.embedding_bag_plain(table, ids_t, weights, mode=mode)
+        torch.cuda.synchronize()
+        assert got.dtype == table.dtype and got.shape == want.shape
+        assert torch.equal(got, want)
+        assert not got.reshape(-1, d)[0].any()
+
+
+def test_embedding_bag_wrapper_counts_launches_and_checks_inputs(cuda_device):
+    _build.reset_launches()
+    table = torch.zeros((10, 8), device=cuda_device)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda_device)
+    eb.embedding_bag(table, ids)
+    eb.embedding_bag_batched(table, ids[None])
+    assert _build.launches["embedding_bag"] == 2
+    with pytest.raises(TypeError, match="int32"):
+        eb.embedding_bag(table, ids.long())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        eb.embedding_bag(table.double(), ids)
+    with pytest.raises(ValueError, match="mode"):
+        eb.embedding_bag(table, ids, mode="max")
+    with pytest.raises(ValueError, match="is on cpu"):
+        eb.embedding_bag(table, ids.cpu())
+    assert _build.launches["embedding_bag"] == 2
+
+
+def test_ranked_serve_batch_kernel_path_matches_plain_path(sg):
+    graph = sg.graph
+    dev = graph.device
+    rcfg = ranker.RankerConfig(n_items=graph.n_pins, d_model=32,
+                               n_neighbors=8, n_candidates=32, final_k=8)
+    params = ranker.init_ranker_params(
+        torch.Generator(device=dev).manual_seed(1), rcfg)
+    rank = ranker.RankRequest(params, rcfg)
+    cfg = walk.WalkConfig(n_steps=3000, n_walkers=256, chunk_steps=4,
+                          top_k=20, n_p=40, n_v=3)
+    qs = synthetic.top_degree_pins(sg, 24)
+    pins = torch.full((6, 4), -1, dtype=torch.int32)
+    weights = torch.zeros((6, 4))
+    rng = np.random.default_rng(3)
+    for i in range(6):
+        k = 1 + i % 4
+        pins[i, :k] = torch.as_tensor(rng.choice(qs, k, replace=False))
+        weights[i, :k] = torch.as_tensor(rng.uniform(0.2, 1.0, k).astype(np.float32))
+    feats = torch.arange(6, dtype=torch.int32) % 3
+    scen = torch.arange(6, dtype=torch.int32, device=dev) % 2
+    args = (graph, pins.to(dev), weights.to(dev), feats.to(dev),
+            prng.key(5, dev))
+    _build.reset_launches()
+    got = service.serve_batch(*args, cfg, backend="pallas", rank=rank,
+                              scenario=scen, with_stats=True)
+    assert _build.launches["embedding_bag"] == 2
+    retrieval = dataclasses.replace(cfg, top_k=rcfg.n_candidates)
+    s, i, st, nh = service.serve_batch(*args, retrieval, backend="xla",
+                                       with_stats=True)
+    want = ranker.rank_candidates(params, rcfg, graph, i, s, scen,
+                                  use_kernel=False)
+    for a, b in zip(got, (*want, st, nh)):
+        assert torch.equal(a, b)
+    assert torch.backends.cuda.matmul.allow_tf32 is False

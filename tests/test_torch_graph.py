@@ -3,9 +3,10 @@ the JAX package, on the same numpy inputs.
 
 CSR arrays, feature bounds and max degree must be equal array for array;
 a graph written by either package's ``save_graph`` must load in the
-other.  Step budgets and walker apportionment must be equal wherever the
-two ``log`` implementations agree; the one place they do not (XLA's CPU
-``log(7)`` is 1 ulp off) is pinned as the known fault it is.
+other.  Step budgets and walker apportionment must be equal: the port's
+``log`` reproduces XLA's CPU ``log`` bit for bit, including where that
+``log`` is not correctly rounded (at 7, for one), which once moved a
+budget by a step.
 """
 
 import jax
@@ -185,12 +186,15 @@ def test_scaling_factor_on_the_test_graph_degrees_matches():
 
 
 def test_log_rounding_fault_moves_a_budget_by_one_step():
-    """Known fault (ROADMAP Queue 3): XLA's CPU float32 ``log(7)`` is one
-    ulp off the correctly rounded value, which the port uses on every
-    device.  With max degree 7, query pins of degree 7 and weights
-    (1, 0.3), N = 13 steps split (9, 2) in the reference and (10, 3) in the
-    port; the port's split is the exact float32 evaluation of Eq. 1-2."""
+    """The fault (ROADMAP Queue 3, repaired): XLA's CPU float32 ``log(7)``
+    is one ulp off the correctly rounded value, and with max degree 7,
+    query pins of degree 7 and weights (1, 0.3), N = 13 steps split
+    (9, 2) in the reference but (10, 3) under a correctly rounded log.
+    The port's ``log_f32`` now reproduces XLA's ``log``, so its split is
+    the reference's (9, 2)."""
     assert np.float32(jnp.log(jnp.float32(7.0))) != np.float32(np.log(7.0))
+    assert tsamp.log_f32(torch.tensor([7.0])).item() == float(
+        jnp.log(jnp.float32(7.0)))
     w = np.array([1.0, 0.3], np.float32)
     deg = np.array([7, 7], np.int32)
     ref = np.asarray(jsamp.allocate_steps(jnp.asarray(w), jnp.asarray(deg),
@@ -199,13 +203,23 @@ def test_log_rounding_fault_moves_a_budget_by_one_step():
     f = np.float32
     s = f(7) * (f(7) - f(np.log(7.0)))
     ws = w * s
-    exact = np.floor(ws / (ws[0] + ws[1]) * f(13)).astype(np.int32)
-    np.testing.assert_array_equal(got.numpy(), exact)
-    np.testing.assert_array_equal(exact, [10, 3])
+    correctly_rounded = np.floor(ws / (ws[0] + ws[1]) * f(13)).astype(np.int32)
+    np.testing.assert_array_equal(correctly_rounded, [10, 3])
     np.testing.assert_array_equal(ref, [9, 2])
+    np.testing.assert_array_equal(got.numpy(), ref)
 
 
 def test_log_f32_is_correctly_rounded():
-    x = torch.arange(1, 200_000, dtype=torch.float32)
-    want = np.log(x.numpy().astype(np.float64)).astype(np.float32)
-    np.testing.assert_array_equal(tsamp.log_f32(x).numpy(), want)
+    """Name kept from when ``log_f32`` was the correctly rounded log; it
+    now holds ``log_f32`` to ``jnp.log`` bit for bit at every integer in
+    [1, 2**20] (8,757 of which ``jnp.log`` does not round correctly) and
+    at float32 values spread over the normal range."""
+    x = np.arange(1, 2**20 + 1, dtype=np.float32)
+    want = np.asarray(jnp.log(jnp.asarray(x)))
+    assert (want != np.log(x.astype(np.float64)).astype(np.float32)).sum() == 8757
+    np.testing.assert_array_equal(tsamp.log_f32(torch.from_numpy(x)).numpy(), want)
+    rng = np.random.default_rng(0)
+    y = np.exp(rng.uniform(np.log(1e-37), np.log(1e38), 2**16)).astype(np.float32)
+    y = np.concatenate([y, np.array([0.0, np.inf, 1.0, 0.5], np.float32)])
+    np.testing.assert_array_equal(tsamp.log_f32(torch.from_numpy(y)).numpy(),
+                                  np.asarray(jnp.log(jnp.asarray(y))))

@@ -41,8 +41,10 @@ def test_port_files_exist():
     for twin in ("core/prng.py", "core/graph.py", "core/sampling.py",
                  "core/counter.py", "core/walk.py", "core/service.py",
                  "graphs/synthetic.py", "kernels/walk_step.py",
-                 "kernels/visit_counter.py", "kernels/ops.py",
-                 "serving/server.py", "configs/pixie.py"):
+                 "kernels/visit_counter.py", "kernels/embedding_bag.py",
+                 "kernels/ops.py", "serving/server.py", "serving/ranker.py",
+                 "serving/recommend.py", "serving/resilience.py",
+                 "serving/traffic.py", "configs/pixie.py"):
         assert twin in names
 
 
@@ -64,6 +66,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch.serving.server, repro_torch.graphs.synthetic\n"
         "import repro_torch.configs.pixie, repro_torch.kernels.ops\n"
+        "import repro_torch.serving.traffic, repro_torch.serving.recommend\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -100,6 +103,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         vc.visit_counter_update_high(z, z, z, n_slots=1, n_pins=4, n_v=2)
     with pytest.raises(ValueError, match="CUDA"):
         vc.visit_counter_wide(z, z, z, n_slots=1, n_dim=4)
+    from repro_torch.kernels import embedding_bag as eb
+
+    table = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        eb.embedding_bag(table, torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        eb.embedding_bag_batched(table, torch.zeros((1, 2, 3), dtype=torch.int32))
     rb = torch.zeros((1, 4, 4), dtype=torch.int32)
     off = torch.zeros(5, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
@@ -113,13 +123,18 @@ def test_dispatch_refuses_devices_without_a_path():
     m = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel and no plain path"):
         ops.visit_counts_wide(m, m, m, n_slots=1, n_dim=4, use_kernel=True)
+    with pytest.raises(ValueError, match="no kernel and no plain path"):
+        ops.embedding_bag_batched(torch.zeros((4, 8), device="meta"),
+                                  m.reshape(1, 1, 4))
 
 
 def test_launch_counters_name_the_three_kernels_and_reset():
+    """Name kept from the first slice; the embedding bag is the fourth."""
     from repro_torch.kernels import _build
 
     assert set(_build.launches) == {
-        "walk_steps_fused", "visit_counter_update_high", "visit_counter_wide"
+        "walk_steps_fused", "visit_counter_update_high", "visit_counter_wide",
+        "embedding_bag",
     }
     _build.launches["visit_counter_wide"] += 3
     _build.reset_launches()
@@ -130,6 +145,9 @@ def test_cuda_sources_name_the_kernel_they_replace():
     csrc = PORT / "kernels" / "csrc"
     walk = (csrc / "walk_steps_fused.cu").read_text()
     counter = (csrc / "visit_counter.cu").read_text()
+    bag = (csrc / "embedding_bag.cu").read_text()
+    assert "src/repro/kernels/embedding_bag.py" in bag
+    assert "_embedding_bag_kernel" in bag and "__fmul_rn" in bag
     assert "src/repro/kernels/walk_step.py" in walk
     assert "walk_steps_fused" in walk
     assert "visit_counter_update_high" in counter
