@@ -62,8 +62,42 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              must give identical results and budgets; a zero-fault
              schedule must equal the plain open-loop run bit for bit.
 
+11. sharded the same full-width graph sliced on the card into 16 node-range
+             shards (the serve_3b_sharded recipe's shard count), after the
+             17.9 GB item table is freed; per-shard sizes, the sharded
+             copy's GB, resident and peak memory, and the cuts (140M / 60M
+             / 1.2B instead of 2B / 1B / 17B; 16 shards on one card).
+12. sh-parity the 8 one- and two-pin requests through serve_batch on the
+             sharded graph (FULL_WALK with bias_beta=0, LocalFabric(16),
+             slack 32): no walker dropped, early stop fired, and ids,
+             scores, steps_taken and n_high bit-identical to serve_batch on
+             the replicated graph with the same keys.
+13. recipe   pixie_walk_sharded with SHARDED_WALK (24 supersteps, 512
+             walkers per shard, slack 2.0) for 8 requests: p50/max, drops
+             and max occupancy; the batched engine's kernel path equals its
+             plain path (counts, stats, drops, occupancy) and the entry
+             point's top-k.
+14. replica  PixieServer on the sharded graph: 24 requests (p50/max), then
+             kill_shard(3, at_superstep=8) (killed > 0, results equal to
+             serve_batch(shard_dead_at=...), overlap@k against the healthy
+             run), then revive_shards() (equal to the healthy run), then
+             one request under torch.profiler (the trace goes to
+             chiprun_out/chip_smoke_sharded_trace.json); a seeded
+             run_open_loop with two shard deaths replays identically
+             twice.
+15. hop      the walk_hop kernel against its twin on the exact routed
+             buffers of superstep 8 of a recipe walk (both hops, 16 shards
+             per launch) and on edge cases (all lanes gated off, degree-0
+             rows, each shard's last row, row_base > 0, board rows); device
+             ms, twin ms and the byte bound (lanes once plus the distinct
+             CSR sectors the gated lanes read).
+16. nccl     ProcessGroupFabric over NCCL on one rank (a TCP store on
+             localhost) equals LocalFabric(1) on the 20k graph, and the
+             4-way sharded walk's board counts equal the unsharded ones.
+
 Launch counts are reset just before and read just after each path that
-is driven (phases 2, 4, 6, 7, 9, 10); the kernels line sums them.
+is driven (phases 2, 4, 6, 7, 9, 10, 12, 13, 14); the kernels line sums
+them.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -247,10 +281,11 @@ def check_result(scores, ids, k: int, n_pins: int, what: str) -> None:
         raise AssertionError(f"{what}: the walk visited nothing")
 
 
-def profile_request(server, req, req_id: int, top: int = 14) -> None:
+def profile_request(server, req, req_id: int, top: int = 14,
+                    trace: str = "chip_smoke_trace.json") -> None:
     """One full-width request under torch.profiler: the device's busy and
     idle share of the request's wall time, and where the device time goes
-    by kernel.  The trace goes to chiprun_out/chip_smoke_trace.json."""
+    by kernel.  The trace goes to chiprun_out/<trace>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -267,14 +302,14 @@ def profile_request(server, req, req_id: int, top: int = 14) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    log("profile", wall_ms=wall, device_busy_ms=busy,
+    log("profile", trace=trace, wall_ms=wall, device_busy_ms=busy,
         device_idle_share=max(0.0, 1 - busy / wall) if wall else None,
         kernel_launches=sum(e.count for e in kernels),
         top=[dict(kernel=e.key[:90], count=e.count,
                   ms=e.self_device_time_total / 1e3) for e in kernels[:top]])
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "chip_smoke_trace.json"))
+    prof.export_chrome_trace(str(out / trace))
 
 
 # ---------------------------------------------------------------------------
@@ -791,6 +826,406 @@ def chaos_runs(sg, cfg, dev, n_requests: int = 64):
 
 
 # ---------------------------------------------------------------------------
+# Phases 11-16: the node-range-sharded engine
+# ---------------------------------------------------------------------------
+
+# 2 * n_shards, the reference's drop-free parity slack
+SHARDED_SLACK = 32.0
+# the 1- and 2-pin requests: one or two slots share the whole step budget,
+# so Algorithm 3's early stop fires on them at this graph's degrees
+SHARDED_PARITY_REQUESTS = [i for i, k in enumerate(REQUEST_PINS) if k <= 2]
+SHARD_CUTS = [
+    "140M pins / 60M boards / 1.2B edges (serve_200m_replicated) instead of "
+    "serve_3b_sharded's 2B / 1B / 17B: one card's 80 GB holds no more",
+    "16 shards co-located on one card (LocalFabric) instead of 16 cards",
+]
+
+
+def shard_sizes(shg) -> dict:
+    return dict(
+        p2b_edges=shg.p2b_offsets[:, -1].tolist(),
+        b2p_edges=shg.b2p_offsets[:, -1].tolist(),
+        padded_edges=[shg.p2b_targets.shape[1], shg.b2p_targets.shape[1]],
+    )
+
+
+def hop_sectors(pos, gate, r, base, off, tgt, out) -> int:
+    """Distinct 32-byte sectors the kernel reads from the arrays it touches
+    only on some lanes: ``pos`` at the gated lanes, ``r`` at the lanes that
+    hop, and the offsets and targets that the gated lanes read (offset
+    pair, then target), replayed in plain PyTorch; the replayed targets
+    must equal the kernel's, so the address model is the kernel's own."""
+    import torch
+    from repro_torch.kernels.walk_step import RMASK
+
+    s_idx = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    local = torch.where(gate, pos - base[:, None], 0).long()
+    at_o = s_idx * off.shape[1] + local
+    flat_o = off.reshape(-1)
+    start = flat_o[at_o].long()
+    deg = flat_o[at_o + 1].long() - start
+    ok = gate & (deg > 0)
+    at_t = s_idx * tgt.shape[1] + torch.where(
+        ok, start + (r.long() & RMASK) % deg.clamp(min=1), 0)
+    if not torch.equal(torch.where(ok, tgt.reshape(-1)[at_t], 0), out):
+        raise AssertionError("walk_hop sector replay disagrees with the kernel")
+    sec_o = torch.unique(torch.cat([at_o[gate], at_o[gate] + 1]) >> 3).numel()
+    sec_t = torch.unique(at_t[ok] >> 3).numel()
+    lane = s_idx * pos.shape[1] + torch.arange(pos.shape[1], device=pos.device)
+    sec_pos = torch.unique(lane[gate] >> 3).numel()
+    sec_r = torch.unique(lane[ok] >> 3).numel()
+    return int(sec_o + sec_t + sec_pos + sec_r)
+
+
+def check_hop(pos, gate, r, base, off, tgt, what: str):
+    """The hop kernel against its twin on the same inputs, exactly."""
+    import torch
+    from repro_torch.kernels import walk_step as ws
+
+    got = ws.walk_hop_fused(pos, gate, r, base, off, tgt)
+    want = ws.walk_hop_ref(pos, gate, r, off, tgt, base)
+    torch.cuda.synchronize()
+    err = int((got[0].long() - want[0].long()).abs().max()) if got[0].numel() else 0
+    if err or not torch.equal(got[1], want[1]):
+        raise AssertionError(f"walk_hop_fused {what}: differs from its twin (max err {err})")
+    return got
+
+
+def time_hop(hop, what: str) -> dict:
+    """Device ms of one hop launch (back to back), its twin's ms and the
+    byte bound: ``gate`` read and ``out``/``ok`` written once for every
+    lane, ``row_base`` once, plus the distinct sectors of ``pos``, ``r``
+    and the CSR slices that the gated or hopping lanes read."""
+    from repro_torch.kernels import walk_step as ws
+
+    pos, gate, r, base, off, tgt = hop
+    out, ok = check_hop(*hop, what)
+    lanes = pos.numel()
+    sectors = hop_sectors(pos, gate, r, base, off, tgt, out)
+    nbytes = lanes * (1 + 4 + 1) + 4 * base.numel() + SECTOR * sectors
+    row = dict(
+        ms=device_ms(lambda: ws.walk_hop_fused(pos, gate, r, base, off, tgt), 50),
+        plain_ms=cuda_ms(lambda: ws.walk_hop_ref(pos, gate, r, off, tgt, base), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+    )
+    log("hop", hop=what, shape=list(pos.shape), gated=int(gate.sum()),
+        hopped=int(ok.sum()), distinct_sectors=sectors, bound_bytes=nbytes,
+        **row)
+    return row
+
+
+def hop_edge_cases(shg, dev) -> int:
+    """All lanes gated off; degree-0 rows and each shard's last row at
+    row_base > 0; garbage positions on gated-off lanes."""
+    import torch
+
+    s, pps = shg.n_shards, shg.pins_per_shard
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    off, tgt = shg.p2b_offsets, shg.p2b_targets
+    base = (torch.arange(s, device=dev, dtype=torch.int32) * pps).contiguous()
+    l = 256
+    r = torch.randint(-2**31, 2**31 - 1, (s, l), generator=gen, device=dev,
+                      dtype=torch.int32)
+    local = torch.randint(0, pps, (s, l), generator=gen, device=dev)
+    deg = off[:, 1:] - off[:, :-1]
+    for i in range(s):
+        zero = torch.nonzero(deg[i] == 0)[:64, 0]
+        local[i, :zero.numel()] = zero
+    local[:, -1] = pps - 1
+    pos = (base[:, None] + local).to(torch.int32).contiguous()
+    none = torch.zeros((s, l), dtype=torch.bool, device=dev)
+    got = check_hop(pos, none, r, base, off, tgt, "all lanes gated off")
+    if got[0].any() or got[1].any():
+        raise AssertionError("walk_hop_fused: a gated-off lane hopped")
+    every = torch.ones_like(none)
+    got = check_hop(pos, every, r, base, off, tgt, "degree-0 and last rows")
+    if bool(got[1][deg.gather(1, local) == 0].any()):
+        raise AssertionError("walk_hop_fused: a degree-0 row hopped")
+    half = torch.rand((s, l), generator=gen, device=dev) < 0.5
+    garbage = torch.where(half, pos, torch.full_like(pos, -7))
+    check_hop(garbage, half, r, base, off, tgt, "garbage on gated-off lanes")
+    bo = shg.b2p_offsets
+    bbase = (torch.arange(s, device=dev, dtype=torch.int32) * shg.boards_per_shard)
+    blocal = torch.randint(0, shg.boards_per_shard, (s, l), generator=gen, device=dev)
+    blocal[:, -1] = shg.boards_per_shard - 1
+    check_hop((bbase[:, None] + blocal).to(torch.int32).contiguous(), every, r,
+              bbase.contiguous(), bo, shg.b2p_targets, "board rows")
+    return 4
+
+
+def sharded_phases(graph, reqs, shape, dev):
+    """Phases 11-15 on the full-width graph; returns the hop kernel's row
+    and the launch counts of each sharded path."""
+    import torch
+    from repro_torch.configs.pixie import FULL_WALK, SERVE_3B_SHARDED, SHARDED_WALK
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import prng, service
+    from repro_torch.kernels import _build, ops
+    from repro_torch.serving import traffic
+    from repro_torch.serving.resilience import overlap_at_k
+    from repro_torch.serving.server import PixieServer
+
+    n_shards = SERVE_3B_SHARDED.n_shards
+    # 11. the 16-way sharded copy, sliced on the card
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    shg = dist.shard_graph(graph, n_shards)
+    torch.cuda.synchronize()
+    log("sharded_graph", name=f"{shape.name} sharded {n_shards} ways",
+        n_shards=n_shards, pins_per_shard=shg.pins_per_shard,
+        boards_per_shard=shg.boards_per_shard, **shard_sizes(shg),
+        sharded_gb=shg.nbytes() / 1e9, shard_s=time.perf_counter() - t,
+        resident_gb=torch.cuda.memory_allocated() / 1e9,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, cuts=SHARD_CUTS)
+    fabric = dist.LocalFabric(n_shards, device=dev)
+    cfg0 = dataclasses.replace(FULL_WALK, bias_beta=0.0)
+    server_key = prng.key(SEED, dev)
+
+    # 12. full-width parity: 8 requests, sharded vs unsharded, bit for bit
+    ids = SHARDED_PARITY_REQUESTS
+    pins, weights, feats = padded_batch([reqs[i] for i in ids], shape.n_slots, dev)
+    keys = prng.fold_in(server_key, torch.tensor(ids, device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t = time.perf_counter()
+    got = service.serve_batch(shg, pins, weights, feats, keys, cfg0,
+                              with_stats=True, fabric=fabric, slack=SHARDED_SLACK)
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t) * 1e3
+    parity_launches = dict(_build.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t = time.perf_counter()
+    want = service.serve_batch(graph, pins, weights, feats, keys, cfg0,
+                               with_stats=True)
+    torch.cuda.synchronize()
+    unsharded_ms = (time.perf_counter() - t) * 1e3
+    if int(got[4]) != 0:
+        raise AssertionError(f"sharded parity run dropped {int(got[4])} walkers")
+    assert_same(got[:4], want, "16-way sharded vs unsharded")
+    early = int((got[3] > cfg0.n_p).sum())
+    if not early:
+        raise AssertionError("sharded parity: early stop never fired")
+    for i in range(len(ids)):
+        check_result(got[0][i], got[1][i], cfg0.top_k, graph.n_pins, f"sharded {ids[i]}")
+    for name in ("walk_hop_fused", "visit_counter_update_high"):
+        if parity_launches[name] == 0:
+            raise AssertionError(f"the sharded parity run never launched {name}")
+    log("sharded_parity", requests=ids, identical=True, dropped=0,
+        slack=SHARDED_SLACK, early_stopped_rows=early,
+        steps_taken=got[2].sum(1).tolist(), n_high=got[3].sum(1).tolist(),
+        sharded_batch_ms=sharded_ms, unsharded_per_query_ms=unsharded_ms,
+        peak_gb=peak, launches=parity_launches)
+    del got, want
+    torch.cuda.empty_cache()
+
+    # 13. the production recipe: kernel path == plain path, drops included
+    wcfg = dist._wrapper_walk_config(SHARDED_WALK, n_shards)
+    plain_cfg = dataclasses.replace(wcfg, backend="xla")
+    lat, drops, occs, captured = [], [], [], {}
+    real_hop = ops.walk_hop
+    recipe_launches = dict.fromkeys(_build.launches, 0)
+    for rid in range(8):
+        qp, qw, _ = padded_batch([reqs[rid]], shape.n_slots, dev)
+        key = prng.fold_in(server_key, rid)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        top = dist.pixie_walk_sharded(shg, qp[0], qw[0], key, SHARDED_WALK, fabric)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        for name, n in _build.launches.items():
+            recipe_launches[name] += n
+        calls = []
+
+        def recording_hop(*args, **kw):
+            # the routed buffers of superstep 8's two hops, as the engine
+            # hands them over (none is written to after the call)
+            if rid == 0 and len(calls) in (16, 17):
+                captured[len(calls)] = args
+            calls.append(None)
+            return real_hop(*args, **kw)
+
+        ops.walk_hop = recording_hop
+        try:
+            runs = [dist.pixie_walk_sharded_batched(
+                shg, qp, qw, prng.split(key, 1), c, fabric,
+                slack=SHARDED_WALK.slack) for c in (wcfg, plain_cfg)]
+        finally:
+            ops.walk_hop = real_hop
+        a, b = runs
+        for name, x in a._asdict().items():
+            y = getattr(b, name)
+            if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+                raise AssertionError(f"recipe request {rid}: {name} differs between kernel and plain paths")
+        sc, ids_k = dist._hierarchical_topk(a.counts, n_shards, 1, shape.n_slots,
+                                            shg.pins_per_shard, SHARDED_WALK.top_k, fabric)
+        if not (torch.equal(sc[0], top.top_scores) and torch.equal(ids_k[0], top.top_pins)):
+            raise AssertionError(f"recipe request {rid}: entry point differs from the engine")
+        check_result(top.top_scores, top.top_pins, SHARDED_WALK.top_k, graph.n_pins,
+                     f"recipe {rid}")
+        drops.append(int(a.dropped))
+        occs.append(int(a.max_occupancy))
+        del runs, a, b
+    if recipe_launches["walk_hop_fused"] == 0:
+        raise AssertionError("the production recipe never launched walk_hop_fused")
+    log("sharded_recipe", recipe=dataclasses.asdict(SHARDED_WALK), n_shards=n_shards,
+        walkers=wcfg.n_walkers, capacity=SHARDED_WALK.capacity(n_shards),
+        requests=8, p50_ms=float(np.percentile(lat, 50)), max_ms=float(np.max(lat)),
+        latencies_ms=lat, dropped=drops, max_occupancy=occs,
+        kernel_equals_plain=True, launches=recipe_launches)
+
+    # 15. the hop kernel against its twin at the production shapes
+    hops = []
+    for i in (16, 17):
+        pos, gate, r, off, tgt, base = captured[i]
+        hops.append((pos, gate, r, base, off, tgt))
+    timed = [time_hop(h, w) for h, w in zip(hops, ("pin->board", "board->pin"))]
+    n_edge = hop_edge_cases(shg, dev)
+    hop_row = dict(
+        name="walk_hop_fused", route="cuda",
+        source="src/repro_torch/kernels/csrc/walk_hop.cu",
+        replaces="src/repro/kernels/walk_step.py:760",
+        launches=None, max_abs_err=0,
+        **{k: timed[0][k] + timed[1][k] for k in ("ms", "plain_ms", "bound_ms")},
+        bound_by="bytes", library_ms=None,
+    )
+    log("hop_kernel", superstep=8, identical=True, edge_cases_identical=n_edge,
+        row_is="the sum of one superstep's two hops, all 16 shards per launch",
+        library="none: no single torch call computes the hop")
+
+    # 14. the sharded replica: healthy, one shard killed, revived
+    def serve_all(srv):
+        out = []
+        for rid, (p, w, f) in enumerate(reqs):
+            srv.submit(p, w, user_feat=f, req_id=rid)
+            srv.pump()
+            out += srv.harvest()
+        torch.cuda.synchronize()
+        return sorted(out, key=lambda r: r.req_id)
+
+    srv = PixieServer(shg, cfg0, buckets=[(1, shape.n_slots)], seed=SEED,
+                      fabric=fabric, slack=SHARDED_SLACK)
+    _build.reset_launches()
+    healthy = serve_all(srv)
+    server_launches = dict(_build.launches)
+    hlat = [r.latency_ms for r in healthy]
+    victim, at = 3, 8
+    srv.kill_shard(victim, at_superstep=at)
+    killed = serve_all(srv)
+    n_killed = srv.stats.killed
+    if n_killed <= 0:
+        raise AssertionError("a shard died at superstep 8 and no walker was killed")
+    dead = torch.full((n_shards,), dist.NEVER_DIES, dtype=torch.int32, device=dev)
+    dead[victim] = at
+    for r in killed:
+        batch = padded_batch([reqs[r.req_id]], shape.n_slots, dev)
+        s_o, i_o = service.serve_batch(
+            shg, *batch, prng.fold_in(server_key, r.req_id)[None, :], cfg0,
+            fabric=fabric, slack=SHARDED_SLACK, shard_dead_at=dead)
+        if not (np.array_equal(s_o[0].cpu().numpy(), r.scores)
+                and np.array_equal(i_o[0].cpu().numpy(), r.ids)):
+            raise AssertionError(f"killed request {r.req_id}: replica differs from the shard_dead_at oracle")
+    overlap = overlap_at_k(np.stack([r.ids for r in killed]),
+                           np.stack([r.ids for r in healthy]))
+    srv.revive_shards()
+    revived = serve_all(srv)
+    assert_results_equal(revived, healthy, "revived vs healthy")
+    profile_request(srv, reqs[0], len(reqs), trace="chip_smoke_sharded_trace.json")
+    log("sharded_server", requests=len(healthy), p50_ms=float(np.percentile(hlat, 50)),
+        max_ms=float(np.max(hlat)), latencies_ms=hlat,
+        killed_p50_ms=float(np.percentile([r.latency_ms for r in killed], 50)),
+        victim=victim, at_superstep=at, killed=n_killed,
+        route_dropped=srv.stats.route_dropped, overlap_at_k=overlap,
+        oracle_identical=True, revived_identical=True, launches=server_launches)
+
+    # 14b. open loop with seeded shard deaths, replayed twice
+    oreqs = traffic.poisson_requests(
+        connected_pins(graph, 1024), traffic.OpenLoopConfig(
+            offered_qps=0.5 * 1000.0 / float(np.percentile(hlat, 50)),
+            n_requests=24, seed=SEED, max_pins=shape.n_slots, n_feats=4))
+    faults = traffic.sample_fault_schedule(traffic.ChaosConfig(
+        horizon_s=oreqs[-1].t_arrival, seed=SEED, n_shard_deaths=2,
+        n_shards=n_shards, death_max_superstep=16))
+    reps = []
+    _build.reset_launches()
+    for _ in range(2):
+        osrv = PixieServer(shg, cfg0, buckets=[(1, shape.n_slots)], seed=SEED,
+                           fabric=fabric, slack=SHARDED_SLACK)
+        reps.append((traffic.run_open_loop(osrv, oreqs, faults=faults), osrv))
+        if len(reps) == 1:
+            open_launches = dict(_build.launches)
+    (a, sa), (b, sb) = reps
+    if sorted(a.results) != sorted(b.results) or sa.dead_shards() != sb.dead_shards():
+        raise AssertionError("sharded open loop: the replay served other requests")
+    assert_results_equal([a.results[k] for k in sorted(a.results)],
+                         [b.results[k] for k in sorted(b.results)],
+                         "sharded open-loop replay")
+    if not sa.dead_shards() or sa.stats.killed != sb.stats.killed:
+        raise AssertionError("sharded open loop: deaths did not replay")
+    log("sharded_open_loop", requests=len(oreqs), served=a.n_served,
+        deaths=[[e.shard, e.at_superstep, e.t_start] for e in faults.of_kind("shard_death")],
+        dead_shards=sa.dead_shards(), killed=sa.stats.killed,
+        route_dropped=sa.stats.route_dropped, replay_identical=True,
+        offered_qps=a.offered_qps, achieved_qps=a.achieved_qps,
+        p50_ms=a.percentile(50), p99_ms=a.percentile(99), launches=open_launches)
+    del shg, srv, osrv, reps, captured, hops
+    torch.cuda.empty_cache()
+    return hop_row, [parity_launches, recipe_launches, server_launches, open_launches]
+
+
+def nccl_fabric(sg, dev) -> None:
+    """Phase 16: ProcessGroupFabric over NCCL on one rank (a TCP store on
+    localhost) equals LocalFabric(1) on the 20k graph; board counts of the
+    4-way sharded walk equal the unsharded engine's."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.core import counter, distributed as dist, prng, walk
+
+    cfg = walk.WalkConfig(n_steps=20_000, n_walkers=512, chunk_steps=4, n_p=300,
+                          n_v=3, bias_beta=0.0, count_boards=True, backend="pallas")
+    from repro_torch.graphs import synthetic
+
+    qs = synthetic.top_degree_pins(sg, 16)
+    pins = torch.as_tensor(qs[:12].reshape(3, 4).astype(np.int32), device=dev)
+    weights = torch.full((3, 4), 0.5, device=dev)
+    keys = prng.split(prng.key(SEED + 6, dev), 3)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                             world_size=1, rank=0,
+                             timeout=datetime.timedelta(seconds=120))
+    try:
+        shg1 = dist.shard_graph(sg.graph, 1)
+        runs = [dist.pixie_walk_sharded_batched(shg1, pins, weights, keys, cfg, f, slack=2.0)
+                for f in (dist.ProcessGroupFabric(device=dev), dist.LocalFabric(1, device=dev))]
+        tops = [dist._hierarchical_topk(r.counts, 1, 3, 4, shg1.pins_per_shard, 50, f)
+                for r, f in zip(runs, (dist.ProcessGroupFabric(device=dev), None))]
+        torch.cuda.synchronize()
+    finally:
+        tdist.destroy_process_group()
+    for name, x in runs[0]._asdict().items():
+        y = getattr(runs[1], name)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"NCCL fabric: {name} differs from LocalFabric(1)")
+    if not all(torch.equal(x, y) for x, y in zip(*tops)):
+        raise AssertionError("NCCL fabric: top-k differs from LocalFabric(1)")
+    shg4 = dist.shard_graph(sg.graph, 4)
+    res4 = dist.pixie_walk_sharded_batched(shg4, pins, weights, keys, cfg,
+                                           dist.LocalFabric(4, device=dev), slack=8.0)
+    flat = walk.pixie_random_walk_batched(
+        sg.graph, pins, weights, torch.zeros(3, dtype=torch.int32, device=dev), keys, cfg)
+    folded = counter.fold_sharded_counts(res4.board_counts, 3, 4, shg4.boards_per_shard)
+    if int(res4.dropped) or not torch.equal(folded[..., :sg.graph.n_boards], flat.board_counts):
+        raise AssertionError("4-way sharded board counts differ from the unsharded engine's")
+    log("nccl_fabric", backend="nccl", world_size=1, identical_to_local=True,
+        board_counts_4way_identical=True, board_visits=int(flat.board_counts.sum()))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1008,8 +1443,14 @@ def main() -> int:
     log("bag_kernel", main_shapes=[list(nbr_ids.shape), list(q_ids.shape)],
         identical=True, edge_cases_identical=n_edge,
         row_is="the sum of the two launches of one ranked request")
-    del graph, rank, table, rserver, oserver, report, ranked, kern
+    del rank, table, rserver, oserver, report, ranked, kern
     del s0, i0, nbr_ids, nbr_w, q_ids, q_w
+    torch.cuda.empty_cache()
+
+    # 11-15. the sharded engine on the full-width graph (the item table is
+    # freed first) ----------------------------------------------------------------
+    hop_row, sharded_paths = sharded_phases(graph, reqs, shape, dev)
+    del graph
     torch.cuda.empty_cache()
 
     # 4. batched qid lanes, count_boards -----------------------------------------
@@ -1106,18 +1547,27 @@ def main() -> int:
     # 10. chaos on the 20k retrieval replica --------------------------------------
     chaos_launches = chaos_runs(sg, cfg, dev)
 
+    # 16. the NCCL fabric on one rank, 4-way board counts ------------------------------
+    nccl_fabric(sg, dev)
+
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, batch_launches["pallas"], ranked_launches,
-             open_launches, rlaunches["pallas"], user_launches, chaos_launches]
-    for row in (walk_row, high_row, wide_row, bag_row):
+             open_launches, rlaunches["pallas"], user_launches, chaos_launches,
+             *sharded_paths]
+    rows = [walk_row, high_row, wide_row, bag_row, hop_row]
+    for row in rows:
         row["launches"] = sum(p[row["name"]] for p in paths)
     if bag_row["launches"] == 0 or ranked_launches["embedding_bag"] == 0:
         raise AssertionError("the embedding bag never launched on the ranked path")
+    if any(p["walk_hop_fused"] == 0 for p in sharded_paths):
+        raise AssertionError("a sharded path never launched walk_hop_fused")
     log("launches", retrieval=serve_launches, batched=batch_launches["pallas"],
         ranked=ranked_launches, open_loop=open_launches,
         batched_ranked=rlaunches["pallas"], users=user_launches,
-        chaos=chaos_launches)
-    print(json.dumps({"kernels": [walk_row, high_row, wide_row, bag_row]}), flush=True)
+        chaos=chaos_launches, sharded_parity=sharded_paths[0],
+        sharded_recipe=sharded_paths[1], sharded_server=sharded_paths[2],
+        sharded_open_loop=sharded_paths[3])
+    print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -1,4 +1,4 @@
-"""The Pixie configurations the port serves (twin of the two pieces of
+"""The Pixie configurations the port serves (twin of the pieces of
 ``repro/configs/pixie.py`` it needs; the registry is not ported).
 
   * ``FULL_WALK`` is the reference's ``FULL.walk``: 200k steps over 8192
@@ -9,12 +9,19 @@
   * ``SERVE_200M_REPLICATED`` is the reference's ``serve_200m_replicated``
     shape: 140M pins, 60M boards, 1.2B edges, 8 query slots, the graph
     replicated on one device (the paper's single-machine regime).
+  * ``SERVE_3B_SHARDED`` is the reference's ``serve_3b_sharded`` shape:
+    the paper's production graph, 2B pins, 1B boards and 17B edges, whose
+    int32 CSR (~136 GB) fits no single card, split over 16 node-range
+    shards; ``SHARDED_WALK`` is the reference's ``FULL.sharded_walk``
+    recipe over them (24 supersteps x 16 shards x 512 walkers, about the
+    paper's 200k-step budget per query), on the hand kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core.distributed import ShardedWalkConfig
 from repro_torch.core.walk import WalkConfig
 
 FULL_WALK = WalkConfig(n_steps=200_000, n_walkers=8192, top_k=1000,
@@ -29,6 +36,7 @@ class GraphShape:
     n_edges: int
     n_slots: int
     note: str = ""
+    n_shards: int = 1
 
 
 SERVE_200M_REPLICATED = GraphShape(
@@ -40,4 +48,18 @@ SERVE_200M_REPLICATED = GraphShape(
     note="largest graph the reference replicates into one device (int32 "
     "CSR ~10.4 GB plus ~4 GB of feature bounds with 4 edge languages); "
     "8 query slots keep the dense (slot, pin) bins inside int32",
+)
+
+SHARDED_WALK = ShardedWalkConfig(n_supersteps=24, walkers_per_shard=512,
+                                 top_k=1000, backend="pallas")
+
+SERVE_3B_SHARDED = GraphShape(
+    name="serve_3b_sharded",
+    n_pins=2_000_000_000,
+    n_boards=1_000_000_000,
+    n_edges=17_000_000_000,
+    n_slots=16,
+    n_shards=16,
+    note="the paper's production scale; graph node-range sharded 16 ways "
+    "and walked with SHARDED_WALK",
 )

@@ -1,5 +1,5 @@
-"""Dense visit counters, the Eq. 3 booster and exact top-k (twin of the
-dense part of ``repro/core/counter.py``).
+"""Dense visit counters, the sharded-count fold, the Eq. 3 booster and
+exact top-k (twin of the dense part of ``repro/core/counter.py``).
 
 Events are WIDE int32 lanes: (slot, id), led by a query lane in the
 batch-native engine; an event is invalid iff its slot lane holds
@@ -77,6 +77,29 @@ def accumulate_packed_events_with_high(
         use_kernel=backend == "pallas",
     )
     return counts, high + delta
+
+
+def fold_sharded_counts(
+    shard_counts: torch.Tensor,
+    n_queries: int,
+    n_slots: int,
+    per_shard_dim: int,
+) -> torch.Tensor:
+    """Fold per-shard dense counts into the unsharded batched layout.
+
+    ``shard_counts`` is ``(n_shards, n_queries * n_slots *
+    per_shard_dim)``: each shard's query-major counts over its OWNED id
+    subrange ``[s * per_shard_dim, (s + 1) * per_shard_dim)``.  Ownership
+    partitions the id space, so folding is a pure layout move: returns
+    ``(n_queries, n_slots, n_shards * per_shard_dim)`` with the global id
+    axis reassembled in shard order (padded ids past the real ``n_pins``
+    stay zero).
+    """
+    n_shards = shard_counts.shape[0]
+    blocks = shard_counts.reshape(n_shards, n_queries, n_slots, per_shard_dim)
+    return blocks.permute(1, 2, 0, 3).reshape(
+        n_queries, n_slots, n_shards * per_shard_dim
+    )
 
 
 def boost_combine(

@@ -11,11 +11,12 @@
   batch axis of one ``serve_batch`` call, and ``walk.merge_interest_topk``
   merges a user's lanes back (Eq. 3 across clusters).
 
-````serve_batch`` runs one batch of padded queries: the batch-native engine
+``serve_batch`` runs one batch of padded queries: the batch-native engine
 for ``backend="pallas"`` (the hand kernels on the card), or query by
 query for ``backend="xla"`` and for batches whose query-major bins would
 not fit int32; with ``rank=`` it runs stage 2 (``serving/ranker.py``) on
-the retrieved candidates.
+the retrieved candidates.  A ``distributed.ShardedGraph`` routes through
+the sharded engine over a routing ``fabric``.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist_lib
 from repro_torch.core import prng, walk as walk_lib
-from repro_torch.core.graph import PinBoardGraph
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.serving import ranker as ranker_lib
 
@@ -346,9 +347,12 @@ def serve_batch(
     cfg: walk_lib.WalkConfig,
     backend: Optional[str] = None,
     with_stats: bool = False,
-    step_budgets: Optional[torch.Tensor] = None,
+    fabric=None,
+    slack: float = 2.0,
     rank: Optional[ranker_lib.RankRequest] = None,
     scenario: Optional[torch.Tensor] = None,
+    step_budgets: Optional[torch.Tensor] = None,
+    shard_dead_at: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """One serving step: Pixie over a whole query batch, on the graph's
     device.
@@ -375,6 +379,18 @@ def serve_batch(
 
     Returns ``(scores, ids)``, plus ``(steps_taken, n_high)`` with
     ``with_stats=True``, each leading with the batch axis.
+
+    A ``distributed.ShardedGraph`` runs the sharded engine instead
+    (``fabric`` required: a ``distributed.LocalFabric`` or
+    ``ProcessGroupFabric``; ``slack`` scales routing capacity): the same
+    walk, bit-identical to the unsharded engines whenever routing drops
+    nothing.  ``with_stats=True`` then appends ``dropped``, the routing
+    overflow count.  ``shard_dead_at`` (optional ``(n_shards,)`` int32,
+    sharded graphs only) kills shard ``s`` from absolute superstep
+    ``shard_dead_at[s]`` on (``distributed.pixie_walk_sharded_batched``);
+    ``with_stats=True`` then also appends ``killed``, the walkers lost to
+    dead shards.
+    Over a sharded graph ``step_budgets=`` and ``rank=`` are refused.
     """
     if backend is not None and backend != cfg.backend:
         cfg = dataclasses.replace(cfg, backend=backend)
@@ -383,15 +399,35 @@ def serve_batch(
             "scenario= selects a ranker head and needs rank=; a bare "
             "retrieval step has no scenario axis"
         )
-    if rank is not None:
-        if not isinstance(graph, PinBoardGraph):
+    sharded = isinstance(graph, dist_lib.ShardedGraph)
+    if sharded:
+        if step_budgets is not None:
             raise ValueError(
-                "serve_batch(rank=...) needs the full PinBoardGraph: stage 2 "
-                "gathers candidate neighborhoods from the whole CSR, which a "
-                "node-range shard doesn't hold"
+                "serve_batch(step_budgets=...) over a ShardedGraph is not "
+                "supported: the sharded engine allocates Eq. 2 budgets "
+                "from cfg.n_steps; serve multi-interest lanes on an "
+                "unsharded replica"
             )
-        if cfg.top_k != rank.cfg.n_candidates:
-            cfg = dataclasses.replace(cfg, top_k=rank.cfg.n_candidates)
+        if rank is not None:
+            raise ValueError(
+                "serve_batch(rank=...) over a ShardedGraph is not "
+                "supported: stage 2 gathers candidate neighborhoods from "
+                "the full CSR, which a node-range shard doesn't hold; rank "
+                "on an unsharded replica or host-side from the sharded "
+                "walk's (scores, ids)"
+            )
+        if fabric is None:
+            raise ValueError(
+                "serve_batch over a ShardedGraph needs the routing fabric "
+                "(pass fabric=...)"
+            )
+    elif shard_dead_at is not None:
+        raise ValueError(
+            "serve_batch(shard_dead_at=...) needs a ShardedGraph: an "
+            "unsharded replica has no shards to lose"
+        )
+    if rank is not None and cfg.top_k != rank.cfg.n_candidates:
+        cfg = dataclasses.replace(cfg, top_k=rank.cfg.n_candidates)
     dev = graph.device
     pins = torch.as_tensor(pins, device=dev)
     weights = torch.as_tensor(weights, device=dev)
@@ -408,6 +444,12 @@ def serve_batch(
     else:
         keys = prng.split(key, n_queries)
 
+    if sharded:
+        out = dist_lib.recommend_sharded_batched(
+            graph, pins, weights, keys, cfg, fabric, slack=slack,
+            shard_dead_at=shard_dead_at,
+        )
+        return out if with_stats else out[:2]
     if cfg.backend == "pallas" and walk_lib.batched_engine_fits(
         n_queries, int(pins.shape[1]), graph.n_pins, graph.n_boards,
         cfg.count_boards,

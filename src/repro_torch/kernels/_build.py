@@ -1,13 +1,15 @@
 """Build the CUDA kernels with ``nvcc`` and bind them through ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``build/lib<name>.so`` at the repo root (git-ignored), at first use:
+into ``build/lib<name>.so`` at the repo root (git-ignored), at first use
+(``csrc/*.cuh`` are headers the sources include):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>.so csrc/<name>.cu
 
-A library is rebuilt when its source is newer.  Every C entry point
-returns ``cudaGetLastError()`` and ``check`` raises when it is not 0.
+A library is rebuilt when its source or any header is newer.  Every C
+entry point returns ``cudaGetLastError()`` and ``check`` raises when it is
+not 0.
 Nothing here runs at import: this module loads on hosts without ``nvcc``.
 
 ``launches`` counts kernel launches by kernel name; each wrapper adds one
@@ -32,13 +34,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("walk_steps_fused", "visit_counter", "embedding_bag")
+SOURCES = ("walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop")
 
 launches: Dict[str, int] = {
     "walk_steps_fused": 0,
     "visit_counter_update_high": 0,
     "visit_counter_wide": 0,
     "embedding_bag": 0,
+    "walk_hop_fused": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -66,7 +69,10 @@ def _lib_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    if not lib.exists():
+        return True
+    inputs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build(names: Iterable[str] = SOURCES) -> List[str]:

@@ -1,0 +1,37 @@
+// The edge pick shared by the walk kernels (walk_steps_fused.cu and
+// walk_hop.cu): one piece of code, so a fused superstep and the sharded
+// engine's split hops choose the same edge from the same random word.
+//
+// Port of _pick_edge in src/repro/kernels/walk_step.py and of the
+// `start + r % max(deg, 1)` pick of kernels/ref.py.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace pixie {
+
+// Random words are uint32; a pick uses the low 31 bits as a non-negative
+// int (the reference's `r & _RMASK` before the int cast).
+constexpr uint32_t kRMask = 0x7FFFFFFFu;
+
+// Uniform over [start, start + deg), or the feature subrange
+// [start + lo, start + hi) when the bias draw fired and it is non-empty.
+// Callers guarantee deg > 0; fb_row is null for an unbiased pick.
+__device__ __forceinline__ int pick_edge(int start, int deg, int r,
+                                         bool use_b, const int* fb_row,
+                                         int feat) {
+  int base = start;
+  int span = deg;
+  if (fb_row != nullptr && use_b) {
+    const int lo = fb_row[feat];
+    const int hi = fb_row[feat + 1];
+    if (hi > lo) {
+      base = start + lo;
+      span = hi - lo;
+    }
+  }
+  return base + r % span;
+}
+
+}  // namespace pixie

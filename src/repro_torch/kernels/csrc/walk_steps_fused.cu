@@ -1,7 +1,8 @@
 // walk_steps_fused: chunk_steps Pixie walk supersteps for every walker.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/walk_step.py
-// :: walk_steps_fused (body _walk_steps_fused_kernel, edge pick _pick_edge).
+// :: walk_steps_fused (body _walk_steps_fused_kernel; the edge pick
+// _pick_edge lives in pick_edge.cuh, shared with walk_hop.cu).
 // Plain twins: repro_torch/kernels/walk_step.py :: walk_chunk_plain and
 // walk_chunk_batched_plain (ports of kernels/ref.py walk_chunk_ref and
 // walk_chunk_batched_ref).
@@ -32,32 +33,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pick_edge.cuh"
+
 namespace {
 
-constexpr uint32_t kRMask = 0x7FFFFFFFu;
-
-struct Span {
-  int base;
-  int span;
-};
-
-// _pick_edge: uniform over [start, start + deg), or the feature subrange
-// [start + lo, start + hi) when the bias draw fired and it is non-empty.
-__device__ __forceinline__ int pick_edge(int start, int deg, int r,
-                                         bool use_b, const int* fb_row,
-                                         int feat) {
-  int base = start;
-  int span = deg;
-  if (fb_row != nullptr && use_b) {
-    const int lo = fb_row[feat];
-    const int hi = fb_row[feat + 1];
-    if (hi > lo) {
-      base = start + lo;
-      span = hi - lo;
-    }
-  }
-  return base + r % span;
-}
+using pixie::kRMask;
+using pixie::pick_edge;
 
 __global__ void walk_steps_fused_kernel(
     const int* __restrict__ curr, const int* __restrict__ query,

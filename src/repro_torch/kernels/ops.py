@@ -121,6 +121,28 @@ def walk_chunk_fused_batched(
                                        *csr, **kw)
 
 
+def walk_hop(
+    pos: torch.Tensor,
+    gate: torch.Tensor,
+    r: torch.Tensor,
+    offsets: torch.Tensor,
+    targets: torch.Tensor,
+    row_base: torch.Tensor,
+    *,
+    use_kernel: bool,
+):
+    """ONE walk hop on shard-local CSR slices -> ``(tgt, ok)``: the
+    sharded superstep's half step, one launch for every co-located shard.
+    ``r`` holds uint32 words as int32 bit patterns or as int64 (the
+    port's threefry representation); the kernel gets the low 32 bits."""
+    if not _kernel_for(use_kernel, pos):
+        return ws.walk_hop_ref(pos, gate, r, offsets, targets, row_base)
+    if r.dtype == torch.int64:
+        r = (r & 0xFFFFFFFF).to(torch.int32)   # wraps to the bit pattern
+    return ws.walk_hop_fused(pos, gate, r.contiguous(), row_base, offsets,
+                             targets)
+
+
 def embedding_bag(
     table: torch.Tensor,
     ids: torch.Tensor,

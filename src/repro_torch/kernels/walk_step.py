@@ -1,4 +1,5 @@
-"""The fused walk kernel (``csrc/walk_steps_fused.cu``) and its plain twin.
+"""The walk kernels (``csrc/walk_steps_fused.cu``, ``csrc/walk_hop.cu``) and
+their plain twins.
 
 Twin of ``repro/kernels/walk_step.py::walk_steps_fused``.  One launch runs
 ``chunk_steps`` supersteps for every walker and emits wide int32 event
@@ -17,6 +18,14 @@ kernel and in the twin alike.
 ``walk_chunk_plain`` / ``walk_chunk_batched_plain`` are the plain PyTorch
 twins (ports of ``ref.walk_chunk_ref`` / ``ref.walk_chunk_batched_ref``)
 that the CPU runs and the card is checked against.
+
+``walk_hop_fused`` is the sharded engine's half step (twin of the
+reference's ``walk_hop_fused``): one CSR hop for the routed walkers of
+every co-located shard in ONE launch, the walker buffers stacked
+``(n_shards, L)`` over ``(n_shards, rows + 1)`` / ``(n_shards, E_max)``
+CSR slices.  ``walk_hop_ref`` is its plain twin (port of
+``ref.walk_hop_ref``).  Both kernels pick an edge with one piece of code
+(``csrc/pick_edge.cuh``).
 """
 
 from __future__ import annotations
@@ -47,15 +56,30 @@ def _fn():
     return fn
 
 
-def _check_lane(name: str, t: torch.Tensor, shape, device) -> None:
+def _check_lane(name: str, t: torch.Tensor, shape, device,
+                dtype=torch.int32) -> None:
+    """Device, dtype, shape (unless None) and contiguity of one input."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _hop_fn():
+    fn = _build.library("walk_hop").walk_hop_fused_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p,
+                                     ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int]
+            + [ctypes.c_void_p] * 3
+        )
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -150,9 +174,98 @@ def walk_steps_fused(
     return nxt, sev, pev, bev
 
 
+def walk_hop_fused(
+    pos: torch.Tensor,
+    gate: torch.Tensor,
+    r: torch.Tensor,
+    row_base: torch.Tensor,
+    offsets: torch.Tensor,
+    targets: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ONE walk hop for every co-located shard in one kernel launch.
+
+    ``pos`` (n_shards, L) int32 global node ids, ``gate`` (n_shards, L)
+    bool (lanes allowed to hop), ``r`` (n_shards, L) int32 holding the
+    uint32 bit patterns of the edge-pick words, ``row_base`` (n_shards,)
+    int32 first global id each slice owns, ``offsets`` (n_shards, rows +
+    1) and ``targets`` (n_shards, E_max) int32 shard-local CSR slices.
+    One shard may also come unstacked: ``pos``/``gate``/``r`` (L,),
+    ``offsets`` (rows + 1,), ``targets`` (E,), ``row_base`` (1,).
+
+    Returns ``(tgt, ok)`` shaped like ``pos``: the sampled neighbour where
+    ``ok`` (= gate and the row has edges), 0 elsewhere.  Every tensor must
+    be a contiguous CUDA tensor on one device; a gated lane's ``pos`` must
+    lie in ``[row_base, row_base + rows)``.
+    """
+    dev = pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"walk_hop_fused runs on CUDA tensors, got {dev}")
+    if pos.dim() not in (1, 2) or offsets.dim() != pos.dim() or (
+            targets.dim() != pos.dim()):
+        raise ValueError(
+            "walk_hop_fused takes stacked (n_shards, L) lanes over (n_shards, "
+            "rows + 1) / (n_shards, E) slices, or one unstacked shard"
+        )
+    shape = tuple(pos.shape)
+    n_shards = shape[0] if pos.dim() == 2 else 1
+    _check_lane("pos", pos, shape, dev)
+    _check_lane("gate", gate, shape, dev, dtype=torch.bool)
+    _check_lane("r", r, shape, dev)
+    _check_lane("row_base", row_base, (n_shards,), dev)
+    _check_lane("offsets", offsets, None, dev)
+    _check_lane("targets", targets, None, dev)
+    if pos.dim() == 2 and (offsets.shape[0] != n_shards
+                           or targets.shape[0] != n_shards):
+        raise ValueError(
+            f"offsets and targets must stack {n_shards} shard slices, got "
+            f"{tuple(offsets.shape)} and {tuple(targets.shape)}"
+        )
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    ok = torch.empty(shape, dtype=torch.bool, device=dev)
+    err = _hop_fn()(
+        pos.data_ptr(), gate.data_ptr(), r.data_ptr(), row_base.data_ptr(),
+        offsets.data_ptr(), offsets.shape[-1], targets.data_ptr(),
+        targets.shape[-1], n_shards, shape[-1], out.data_ptr(),
+        ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "walk_hop_fused")
+    _build.launches["walk_hop_fused"] += 1
+    return out, ok
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch twins
 # ---------------------------------------------------------------------------
+
+
+def walk_hop_ref(
+    pos: torch.Tensor,
+    gate: torch.Tensor,
+    r: torch.Tensor,
+    offsets: torch.Tensor,
+    targets: torch.Tensor,
+    row_base,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``walk_hop_fused`` (``ref.walk_hop_ref``'s order of
+    arguments): ``local = pos - row_base`` where ``gate`` (else 0), ``ok =
+    gate & deg > 0``, ``tgt = targets[start + (r & 0x7FFFFFFF) % deg]``
+    where ``ok``, else 0.  Leading shard axes ride along: ``pos`` (..., L)
+    over ``offsets`` (..., rows + 1) and ``targets`` (..., E), one
+    ``row_base`` per leading index.  ``r`` holds uint32 values, as int32
+    bit patterns or int64."""
+    gate = gate.to(torch.bool)
+    base = torch.as_tensor(row_base, dtype=torch.int32, device=pos.device)
+    base = base.reshape(*pos.shape[:-1], 1)
+    local = torch.where(gate, pos.to(torch.int32) - base, 0).long()
+    start = torch.gather(offsets, -1, local)
+    deg = torch.gather(offsets, -1, local + 1) - start
+    ok = gate & (deg > 0)
+    pick = r.long() & RMASK
+    eidx = torch.where(ok, start + pick % deg.clamp(min=1), 0)
+    if targets.shape[-1] == 0:
+        return torch.zeros_like(pos, dtype=torch.int32), ok
+    tgt = torch.gather(targets, -1, eidx)
+    return torch.where(ok, tgt, 0).to(torch.int32), ok
 
 
 def _pick_edge(start, deg, r, use_b, fb, feat, rows):

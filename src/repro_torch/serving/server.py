@@ -27,9 +27,14 @@ unsharded part of ``repro/serving/server.py``.
     request, counted per bucket), and ``resilience=`` sheds step budgets
     of requests that waited past ``shed_start_ms`` (serving/resilience.py).
 
-Shard liveness (``kill_shard``) belongs to a sharded replica, which the
-port does not have yet: on this replica those calls raise, as the
-reference's do on an unsharded graph.
+A ``distributed.ShardedGraph`` makes a sharded replica (a graph too big
+for one card): every batch runs the sharded engine over the routing
+``fabric``, a ``(n_shards,)`` death-superstep array rides every dispatch
+as data (``kill_shard`` / ``revive_shards``; a graph swap revives every
+shard), and ``stats`` sums the walkers dropped by routing overflow and
+killed by dead shards.  A sharded replica refuses ``ranker``,
+``pin_topics`` and elastic shedding, as the reference's does; on an
+unsharded replica the shard controls raise.
 
 Latency per query = queue wait (logical clock, stamped at ``submit``) +
 compute (wall clock from dispatch to the end of ``harvest``'s wait).
@@ -44,8 +49,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist_lib
 from repro_torch.core import prng, service, walk as walk_lib
-from repro_torch.core.graph import PinBoardGraph
 from repro_torch.serving.resilience import ResilienceConfig, elastic_step_budget
 
 # the padding lanes' stream: fold_in(server_key, int32 max)
@@ -104,7 +109,9 @@ class ServerStats:
     wait_ms[i] + compute_ms[i]`` per query.  ``dropped`` counts all refused
     work (admission rejections and the traffic harness's sheds);
     ``rejected`` breaks the admission rejections down by bucket
-    (``n_slots``)."""
+    (``n_slots``).  On a sharded replica ``route_dropped`` sums the walkers
+    dropped by routing overflow and ``killed`` those lost to dead shards,
+    over every harvested batch."""
 
     capacity: int = 4096
     latencies_ms: LatencyRing = None
@@ -115,6 +122,8 @@ class ServerStats:
     dropped: int = 0
     rejected: Dict[int, int] = None
     graph_generation: int = 0
+    route_dropped: int = 0
+    killed: int = 0
 
     def __post_init__(self):
         if self.latencies_ms is None:
@@ -221,6 +230,9 @@ class _InFlight:
     t_dispatch_wall: float            # wall clock, for compute time
     batch_seq: int
     budgets: List[int]
+    # sharded replicas: () int32 routing drops and dead-shard kills
+    route_dropped: Optional[torch.Tensor] = None
+    killed: Optional[torch.Tensor] = None
 
 
 class PixieServer:
@@ -228,12 +240,14 @@ class PixieServer:
 
     def __init__(
         self,
-        graph: PinBoardGraph,
+        graph,
         cfg: walk_lib.WalkConfig,
         batch_size: int = 8,
         n_slots: int = 8,
         seed: int = 0,
         backend: Optional[str] = None,
+        fabric=None,
+        slack: float = 2.0,
         buckets: Optional[Sequence[Tuple[int, int]]] = None,
         max_wait_ms: float = 5.0,
         max_queue_per_bucket: Optional[int] = None,
@@ -243,7 +257,8 @@ class PixieServer:
         n_clusters: int = 3,
         resilience: Optional[ResilienceConfig] = None,
     ):
-        """Serve ``graph`` on its device.  ``backend`` overrides
+        """Serve ``graph`` (a ``PinBoardGraph`` or a
+        ``distributed.ShardedGraph``) on its device.  ``backend`` overrides
         ``cfg.backend``; ``buckets`` is the ``(batch_size, n_slots)`` shape
         table (``None``: the single bucket ``(batch_size, n_slots)``);
         ``max_wait_ms`` is the batch-formation deadline;
@@ -260,7 +275,13 @@ class PixieServer:
         with ``ranker`` (rank a merged set with
         ``recommend.recommend_multi_interest(rank=...)``).  ``resilience``
         turns on the elastic shed; a ranked replica carries no budgets and
-        needs ``ResilienceConfig(elastic=False)``."""
+        needs ``ResilienceConfig(elastic=False)``.
+
+        A ``distributed.ShardedGraph`` replica needs ``fabric`` (the
+        routing fabric of ``serve_batch``) and takes ``slack``; it refuses
+        ``ranker``, ``pin_topics`` and elastic shedding, carries no
+        budgets, and gets the shard controls ``kill_shard`` /
+        ``revive_shards``."""
         if backend is not None and backend != cfg.backend:
             cfg = dataclasses.replace(cfg, backend=backend)
         if pin_topics is not None and ranker is not None:
@@ -297,9 +318,10 @@ class PixieServer:
         self.ranker = ranker
         self.resilience = resilience
         self.max_queue_per_bucket = max_queue_per_bucket
-        # ranked batches carry scenarios instead of step budgets
-        self._takes_budgets = ranker is None
+        self.fabric = fabric
+        self.slack = slack
         self.graph = graph
+        self._setup_shards()
         self.cfg = cfg
         self.batch_size = batch_size
         self.n_slots = n_slots
@@ -393,8 +415,8 @@ class PixieServer:
             )
         if budget is not None and not self._takes_budgets:
             raise ValueError(
-                "a ranked replica's batches carry no budgets; per-request "
-                "budgets need a plain or multi-interest replica"
+                "a ranked or sharded replica's batches carry no budgets; "
+                "per-request budgets need a plain or multi-interest replica"
             )
         n = len(pins)
         _, slots = self._route(n)
@@ -516,7 +538,14 @@ class PixieServer:
         keys = torch.stack([e.key for e in entries] + [self._pad_key] * pad)
         dev = self.graph.device
         extra = {}
-        if self._takes_budgets:
+        if self._sharded:
+            # shard liveness rides every dispatch as (n_shards,) data
+            extra.update(
+                with_stats=True, fabric=self.fabric, slack=self.slack,
+                shard_dead_at=torch.tensor(self._shard_dead_at, device=dev),
+            )
+            entry_budgets = [self.cfg.n_steps] * n_real
+        elif self._takes_budgets:
             rcfg = self.resilience
             shed = rcfg is not None and rcfg.elastic
             budgets = np.full((batch_size,), self.cfg.n_steps, np.int32)
@@ -534,13 +563,15 @@ class PixieServer:
             extra["scenario"] = torch.as_tensor(scen, device=dev)
             entry_budgets = [self.cfg.n_steps] * n_real
         t_wall = time.perf_counter()
-        scores, ids = service.serve_batch(
+        out = service.serve_batch(
             self.graph,
             torch.as_tensor(pins, device=dev),
             torch.as_tensor(weights, device=dev),
             torch.as_tensor(feats, device=dev),
             keys.to(dev), self.cfg, **extra,
         )
+        scores, ids = out[:2]
+        route_dropped, killed = out[4:] if self._sharded else (None, None)
         done = None
         if dev.type == "cuda":
             done = torch.cuda.Event()
@@ -550,6 +581,7 @@ class PixieServer:
             generation=self.stats.graph_generation,
             t_dispatch=now, t_dispatch_wall=t_wall,
             batch_seq=self._batch_seq, budgets=entry_budgets,
+            route_dropped=route_dropped, killed=killed,
         ))
         self._batch_seq += 1
         self.stats.batches += 1
@@ -603,6 +635,9 @@ class PixieServer:
             t_done_wall = time.perf_counter()
             compute_ms = (t_done_wall - fl.t_dispatch_wall) * 1e3
             s_np, i_np = fl.scores.cpu().numpy(), fl.ids.cpu().numpy()
+            if fl.killed is not None:
+                self.stats.route_dropped += int(fl.route_dropped)
+                self.stats.killed += int(fl.killed)
             for i, e in enumerate(fl.entries):
                 wait_ms = max(0.0, (fl.t_dispatch - e.t_enqueue) * 1e3)
                 if e.user_id is not None:
@@ -659,12 +694,12 @@ class PixieServer:
         return out
 
     # -- graph swap (the daily reload, §3.3) -----------------------------------
-    def swap_graph(self, new_graph: PinBoardGraph,
-                   now: Optional[float] = None) -> None:
+    def swap_graph(self, new_graph, now: Optional[float] = None) -> None:
         """Swap in a new graph under load: every queued request dispatches
         on the old graph first (the generation barrier), then the handle
         moves and the generation increments once.  In-flight batches keep
-        their old generation."""
+        their old generation.  A sharded replica's swap revives every
+        shard (the daily reload replaces the shards)."""
         if now is None:
             now = time.perf_counter()
         for batch_size, slots in self._buckets:
@@ -672,19 +707,75 @@ class PixieServer:
                 self._dispatch(batch_size, slots, now)
         self.graph = new_graph
         self.stats.graph_generation += 1
+        self._setup_shards()
 
-    # -- shard liveness --------------------------------------------------------
-    def kill_shard(self, shard: int, at_superstep: int = 0) -> None:
-        """Shard deaths need a sharded replica; this one holds the whole
-        graph, so it raises (as the reference's unsharded replica does)."""
-        raise ValueError(
-            "kill_shard needs a sharded replica; a plain graph has no "
-            "shards to lose"
+    # -- shard liveness (degraded-mode serving) --------------------------------
+    def _setup_shards(self) -> None:
+        """Validate the graph's kind against the replica's options and give
+        a sharded graph an all-alive liveness array."""
+        self._sharded = isinstance(self.graph, dist_lib.ShardedGraph)
+        # ranked and sharded batches carry no step budgets
+        self._takes_budgets = self.ranker is None and not self._sharded
+        if not self._sharded:
+            self._shard_dead_at = None
+            return
+        if self.ranker is not None:
+            raise ValueError(
+                "a sharded replica can't rank: stage 2 gathers candidate "
+                "neighborhoods from the full CSR, which a node-range shard "
+                "doesn't hold; rank on an unsharded replica"
+            )
+        if self.pin_topics is not None:
+            raise ValueError(
+                "a sharded replica can't serve multi-interest users: "
+                "per-lane step budgets are not threaded through the "
+                "sharded engine; serve them on an unsharded replica"
+            )
+        if self.resilience is not None and self.resilience.elastic:
+            raise ValueError(
+                "a sharded replica can't shed elastically: the sharded "
+                "engine allocates every walker from the static cfg.n_steps "
+                "bound; use ResilienceConfig(elastic=False) for admission "
+                "control + dead-shard tolerance"
+            )
+        if self.fabric is None:
+            raise ValueError(
+                "a sharded replica needs the routing fabric (pass fabric=...)"
+            )
+        self._shard_dead_at = np.full(
+            (self.graph.n_shards,), dist_lib.NEVER_DIES, np.int32
         )
 
+    def kill_shard(self, shard: int, at_superstep: int = 0) -> None:
+        """Mark one shard dead from absolute superstep ``at_superstep`` of
+        every subsequently dispatched walk (0 = dead from the start).  The
+        liveness array rides the next dispatch as data: walkers routed to
+        a dead shard are killed and reborn at home, walkers homed there
+        stop being (re)injected, and its counts leave the merge."""
+        if not self._sharded:
+            raise ValueError(
+                "kill_shard needs a sharded replica; a plain graph has no "
+                "shards to lose"
+            )
+        if not 0 <= int(shard) < self._shard_dead_at.shape[0]:
+            raise ValueError(
+                f"shard {shard} out of range for "
+                f"{self._shard_dead_at.shape[0]} shards"
+            )
+        if int(at_superstep) < 0:
+            raise ValueError(f"at_superstep={at_superstep} must be >= 0")
+        self._shard_dead_at[int(shard)] = int(at_superstep)
+
     def revive_shards(self) -> None:
-        raise ValueError("revive_shards needs a sharded replica")
+        """Bring every shard back to life (subsequent dispatches only)."""
+        if not self._sharded:
+            raise ValueError("revive_shards needs a sharded replica")
+        self._shard_dead_at[:] = dist_lib.NEVER_DIES
 
     def dead_shards(self) -> List[int]:
-        """Shards currently marked dead: none on an unsharded replica."""
-        return []
+        """Shards currently marked dead (empty on a healthy or unsharded
+        replica)."""
+        if self._shard_dead_at is None:
+            return []
+        return [int(i) for i in
+                np.flatnonzero(self._shard_dead_at != dist_lib.NEVER_DIES)]

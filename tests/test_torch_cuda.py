@@ -12,7 +12,10 @@ integer arithmetic on the same random bits, and every count increment is
 1, so the atomics' order cannot show.  The embedding bag must match its
 twin bit for bit too: both round every multiply, add and divide in the
 same order (the kernel with ``_rn`` intrinsics, so nothing becomes an
-FMA), and ranked serving through it must equal the plain path.
+FMA), and ranked serving through it must equal the plain path.  The
+sharded engine's hop kernel must equal its twin at every shape, gated-off
+lanes, degree-0 rows and a shard's last row included, and the sharded
+walk's kernel path must equal its plain path.
 """
 
 import dataclasses
@@ -21,10 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import prng, service, walk
+from repro_torch.core import counter, distributed, prng, service, walk
 from repro_torch.graphs import synthetic
 from repro_torch.serving import ranker
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import visit_counter as vc
 from repro_torch.kernels import walk_step as ws
@@ -292,3 +295,129 @@ def test_ranked_serve_batch_kernel_path_matches_plain_path(sg):
     for a, b in zip(got, (*want, st, nh)):
         assert torch.equal(a, b)
     assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine's hop kernel
+# ---------------------------------------------------------------------------
+
+
+def _hop_lanes(dev, n_shards, l, rows, seed, gate_frac=0.7):
+    """Stacked CSR slices with degree-0 rows, lanes at random rows plus
+    each shard's last row and its degree-0 rows, gated-off lanes holding
+    garbage positions; row_base = 11 + shard * rows."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 6, (n_shards, rows))
+    deg[:, rng.integers(0, rows, max(1, rows // 8))] = 0
+    off = np.concatenate([np.zeros((n_shards, 1), np.int64),
+                          np.cumsum(deg, 1)], 1).astype(np.int32)
+    e_max = max(1, int(off[:, -1].max()))
+    tgt = rng.integers(0, 10**6, (n_shards, e_max)).astype(np.int32)
+    base = (11 + np.arange(n_shards) * rows).astype(np.int32)
+    local = rng.integers(0, rows, (n_shards, l))
+    local[:, -1] = rows - 1
+    zero = np.nonzero(deg[0] == 0)[0]
+    local[:, :min(len(zero), l // 2)] = zero[:l // 2]
+    gate = rng.random((n_shards, l)) < gate_frac
+    pos = np.where(gate, base[:, None] + local,
+                   rng.integers(-5, 10**7, (n_shards, l))).astype(np.int32)
+    r = rng.integers(0, 2**32, (n_shards, l), dtype=np.uint64)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return (t(pos), t(gate), t(r.astype(np.uint32).view(np.int32)),
+            t(base), t(off), t(tgt))
+
+
+@pytest.mark.parametrize("n_shards,l,rows,gate_frac", [
+    (1, 64, 20, 0.7), (3, 1000, 50, 0.7), (16, 1024, 4096, 0.9),
+    (16, 16384, 100, 0.5), (4, 333, 30, 0.0), (2, 128, 40, 1.0),
+])
+def test_walk_hop_kernel_matches_twin(cuda_device, n_shards, l, rows,
+                                      gate_frac):
+    pos, gate, r, base, off, tgt = _hop_lanes(cuda_device, n_shards, l, rows,
+                                              seed=n_shards * 7 + l,
+                                              gate_frac=gate_frac)
+    _build.reset_launches()
+    got = ws.walk_hop_fused(pos, gate, r, base, off, tgt)
+    torch.cuda.synchronize()
+    assert _build.launches["walk_hop_fused"] == 1
+    want = ws.walk_hop_ref(pos, gate, r, off, tgt, base)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(got[1].any()) == (gate_frac > 0)
+    # one shard unstacked, at a row_base past 0
+    one = ws.walk_hop_fused(pos[-1], gate[-1], r[-1], base[-1:], off[-1],
+                            tgt[-1])
+    assert torch.equal(one[0], want[0][-1]) and torch.equal(one[1], want[1][-1])
+
+
+def test_walk_hop_wrapper_refuses_bad_inputs(cuda_device):
+    pos, gate, r, base, off, tgt = _hop_lanes(cuda_device, 2, 32, 10, seed=3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ws.walk_hop_fused(pos.cpu(), gate.cpu(), r.cpu(), base.cpu(),
+                          off.cpu(), tgt.cpu())
+    with pytest.raises(ValueError, match="is on cpu"):
+        ws.walk_hop_fused(pos, gate, r, base.cpu(), off, tgt)
+    with pytest.raises(TypeError, match="gate must be torch.bool"):
+        ws.walk_hop_fused(pos, gate.int(), r, base, off, tgt)
+    with pytest.raises(TypeError, match="r must be torch.int32"):
+        ws.walk_hop_fused(pos, gate, r.long(), base, off, tgt)
+    with pytest.raises(TypeError, match="targets must be torch.int32"):
+        ws.walk_hop_fused(pos, gate, r, base, off, tgt.long())
+    with pytest.raises(ValueError, match="row_base has shape"):
+        ws.walk_hop_fused(pos, gate, r, base[:1], off, tgt)
+    with pytest.raises(ValueError, match="stack 2 shard slices"):
+        ws.walk_hop_fused(pos, gate, r, base, off[:1], tgt[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        ws.walk_hop_fused(pos.t().contiguous().t(), gate, r, base, off, tgt)
+    # the dispatch hands int64 words to the kernel as their low 32 bits
+    _build.reset_launches()
+    a = ops.walk_hop(pos, gate, r.long() & 0xFFFFFFFF, off, tgt,
+                                 base, use_kernel=True)
+    b = ws.walk_hop_fused(pos, gate, r, base, off, tgt)
+    assert _build.launches["walk_hop_fused"] == 2
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("slack,dead", [(8.0, None), (0.05, [2**31 - 1, 3, 2**31 - 1, 5])])
+def test_sharded_walk_kernel_path_matches_plain_path(cuda_device, slack, dead):
+    sg20 = synthetic.generate(
+        synthetic.SyntheticGraphConfig(n_pins=20_000, n_boards=2_000,
+                                       n_topics=16, n_langs=4, seed=7),
+        device=cuda_device)
+    shg = distributed.shard_graph(sg20.graph, 4)
+    qs = synthetic.top_degree_pins(sg20, 16)
+    pins = torch.as_tensor(qs[:12].reshape(3, 4).astype(np.int32),
+                           device=cuda_device)
+    pins[1, 3] = -1
+    weights = torch.rand((3, 4), generator=torch.Generator().manual_seed(0))
+    weights = weights.to(cuda_device)
+    keys = prng.split(prng.key(9, cuda_device), 3)
+    fabric = distributed.LocalFabric(4, device=cuda_device)
+    dead_t = None if dead is None else torch.tensor(dead, device=cuda_device)
+    out = {}
+    for backend in ("pallas", "xla"):
+        cfg = walk.WalkConfig(n_steps=20_000, n_walkers=512, chunk_steps=4,
+                              n_p=300, n_v=3, bias_beta=0.0,
+                              count_boards=True, backend=backend)
+        _build.reset_launches()
+        out[backend] = distributed.pixie_walk_sharded_batched(
+            shg, pins, weights, keys, cfg, fabric, slack=slack,
+            shard_dead_at=dead_t)
+        torch.cuda.synchronize()
+        launched = _build.launches["walk_hop_fused"]
+        assert (launched > 0) == (backend == "pallas")
+    for name, a in out["pallas"]._asdict().items():
+        b = getattr(out["xla"], name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+    if dead is None:
+        flat = walk.pixie_random_walk_batched(
+            sg20.graph, pins, weights, torch.zeros(3, dtype=torch.int32,
+                                                   device=cuda_device),
+            keys, cfg)
+        assert int(out["pallas"].dropped) == 0
+        fold = counter.fold_sharded_counts(out["pallas"].counts, 3, 4,
+                                           shg.pins_per_shard)
+        assert torch.equal(fold[..., :sg20.graph.n_pins], flat.counts)
+    else:
+        assert int(out["pallas"].dropped) > 0 and int(out["pallas"].killed) > 0

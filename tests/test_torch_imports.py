@@ -44,7 +44,8 @@ def test_port_files_exist():
                  "kernels/visit_counter.py", "kernels/embedding_bag.py",
                  "kernels/ops.py", "serving/server.py", "serving/ranker.py",
                  "serving/recommend.py", "serving/resilience.py",
-                 "serving/traffic.py", "configs/pixie.py"):
+                 "serving/traffic.py", "configs/pixie.py",
+                 "core/distributed.py"):
         assert twin in names
 
 
@@ -67,6 +68,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.serving.server, repro_torch.graphs.synthetic\n"
         "import repro_torch.configs.pixie, repro_torch.kernels.ops\n"
         "import repro_torch.serving.traffic, repro_torch.serving.recommend\n"
+        "import repro_torch.core.distributed\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -91,6 +93,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         synthetic.small_test_graph()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prng.key(0)
+    from repro_torch.core import distributed
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.LocalFabric(2)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -115,6 +121,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ws.walk_steps_fused(z, z, z, z, rb, off, z, off, z, n_pins=4,
                             n_slots=1, n_boards=4, alpha_u32=0, beta_u32=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ws.walk_hop_fused(z, z.bool(), z, z[:1], off, z)
 
 
 def test_dispatch_refuses_devices_without_a_path():
@@ -126,15 +134,21 @@ def test_dispatch_refuses_devices_without_a_path():
     with pytest.raises(ValueError, match="no kernel and no plain path"):
         ops.embedding_bag_batched(torch.zeros((4, 8), device="meta"),
                                   m.reshape(1, 1, 4))
+    with pytest.raises(ValueError, match="no kernel and no plain path"):
+        ops.walk_hop(m, m.bool(), m, m, m, m[:1], use_kernel=True)
 
 
 def test_launch_counters_name_the_three_kernels_and_reset():
-    """Name kept from the first slice; the embedding bag is the fourth."""
+    """Name kept from the first slice; the embedding bag is the fourth
+    counter and the sharded engine's hop the fifth."""
     from repro_torch.kernels import _build
 
     assert set(_build.launches) == {
         "walk_steps_fused", "visit_counter_update_high", "visit_counter_wide",
-        "embedding_bag",
+        "embedding_bag", "walk_hop_fused",
+    }
+    assert set(_build.SOURCES) == {
+        "walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
     }
     _build.launches["visit_counter_wide"] += 3
     _build.reset_launches()
@@ -146,6 +160,14 @@ def test_cuda_sources_name_the_kernel_they_replace():
     walk = (csrc / "walk_steps_fused.cu").read_text()
     counter = (csrc / "visit_counter.cu").read_text()
     bag = (csrc / "embedding_bag.cu").read_text()
+    hop = (csrc / "walk_hop.cu").read_text()
+    assert "src/repro/kernels/walk_step.py" in hop
+    assert "_walk_hop_kernel" in hop and "walk_hop_ref" in hop
+    # both walk kernels pick an edge with the one shared function
+    for src in (walk, hop):
+        assert '#include "pick_edge.cuh"' in src
+        assert "int pick_edge(" not in src
+    assert "int pick_edge(" in (csrc / "pick_edge.cuh").read_text()
     assert "src/repro/kernels/embedding_bag.py" in bag
     assert "_embedding_bag_kernel" in bag and "__fmul_rn" in bag
     assert "src/repro/kernels/walk_step.py" in walk

@@ -245,6 +245,29 @@ def test_engine_guards(graphs):
         assert twalk._prob_u32(p) == jwalk._prob_u32(p)
 
 
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_out_of_range_user_feature_is_refused_where_reference_clamps(
+        graphs, backend):
+    """A deliberate contract difference: the reference's gather clamps a
+    user feature outside the graph's languages and walks anyway; the port
+    refuses it, on both engines, and serves an in-range one."""
+    sg, tg = graphs
+    pins, weights, _ = _batch(sg, 2)
+    cfg = _cfg(backend=backend)
+    bad = np.asarray([0, tg.p2b.n_feats], np.int32)
+    want = jservice.serve_batch(sg.graph, jnp.asarray(pins),
+                                jnp.asarray(weights), jnp.asarray(bad),
+                                jax.random.key(3), cfg)
+    assert np.asarray(want[0]).shape == (2, cfg.top_k)
+    args = (tg, torch.as_tensor(pins), torch.as_tensor(weights))
+    with pytest.raises(ValueError, match="user features must lie in"):
+        tservice.serve_batch(*args, torch.as_tensor(bad), prng.key(3, "cpu"),
+                             _port_cfg(cfg))
+    got = tservice.serve_batch(*args, torch.as_tensor(bad % tg.p2b.n_feats),
+                               prng.key(3, "cpu"), _port_cfg(cfg))
+    assert got[0].shape == (2, cfg.top_k)
+
+
 def test_query_shaping_matches():
     from repro_torch.core.service import UserAction as TA
 
