@@ -95,9 +95,39 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              localhost) equals LocalFabric(1) on the 20k graph, and the
              4-way sharded walk's board counts equal the unsharded ones.
 
+17. attn     after the Pixie state is freed: the decode-attention kernel
+             against its twin (max abs difference <= 2e-6 on the float32
+             output) at edge shapes: length 1, ragged lengths in one batch,
+             a length that is not a multiple of the tile, dh 16, 20, 64 and
+             128, groups 1, 3 and 8, float32 and bf16 caches, q in float32
+             and in the cache's dtype.
+18. lm_f32   Qwen2.5-3B at full width (36 layers, vocab 151,936, seeded
+             init on the card) in float32 compute and cache: a seeded 4 x
+             512 prompt, 32 greedy tokens through decode.generate on the
+             kernel path and on the plain path (backend="xla"): tokens
+             identical; then both decode paths side by side on the same
+             tokens, the max logit difference per step.
+19. lm_bf16  the same weights cast once to the config's own bf16 (the
+             serving dtypes): generate on both paths (the share of tokens
+             they agree on: bf16 rounding lets greedy paths part),
+             prefill ms, decode ms per step (p50 of 32), tokens/s at batch
+             4, decode-attention launches, one profiled step (device idle
+             share).  Then the
+             reference's decode_32k cell, cut: batch 16 instead of 128 (a
+             bf16 cache of 128 x 32,768 tokens is 154.6 GB), the cache
+             filled with seeded random bf16 values, one decode_step at
+             position 32,767 timed (kernel path, plain path, one profiled);
+             on that step's layer-0 inputs the kernel against its twin
+             (<= 2e-6), its device ms beside the twin, torch's
+             scaled_dot_product_attention(enable_gqa=True) and the byte
+             bound.
+20. smollm   SmolLM-360M at full width in float32 (15 heads padded to 16):
+             16 greedy tokens after a 4 x 128 prompt, kernel path == plain
+             path, the per-step logit difference.
+
 Launch counts are reset just before and read just after each path that
-is driven (phases 2, 4, 6, 7, 9, 10, 12, 13, 14); the kernels line sums
-them.
+is driven (phases 2, 4, 6, 7, 9, 10, 12, 13, 14, 18, 19 and 19b, 20); the
+kernels line sums them.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -1226,6 +1256,367 @@ def nccl_fabric(sg, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phases 17-20: dense-LM decode serving (Qwen2.5-3B and SmolLM-360M)
+# ---------------------------------------------------------------------------
+
+LM_BATCH = 4
+LM_PROMPT = 512
+LM_NEW_TOKENS = 32
+SMOLLM_PROMPT = 128
+SMOLLM_NEW_TOKENS = 16
+# the reference's decode_32k cell (repro/configs/registry.py LM_SHAPES) is
+# 128 sequences of 32,768 tokens; 128 x 32,768 x 36,864 bytes of bf16 cache
+# is 154.6 GB, more than one card holds, so the batch is cut to 16 (19.3 GB)
+DECODE_32K = dict(seq_len=32_768, batch=16, reference_batch=128)
+F32_PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
+ATTN_TOL = 2e-6            # kernel vs twin, absolute, on the float32 output
+ATTN_EDGE_CASES = [        # (b, h, kh, dh, s, lengths, cache dtype)
+    (2, 8, 2, 64, 300, 1, "float32"),            # length 1
+    (4, 16, 2, 128, 544, "ragged", "bfloat16"),  # ragged lengths, group 8
+    (3, 15, 5, 64, 700, 131, "float32"),         # not a tile multiple, group 3
+    (2, 24, 8, 128, 1000, "ragged", "bfloat16"), # group 3, dh 128
+    (2, 16, 2, 128, 4096, 4095, "float32"),      # group 8, dh 128
+    (2, 6, 2, 16, 40, 33, "bfloat16"),           # dh 16, the smoke configs'
+    (2, 3, 1, 20, 70, "ragged", "float32"),      # dh 20, not a multiple of 32
+]
+
+
+def attn_inputs(dev, b, h, kh, dh, s, lengths, kv_dtype, q_dtype, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, dh), generator=g, device=dev).to(q_dtype)
+    k = torch.randn((b, s, kh, dh), generator=g, device=dev).to(kv_dtype)
+    v = torch.randn((b, s, kh, dh), generator=g, device=dev).to(kv_dtype)
+    if lengths == "ragged":
+        lengths = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                                dtype=torch.int32)
+        lengths[0] = s
+    return q, k, v, lengths
+
+
+def check_attn(q, k, v, lengths, what: str) -> float:
+    """The decode-attention kernel against its twin on the same inputs:
+    max abs difference, which must stay within ATTN_TOL."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+
+    got = da.decode_attention(q, k, v, lengths)
+    want = da.decode_attention_plain(q, k, v, lengths)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"decode_attention {what}: bad output")
+    err = float((got - want).abs().max())
+    if err > ATTN_TOL:
+        raise AssertionError(f"decode_attention {what}: max err {err} > {ATTN_TOL}")
+    return err
+
+
+def attn_bound(q, k, lengths) -> dict:
+    """The least time for this call: q, the output and lengths once, and K
+    and V each read once up to each row's length, over the HBM rate; the
+    float32 multiply-adds (scores and p @ V) over the float32 peak."""
+    b, h, dh = q.shape
+    kh = k.shape[2]
+    lens = ([int(lengths)] * b if isinstance(lengths, int)
+            else [int(x) for x in lengths.tolist()])
+    kv_bytes = 2 * sum(lens) * kh * dh * k.element_size()
+    nbytes = (q.numel() * q.element_size() + b * h * dh * 4 + kv_bytes
+              + (0 if isinstance(lengths, int) else 4 * b))
+    flops = 4 * h * dh * sum(lens)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_PEAK_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, flops=flops)
+
+
+def sdpa_yardstick(q, k, v, lengths):
+    """One PyTorch call computing the same function, timed beside the
+    kernel and never served with: scaled_dot_product_attention with
+    enable_gqa over (b, heads, s, dh) views of the cache; the length mask
+    is passed only where some row is shorter than the cache (an all-true
+    mask would only push SDPA onto a slower backend)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, dh = q.shape
+    s = k.shape[1]
+    qs = q.to(k.dtype)[:, :, None, :]
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    mask = None
+    if isinstance(lengths, int):
+        if lengths < s:
+            mask = (torch.arange(s, device=k.device) < lengths)[None, None, None, :]
+    elif bool((lengths < s).any()):
+        mask = (torch.arange(s, device=k.device)[None, :] < lengths[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def time_attn(q, k, v, lengths, what: str) -> dict:
+    """Device ms of the kernel (back to back), its twin's ms, SDPA's ms
+    and the bound, on one call's inputs (``lengths`` an int: the wrapper
+    then never synchronises)."""
+    from repro_torch.kernels import decode_attention as da
+
+    err = check_attn(q, k, v, lengths, what)
+    row = dict(
+        ms=device_ms(lambda: da.decode_attention(q, k, v, lengths), 20),
+        plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, k, v, lengths), 3),
+        library_ms=device_ms(sdpa_yardstick(q, k, v, lengths), 20),
+        max_abs_err=err, **attn_bound(q, k, lengths))
+    log("attn_timing", what=what, q=list(q.shape), k=list(k.shape),
+        cache_dtype=str(k.dtype), lengths=lengths, **row)
+    return row
+
+
+def capture_attention(fn):
+    """Run ``fn`` with the decode step's attention op wrapped so that its
+    first call's inputs are kept: ``(result of fn, (q, k, v, lengths))``.
+    k and v stay views of the cache's layer 0."""
+    from repro_torch.kernels import ops
+
+    real, seen = ops.decode_attention, []
+
+    def spy(q, k, v, lengths, *, use_kernel):
+        if not seen:
+            seen.append((q.clone(), k, v, lengths))
+        return real(q, k, v, lengths, use_kernel=use_kernel)
+
+    ops.decode_attention = spy
+    try:
+        out = fn()
+    finally:
+        ops.decode_attention = real
+    return out, seen[0]
+
+
+def lockstep_logits(params, cfg, prompt, n_new: int) -> list:
+    """Prefill once, then decode on the kernel path and the plain path side
+    by side, both fed the kernel path's greedy token: the max |logit
+    difference| per step; the greedy tokens must agree at every step."""
+    import torch
+    from repro_torch.models import transformer
+
+    logits, cache_k = transformer.prefill(params, prompt, cfg,
+                                          max_seq=prompt.shape[1] + n_new)
+    cache_p = {name: t.clone() for name, t in cache_k.items()}
+    cur = torch.argmax(logits, dim=-1).to(torch.int32)
+    diffs = []
+    for i in range(n_new - 1):
+        pos = prompt.shape[1] + i
+        lk, cache_k = transformer.decode_step(params, cache_k, cur, pos, cfg)
+        lp, cache_p = transformer.decode_step(params, cache_p, cur, pos, cfg,
+                                              backend="xla")
+        if not bool(torch.isfinite(lk).all()):
+            raise AssertionError(f"{cfg.name}: step {i} logits not finite")
+        diffs.append(float((lk - lp).abs().max()))
+        cur = torch.argmax(lk, dim=-1).to(torch.int32)
+        if not torch.equal(cur, torch.argmax(lp, dim=-1).to(torch.int32)):
+            raise AssertionError(f"{cfg.name}: greedy tokens differ at step {i}")
+    return diffs
+
+
+def generate_both(params, cfg, prompt, n_new: int, what: str, identical=True):
+    """Greedy generate on the kernel path (its launches counted) and on the
+    plain path; the tokens must be in range and, with ``identical``, equal.
+    Returns the kernel path's tokens, its launches, its wall seconds and
+    the share of generated tokens the two paths agree on.  In bf16 the two
+    attention outputs round to different bf16 values, so greedy paths may
+    part; in float32 they must not."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving import decode
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    toks = decode.generate(params, prompt, cfg, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    launches = dict(_build.launches)
+    plain = decode.generate(params, prompt, cfg, max_new_tokens=n_new, backend="xla")
+    torch.cuda.synchronize()
+    if _build.launches["decode_attention"] != launches["decode_attention"]:
+        raise AssertionError(f"{what}: the plain path launched the kernel")
+    b, s0 = prompt.shape
+    if toks.shape != (b, s0 + n_new) or not torch.equal(toks[:, :s0], prompt):
+        raise AssertionError(f"{what}: generated tokens have the wrong shape")
+    new = toks[:, s0:]
+    if int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{what}: a generated token is outside the vocabulary")
+    if identical and not torch.equal(toks, plain):
+        raise AssertionError(f"{what}: kernel and plain paths generate different tokens")
+    agree = float((new == plain[:, s0:]).float().mean())
+    return toks, launches, wall_s, agree
+
+
+def profile_decode_step(fn) -> dict:
+    """One decode step under torch.profiler: wall ms, device busy ms and the
+    idle share, and the device operations it issued."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1 - busy / wall) if wall else None,
+                device_ops=sum(e.count for e in kernels),
+                top=[dict(kernel=e.key[:80], count=e.count,
+                          ms=e.self_device_time_total / 1e3) for e in kernels[:6]])
+
+
+def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
+              new_tokens=LM_NEW_TOKENS, smollm_prompt=SMOLLM_PROMPT,
+              smollm_new=SMOLLM_NEW_TOKENS, long=DECODE_32K):
+    """Phases 17-20 (see the module docstring); returns the kernels-line
+    row of decode_attention and the launch counts of the three LM paths."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
+
+    # 17. the kernel against its twin at edge shapes
+    errs = []
+    for i, (b, h, kh, dh, s, lengths, kv) in enumerate(ATTN_EDGE_CASES):
+        for q_dtype in (torch.float32, getattr(torch, kv)):
+            q, k, v, lens = attn_inputs(dev, b, h, kh, dh, s, lengths,
+                                        getattr(torch, kv), q_dtype, SEED + i)
+            errs.append(check_attn(q, k, v, lens, f"edge case {i}"))
+    log("attn_kernel", cases=len(errs), max_abs_err=max(errs), tolerance=ATTN_TOL,
+        shapes=[list(c) for c in ATTN_EDGE_CASES])
+    del q, k, v, lens
+
+    # 18. Qwen2.5-3B at full width in float32: kernel path == plain path
+    cfg32 = dataclasses.replace(qwen, **f32)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    prompt = torch.randint(0, qwen.vocab_size, (lm_batch, prompt_len), dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 1),
+                           device=dev)
+    _, f32_launches, f32_wall, _ = generate_both(params, cfg32, prompt, new_tokens,
+                                                 "qwen f32")
+    diffs = lockstep_logits(params, cfg32, prompt, new_tokens)
+    log("lm_f32", model=qwen.name, n_layers=qwen.n_layers, d_model=qwen.d_model,
+        vocab=qwen.vocab_size, params=qwen.param_count(), init_s=init_s,
+        batch=lm_batch, prompt=prompt_len, new_tokens=new_tokens,
+        tokens_identical=True, max_logit_diff_per_step=diffs,
+        generate_s=f32_wall, launches=f32_launches,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # 19. the serving dtypes (bf16 compute and cache): prefill, decode steps
+    served = transformer.cast_for_serving(params, qwen)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    transformer.decode_step(served, transformer.prefill(served, prompt[:, :8], qwen,
+                                                        max_seq=9)[1],
+                            prompt[:, 8], 8, qwen)                     # warm-up
+    toks, bf16_launches, bf16_wall, bf16_agree = generate_both(
+        served, qwen, prompt, new_tokens, "qwen bf16", identical=False)
+    out = {}
+    prefill_ms = wall_ms(lambda: out.setdefault("p", transformer.prefill(
+        served, prompt, qwen, max_seq=prompt_len + new_tokens)))
+    cache = out["p"][1]
+    step_ms = [wall_ms(lambda i=i: transformer.decode_step(
+        served, cache, toks[:, prompt_len + i], prompt_len + i, qwen))
+        for i in range(new_tokens)]
+    prof = profile_decode_step(lambda: transformer.decode_step(
+        served, cache, toks[:, -1], prompt_len + new_tokens - 1, qwen))
+    p50 = float(np.percentile(step_ms, 50))
+    log("lm_bf16", model=qwen.name, compute_dtype="bfloat16", cache_dtype="bfloat16",
+        batch=lm_batch, prompt=prompt_len, new_tokens=new_tokens,
+        prefill_ms=prefill_ms, decode_p50_ms=p50, decode_ms=step_ms,
+        decode_tokens_per_s=lm_batch * 1e3 / p50,
+        generate_s=bf16_wall, generate_tokens_per_s=lm_batch * new_tokens / bf16_wall,
+        tokens_agreeing_with_plain=bf16_agree,
+        attention_launches=bf16_launches["decode_attention"],
+        launches=bf16_launches, profiled_step=prof,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del cache, out
+
+    # 19b. decode_32k, cut: one decode step at position 32,767
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lb, ls = long["batch"], long["seq_len"]
+    lcache = transformer.init_kv_cache(qwen, lb, ls, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for t_ in lcache.values():
+        t_.normal_(generator=g)
+    ltoks = torch.randint(0, qwen.vocab_size, (lb,), dtype=torch.int32, generator=g, device=dev)
+    step = lambda backend: transformer.decode_step(served, lcache, ltoks, ls - 1, qwen,
+                                                   backend=backend)
+    step("pallas")                                                     # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    long_ms = wall_ms(lambda: step("pallas"))
+    long_launches = dict(_build.launches)
+    long_plain_ms = wall_ms(lambda: step("xla"))
+    (logits_k, _), (q, k, v, lengths) = capture_attention(lambda: step("pallas"))
+    logits_p, _ = step("xla")
+    torch.cuda.synchronize()
+    row = time_attn(q, k, v, lengths, "decode_32k layer 0")
+    long_prof = profile_decode_step(lambda: step("pallas"))
+    log("decode_32k", model=qwen.name, seq_len=ls, batch=lb,
+        cut=f"batch {lb} instead of {long['reference_batch']}: "
+            f"{long['reference_batch']} x {ls} tokens x "
+            f"{2 * qwen.n_layers * qwen.n_kv_heads * qwen.head_dim * 2} bytes of bf16 "
+            "cache exceed one card",
+        cache_gb=sum(t_.numel() * t_.element_size() for t_ in lcache.values()) / 1e9,
+        step_ms=long_ms, plain_step_ms=long_plain_ms,
+        max_logit_diff=float((logits_k - logits_p).abs().max()),
+        launches=long_launches, profiled_step=long_prof,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del lcache, served, q, k, v, logits_k, logits_p
+    torch.cuda.empty_cache()
+
+    # 20. SmolLM-360M at full width in float32: pad heads on the card
+    scfg = dataclasses.replace(smollm, **f32)
+    torch.cuda.reset_peak_memory_stats()
+    sparams = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED + 3), scfg)
+    sprompt = torch.randint(0, smollm.vocab_size, (lm_batch, smollm_prompt), dtype=torch.int32,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 4),
+                            device=dev)
+    _, small_launches, small_wall, _ = generate_both(sparams, scfg, sprompt, smollm_new,
+                                                     "smollm f32")
+    sdiffs = lockstep_logits(sparams, scfg, sprompt, smollm_new)
+    log("lm_smollm", model=smollm.name, n_heads=smollm.n_heads,
+        n_heads_padded=smollm.n_heads_padded, batch=lm_batch, prompt=smollm_prompt,
+        new_tokens=smollm_new, tokens_identical=True, max_logit_diff_per_step=sdiffs,
+        generate_s=small_wall, launches=small_launches,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del sparams
+    torch.cuda.empty_cache()
+
+    paths = [f32_launches, bf16_launches, long_launches, small_launches]
+    if any(p["decode_attention"] == 0 for p in paths):
+        raise AssertionError(f"an LM phase never launched decode_attention: {paths}")
+    row = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:80",
+        launches=None, max_abs_err=max(row["max_abs_err"], *errs),
+        **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+    )
+    return row, paths
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1235,6 +1626,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import qwen2_5_3b, smollm_360m
     from repro_torch.configs.pixie import FULL_WALK, SERVE_200M_REPLICATED
     from repro_torch.core import prng, service, walk
     from repro_torch.core import counter as counter_lib
@@ -1550,11 +1942,17 @@ def main() -> int:
     # 16. the NCCL fabric on one rank, 4-way board counts ------------------------------
     nccl_fabric(sg, dev)
 
+    # 17-20. dense-LM decode serving, after the Pixie state is freed ----------------
+    del sg, srv, outs, routs, oracle, rank20, binp, bq, bs, bb
+    torch.cuda.empty_cache()
+    log("lm_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
+    attn_row, lm_paths = lm_phases(dev, qwen2_5_3b.FULL, smollm_360m.FULL)
+
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
-             *sharded_paths]
-    rows = [walk_row, high_row, wide_row, bag_row, hop_row]
+             *sharded_paths, *lm_paths]
+    rows = [walk_row, high_row, wide_row, bag_row, hop_row, attn_row]
     for row in rows:
         row["launches"] = sum(p[row["name"]] for p in paths)
     if bag_row["launches"] == 0 or ranked_launches["embedding_bag"] == 0:
@@ -1566,7 +1964,8 @@ def main() -> int:
         batched_ranked=rlaunches["pallas"], users=user_launches,
         chaos=chaos_launches, sharded_parity=sharded_paths[0],
         sharded_recipe=sharded_paths[1], sharded_server=sharded_paths[2],
-        sharded_open_loop=sharded_paths[3])
+        sharded_open_loop=sharded_paths[3], lm_f32=lm_paths[0],
+        lm_bf16=lm_paths[1], decode_32k=lm_paths[2], lm_smollm=lm_paths[3])
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

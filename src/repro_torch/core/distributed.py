@@ -649,12 +649,17 @@ def recommend_sharded_batched(
     *,
     slack: float = 2.0,
     shard_dead_at: Optional[torch.Tensor] = None,
+    return_killed: bool = False,
 ):
     """Batch-native sharded serving: walk + hierarchical boosted top-k ->
     ``(scores (B, top_k), ids (B, top_k), steps_taken (B, n_slots),
-    n_high (B, n_slots), dropped ())``, and with ``shard_dead_at`` also
-    ``killed ()``, the walkers lost to dead shards; a dead shard's counts
-    arrive zeroed, so its candidates never win a slot."""
+    n_high (B, n_slots), dropped ())``, the reference's five values with a
+    ``shard_dead_at`` schedule or without one; a dead shard's counts
+    arrive zeroed, so its candidates never win a slot.
+
+    ``return_killed`` (port only) appends ``killed ()``, the walkers lost
+    to dead shards (0 without a schedule): ``PixieServer`` reads it for
+    ``ServerStats.killed``."""
     res = pixie_walk_sharded_batched(
         graph, query_pins, query_weights, keys, cfg, fabric,
         slack=slack, shard_dead_at=shard_dead_at,
@@ -665,7 +670,10 @@ def recommend_sharded_batched(
         graph.pins_per_shard, cfg.top_k, fabric,
     )
     out = (scores, ids, res.steps_taken, res.n_high, res.dropped)
-    return out if res.killed is None else out + (res.killed,)
+    if not return_killed:
+        return out
+    killed = res.killed if res.killed is not None else torch.zeros_like(res.dropped)
+    return out + (killed,)
 
 
 # ---------------------------------------------------------------------------

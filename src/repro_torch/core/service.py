@@ -353,6 +353,8 @@ def serve_batch(
     scenario: Optional[torch.Tensor] = None,
     step_budgets: Optional[torch.Tensor] = None,
     shard_dead_at: Optional[torch.Tensor] = None,
+    *,
+    return_killed: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """One serving step: Pixie over a whole query batch, on the graph's
     device.
@@ -388,8 +390,10 @@ def serve_batch(
     overflow count.  ``shard_dead_at`` (optional ``(n_shards,)`` int32,
     sharded graphs only) kills shard ``s`` from absolute superstep
     ``shard_dead_at[s]`` on (``distributed.pixie_walk_sharded_batched``);
-    ``with_stats=True`` then also appends ``killed``, the walkers lost to
-    dead shards.
+    the stats stay the reference's five values.  ``return_killed`` (port
+    only, with ``with_stats=True`` over a sharded graph) appends
+    ``killed``, the walkers lost to dead shards, for ``PixieServer``'s
+    ``ServerStats.killed``.
     Over a sharded graph ``step_budgets=`` and ``rank=`` are refused.
     """
     if backend is not None and backend != cfg.backend:
@@ -447,7 +451,7 @@ def serve_batch(
     if sharded:
         out = dist_lib.recommend_sharded_batched(
             graph, pins, weights, keys, cfg, fabric, slack=slack,
-            shard_dead_at=shard_dead_at,
+            shard_dead_at=shard_dead_at, return_killed=return_killed,
         )
         return out if with_stats else out[:2]
     if cfg.backend == "pallas" and walk_lib.batched_engine_fits(

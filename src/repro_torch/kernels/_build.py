@@ -34,7 +34,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop")
+SOURCES = ("walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
+           "decode_attention")
 
 launches: Dict[str, int] = {
     "walk_steps_fused": 0,
@@ -42,6 +43,7 @@ launches: Dict[str, int] = {
     "visit_counter_wide": 0,
     "embedding_bag": 0,
     "walk_hop_fused": 0,
+    "decode_attention": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

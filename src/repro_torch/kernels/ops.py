@@ -9,6 +9,9 @@ device of the tensors decides.  Every op takes ``use_kernel``:
     for a CPU tensor, and an error for any other device.  There is no
     fallback: a CUDA tensor whose kernel fails to build or launch raises.
 
+``decode_attention`` takes ``use_kernel`` from the LM decode step's
+``backend`` (``"xla"``: the twin), as the walk ops take it from the walk's.
+
 The bag ops default to ``use_kernel=True``: the device decides, never the
 walk backend, so both walk backends share one stage 2 on a device and
 ranked serving keeps the walk's bit parity (the reference's rule,
@@ -26,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import visit_counter as vc
 from repro_torch.kernels import walk_step as ws
@@ -172,3 +176,20 @@ def embedding_bag_batched(
         eb.embedding_bag_batched_plain
     )
     return fn(table, ids, weights, mode=mode)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths,
+    *,
+    use_kernel: bool,
+) -> torch.Tensor:
+    """Single-token GQA attention over a KV cache: ``q (b, h, dh)``, ``k, v
+    (b, s, kh, dh)``, ``lengths`` a ``(b,)`` int32 tensor or one int ->
+    ``(b, h, dh)`` float32 (the LM decode step's attention)."""
+    fn = da.decode_attention if _kernel_for(use_kernel, k) else (
+        da.decode_attention_plain
+    )
+    return fn(q, k, v, lengths)

@@ -1,0 +1,149 @@
+"""Shared neural building blocks: RMSNorm, RoPE, flash attention, SwiGLU.
+
+Twin of ``repro/models/layers.py``: the same names, argument orders and
+layouts (``(b, s, heads, head_dim)`` activations), and the reference's
+float order where it shows: RMSNorm and RoPE compute in float32 and cast
+back to the input's dtype, masked scores are ``NEG_INF = -1e30``.
+
+``flash_attention`` is the reference's chunked online-softmax scan over KV
+blocks, written as a Python loop over chunks in plain PyTorch.  It is
+plain jnp in the reference too (no Pallas kernel), so it has no hand
+kernel here; prefill and ``forward`` use it, decode uses the
+``decode_attention`` kernel instead.
+
+The initialisers draw from an explicit ``torch.Generator`` with the
+reference's standard deviations; their numbers differ from ``jax.random``'s,
+so a parity test carries the reference's arrays across
+(``transformer.params_from_reference``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms and activations
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    # jax.nn.silu is x * logistic(x); F.silu rounds differently
+    return gate * torch.sigmoid(gate) * up
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0,
+                     device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               freqs: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    angles = positions[..., :, None].float() * freqs      # (.., s, half)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Chunked (flash) attention — loop over KV blocks, online softmax
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(
+    q: torch.Tensor,    # (b, sq, h, dh)
+    k: torch.Tensor,    # (b, skv, kh, dh)
+    v: torch.Tensor,    # (b, skv, kh, dh)
+    causal: bool = True,
+    q_offset: int = 0,  # absolute position of q[0]
+    kv_chunk: int = 512,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Memory-efficient GQA attention -> (b, sq, h, dh), dtype of q.
+
+    No (sq, skv) tensor is materialised: the loop carries the (m, l, acc)
+    running-softmax state per query position, one KV chunk at a time.
+    Query head ``i`` reads kv head ``i // (h // kh)`` (the reference's
+    reshape); its callers pass K/V already expanded to ``h`` heads.
+    """
+    b, sq, h, dh = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    group = h // kh
+    if scale is None:
+        scale = dh ** -0.5
+    kv_chunk = min(kv_chunk, skv)
+    n_chunks = -(-skv // kv_chunk)
+    dev = q.device
+
+    qg = (q.reshape(b, sq, kh, group, dh) * scale).float()
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    m = torch.full((b, sq, kh, group), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, sq, kh, group), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, kh, group, dh), dtype=torch.float32, device=dev)
+    for c in range(n_chunks):
+        lo = c * kv_chunk
+        kb = k[:, lo:lo + kv_chunk].float()
+        vb = v[:, lo:lo + kv_chunk].float()
+        if kb.shape[1] < kv_chunk:   # the reference zero-pads the last chunk
+            pad = (0, 0, 0, 0, 0, kv_chunk - kb.shape[1])
+            kb, vb = F.pad(kb, pad), F.pad(vb, pad)
+        kv_pos = lo + torch.arange(kv_chunk, device=dev)
+        s = torch.einsum("bqkgd,bjkd->bqkgj", qg, kb)   # (b, sq, kh, g, chunk)
+        if causal:
+            mask = kv_pos[None, :] <= q_pos[:, None]
+        else:
+            mask = torch.ones((sq, kv_chunk), dtype=torch.bool, device=dev)
+        mask = mask & (kv_pos < skv)[None, :]
+        s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bqkgj,bjkd->bqkgd", p, vb)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
+               scale: str = "fan_in", device=None) -> torch.Tensor:
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    std = (1.0 / fan_in) ** 0.5
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device) * std
+
+
+def embed_init(gen: torch.Generator, shape: Tuple[int, ...],
+               std: float = 0.02, device=None) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device) * std

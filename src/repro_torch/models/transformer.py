@@ -1,0 +1,387 @@
+"""Decoder-only LM: GQA + RoPE + RMSNorm + SwiGLU, dense FFN.
+
+Twin of ``repro/models/transformer.py`` for the dense configurations
+(qwen2.5-3b, smollm-360m, minitron-4b): the same ``LMConfig`` fields and
+defaults, the same parameter tree (plain nested dicts with the stacked
+``(L, ...)`` block layout: ``wq`` is ``(L, d, hp, dh)``, ``wo`` is
+``(L, hp, dh, d)``) and the same KV-cache layout ``(L, b, max_seq, kh,
+dh)``.  A config with ``moe`` or ``first_dense_ff`` set raises
+``NotImplementedError``: MoE routing waits for ``moe.py`` (ROADMAP Queue 1
+item 1).
+
+Differences from the reference, none of which changes a value:
+
+  * layers run as a Python loop over the stacked params; ``remat``,
+    ``unroll_layers`` and ``mesh`` are TPU compile knobs, accepted and
+    ignored;
+  * ``decode_step`` writes the new token's K/V into ``cache`` in place and
+    returns the same dict (the reference returns a new cache; a 32k-token
+    cache is tens of GB, so the port does not copy it), and takes
+    ``pos`` as a Python int (or a 0-d tensor, read once);
+  * decode attention goes through ``kernels.ops.decode_attention`` on the
+    real heads ``q[:, :n_heads]``: the hand-written CUDA kernel for a CUDA
+    tensor, its plain twin on the CPU or with ``backend="xla"``.  The
+    kernel's head map ``i // (n_heads // n_kv_heads)`` equals the
+    reference's ``min(i // group, kh - 1)`` on every real head, and the pad
+    heads' outputs are zeros, as the reference's ``hmask`` makes them;
+  * ``cast_for_serving`` casts the matrices to ``compute_dtype`` once
+    (the reference casts with ``.astype(cd)`` at every use, which gives
+    the same values).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+
+BACKENDS = ("pallas", "xla")
+# matrices the reference casts to compute_dtype at each use; the norm
+# weights stay float32 (rmsnorm upcasts them)
+_CAST = ("embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+         "w_gate", "w_up", "w_down")
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    rope_theta: float = 10_000.0
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    moe: Optional[Any] = None
+    first_dense_ff: Optional[int] = None  # DeepSeekMoE: layer 0 dense FFN
+    norm_eps: float = 1e-6
+    compute_dtype: Any = torch.bfloat16
+    remat: bool = True
+    kv_chunk: int = 512
+    loss_chunk: int = 1024
+    unroll_layers: bool = False
+    # pad Q/O projections to this many heads (pad heads' outputs are zeroed)
+    pad_heads_to: Optional[int] = None
+    # pad the vocabulary (pad logits are masked to -1e30 in decode)
+    pad_vocab_to: Optional[int] = None
+    cache_dtype: Any = torch.bfloat16   # KV-cache storage dtype
+
+    @property
+    def n_heads_padded(self) -> int:
+        return self.pad_heads_to or self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        return self.pad_vocab_to or self.vocab_size
+
+    @property
+    def qkv_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        """Total parameters (for 6ND model-FLOPs accounting)."""
+        _dense_only(self)
+        d, l = self.d_model, self.n_layers
+        attn = d * self.qkv_dim + 2 * d * self.kv_dim + self.qkv_dim * d
+        if self.qkv_bias:
+            attn += self.qkv_dim + 2 * self.kv_dim
+        ffn = 3 * d * self.d_ff
+        total = l * (attn + ffn + 2 * d)
+        total += self.vocab_size * d  # embedding
+        if not self.tie_embeddings:
+            total += d * self.vocab_size
+        total += d  # final norm
+        return total
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.moe is not None or cfg.first_dense_ff:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers (moe / first_dense_ff) are not ported "
+            "yet; see ROADMAP Queue 1 item 1 (moe.py)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _dense_stack(gen: torch.Generator, n: int, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``n`` independent ``dense_init(shape)`` draws stacked on axis 0."""
+    out = torch.empty((n,) + shape, dtype=torch.float32, device=gen.device)
+    for i in range(n):
+        out[i] = layers.dense_init(gen, shape, device=gen.device)
+    return out
+
+
+def init_params(gen: torch.Generator, cfg: LMConfig) -> Dict[str, Any]:
+    """Seeded parameters on the generator's device, in the reference's
+    tree and layout (the values differ: ``torch.Generator`` is not
+    ``jax.random``)."""
+    _dense_only(cfg)
+    dev = gen.device
+    d, n, hp, dh = cfg.d_model, cfg.n_layers, cfg.n_heads_padded, cfg.head_dim
+    kh = cfg.n_kv_heads
+    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=dev)
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
+    params: Dict[str, Any] = {
+        "embed": layers.embed_init(gen, (cfg.vocab_padded, d), device=dev),
+    }
+    blocks = {
+        "ln1": ones(n, d),
+        "wq": _dense_stack(gen, n, (d, hp, dh)),
+        "wk": _dense_stack(gen, n, (d, kh, dh)),
+        "wv": _dense_stack(gen, n, (d, kh, dh)),
+        "wo": _dense_stack(gen, n, (hp, dh, d)),
+        "ln2": ones(n, d),
+    }
+    if cfg.qkv_bias:
+        blocks.update(bq=zeros(n, hp, dh), bk=zeros(n, kh, dh),
+                      bv=zeros(n, kh, dh))
+    blocks.update(
+        w_gate=_dense_stack(gen, n, (d, cfg.d_ff)),
+        w_up=_dense_stack(gen, n, (d, cfg.d_ff)),
+        w_down=_dense_stack(gen, n, (cfg.d_ff, d)),
+    )
+    params["blocks"] = blocks
+    params["final_norm"] = ones(d)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.dense_init(gen, (d, cfg.vocab_padded),
+                                              device=dev)
+    return params
+
+
+def params_from_reference(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's parameter pytree, as numpy arrays, as the port's
+    tensors on ``device``: the identity on names and layouts."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.as_tensor(np.require(np.asarray(node), requirements="W"),
+                               device=dev)
+
+    return conv(tree)
+
+
+def cast_for_serving(params: Dict[str, Any], cfg: LMConfig) -> Dict[str, Any]:
+    """The same tree with every matrix and bias cast to ``compute_dtype``
+    once, norm weights left float32; ``decode_step``'s per-use casts are
+    then no-ops and give the values the reference's ``.astype(cd)`` gives."""
+    cd = cfg.compute_dtype
+
+    def conv(node, name=""):
+        if isinstance(node, dict):
+            return {k: conv(v, k) for k, v in node.items()}
+        return node.to(cd) if name in _CAST else node
+
+    return conv(params)
+
+
+def lm_head_weight(params: Dict[str, Any], cfg: LMConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _layer(blocks: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    return {k: v[i] for k, v in blocks.items()}
+
+
+def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", h, w)`` as one matrix product."""
+    d, nh, dh = w.shape
+    return (h @ w.reshape(d, nh * dh)).unflatten(-1, (nh, dh))
+
+
+def _out_proj(attn: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", attn, w)`` as one matrix product."""
+    nh, dh, d = w.shape
+    return attn.flatten(-2) @ w.reshape(nh * dh, d)
+
+
+def _qkv(p, x, cfg: LMConfig, positions: torch.Tensor, freqs: torch.Tensor):
+    cd = cfg.compute_dtype
+    h = layers.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    q = _proj(h, p["wq"].to(cd))
+    k = _proj(h, p["wk"].to(cd))
+    v = _proj(h, p["wv"].to(cd))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(cd)
+        k = k + p["bk"].to(cd)
+        v = v + p["bv"].to(cd)
+    q = layers.apply_rope(q, positions, freqs)
+    k = layers.apply_rope(k, positions, freqs)
+    return q, k, v
+
+
+def _expanded_attention(q, k, v, cfg: LMConfig, q_offset: int = 0):
+    """GQA -> full (padded) heads by a gather, then flash attention, with
+    the pad heads zeroed (the reference's ``_attention`` / ``block_kv``)."""
+    hp = cfg.n_heads_padded
+    group = cfg.n_heads // cfg.n_kv_heads
+    if group > 1 or hp != cfg.n_kv_heads:
+        h2kv = torch.clamp(torch.arange(hp, device=q.device) // group,
+                           max=cfg.n_kv_heads - 1)
+        k = k.index_select(2, h2kv)
+        v = v.index_select(2, h2kv)
+    attn = layers.flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                                  kv_chunk=cfg.kv_chunk)
+    if hp != cfg.n_heads:
+        mask = (torch.arange(hp, device=q.device) < cfg.n_heads).to(attn.dtype)
+        attn = attn * mask[None, None, :, None]
+    return attn
+
+
+def _ffn(p, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    cd = cfg.compute_dtype
+    h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    g = h @ p["w_gate"].to(cd)
+    u = h @ p["w_up"].to(cd)
+    return x + layers.swiglu(g, u) @ p["w_down"].to(cd)
+
+
+def _embed(params, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    return params["embed"].to(cfg.compute_dtype)[tokens.long()]
+
+
+def _logits(params, x_last: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    logits = (x_last @ lm_head_weight(params, cfg).to(cfg.compute_dtype)).float()
+    if cfg.vocab_padded != cfg.vocab_size:
+        valid = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab_size
+        logits = logits.masked_fill(~valid, layers.NEG_INF)
+    return logits
+
+
+def forward(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,      # (b, s) int32
+    cfg: LMConfig,
+    mesh=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token ids -> final hidden states (b, s, d). Returns (hidden, aux_loss)."""
+    _dense_only(cfg)
+    b, s = tokens.shape
+    x = _embed(params, tokens, cfg)
+    dev = x.device
+    freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
+    pos = torch.arange(s, device=dev).expand(b, s)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        q, k, v = _qkv(p, x, cfg, pos, freqs)
+        x = x + _out_proj(_expanded_attention(q, k, v, cfg), p["wo"].to(cfg.compute_dtype))
+        x = _ffn(p, x, cfg)
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode with KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(
+    cfg: LMConfig, batch: int, max_seq: int, dtype=None, device: DeviceLike = None
+) -> Dict[str, torch.Tensor]:
+    dtype = dtype or cfg.cache_dtype
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def decode_step(
+    params: Dict[str, Any],
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,      # (b,) int32 — the newest token per sequence
+    pos,                       # int — its position (same across batch)
+    cfg: LMConfig,
+    mesh=None,
+    *,
+    backend: str = "pallas",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Append one token, return (logits (b, v) f32, cache updated in place).
+
+    ``backend="pallas"`` attends through the decode-attention kernel on a
+    CUDA cache (its twin on the CPU); ``"xla"`` takes the twin anywhere.
+    """
+    _dense_only(cfg)
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    pos = int(pos)
+    max_seq = cache["k"].shape[2]
+    if not 0 <= pos < max_seq:
+        raise ValueError(f"pos {pos} outside the cache's {max_seq} positions")
+    cd = cfg.compute_dtype
+    b = tokens.shape[0]
+    x = _embed(params, tokens, cfg)[:, None, :]
+    dev = x.device
+    freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+    hp = cfg.n_heads_padded
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        q, k, v = _qkv(p, x, cfg, posb, freqs)
+        ck, cv = cache["k"][i], cache["v"][i]
+        ck[:, pos] = k[:, 0].to(ck.dtype)
+        cv[:, pos] = v[:, 0].to(cv.dtype)
+        attn = ops.decode_attention(q[:, 0, :cfg.n_heads], ck, cv, pos + 1,
+                                    use_kernel=backend == "pallas")
+        if hp != cfg.n_heads:   # pad heads contribute zeros
+            attn = F.pad(attn, (0, 0, 0, hp - cfg.n_heads))
+        x = x + _out_proj(attn[:, None].to(cd), p["wo"].to(cd))
+        x = _ffn(p, x, cfg)
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x[:, 0], cfg), cache
+
+
+def prefill(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,      # (b, s)
+    cfg: LMConfig,
+    max_seq: Optional[int] = None,
+    mesh=None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run the prompt, build the KV cache. Returns (last-token logits, cache).
+
+    The cache layout matches decode_step; padding beyond s is zeros.
+    """
+    _dense_only(cfg)
+    b, s = tokens.shape
+    if max_seq is None:
+        max_seq = s
+    x = _embed(params, tokens, cfg)
+    dev = x.device
+    freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
+    pos = torch.arange(s, device=dev).expand(b, s)
+    cache = init_kv_cache(cfg, b, max_seq, device=dev)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        q, k, v = _qkv(p, x, cfg, pos, freqs)
+        x = x + _out_proj(_expanded_attention(q, k, v, cfg), p["wo"].to(cfg.compute_dtype))
+        x = _ffn(p, x, cfg)
+        cache["k"][i, :, :s] = k.to(cfg.cache_dtype)
+        cache["v"][i, :, :s] = v.to(cfg.cache_dtype)
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x[:, -1], cfg), cache

@@ -1,0 +1,57 @@
+"""LM text generation: prefill + greedy decode loop.
+
+Twin of ``repro/serving/decode.py``: a host loop over
+``transformer.prefill`` and ``transformer.decode_step``.  ``backend``
+(port only) picks the decode step's attention: ``"pallas"`` the
+decode-attention kernel on the card (its twin on the CPU), ``"xla"`` the
+plain twin anywhere.
+
+Greedy decoding only: ``_sample`` takes the first maximal logit, as
+``jnp.argmax`` does (``torch.argmax`` returns the first maximal index too).
+Temperature sampling needs ``jax.random.categorical``'s bit path and is
+refused (ROADMAP Queue 1 item 1).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.models import transformer as tf
+
+
+def generate(
+    params: Dict[str, Any],
+    prompt: torch.Tensor,      # (b, s0) int32
+    cfg: tf.LMConfig,
+    max_new_tokens: int = 32,
+    temperature: float = 0.0,
+    key: Optional[torch.Tensor] = None,
+    *,
+    backend: str = "pallas",
+) -> torch.Tensor:
+    """Returns (b, s0 + max_new_tokens) generated token ids."""
+    b, s0 = prompt.shape
+    max_seq = s0 + max_new_tokens
+    logits, cache = tf.prefill(params, prompt, cfg, max_seq=max_seq)
+
+    tokens = [prompt.to(torch.int32)]
+    cur = _sample(logits, temperature, key, 0)
+    for i in range(max_new_tokens):
+        tokens.append(cur[:, None])
+        if i == max_new_tokens - 1:
+            break
+        logits, cache = tf.decode_step(params, cache, cur, s0 + i, cfg,
+                                       backend=backend)
+        cur = _sample(logits, temperature, key, i + 1)
+    return torch.cat(tokens, dim=1)
+
+
+def _sample(logits: torch.Tensor, temperature: float, key, i: int) -> torch.Tensor:
+    if temperature <= 0.0 or key is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    raise NotImplementedError(
+        "temperature sampling needs jax.random.categorical's bits-to-uniform "
+        "path; only greedy decoding is ported (ROADMAP Queue 1 item 1)"
+    )

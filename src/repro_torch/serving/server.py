@@ -543,6 +543,7 @@ class PixieServer:
             extra.update(
                 with_stats=True, fabric=self.fabric, slack=self.slack,
                 shard_dead_at=torch.tensor(self._shard_dead_at, device=dev),
+                return_killed=True,
             )
             entry_budgets = [self.cfg.n_steps] * n_real
         elif self._takes_budgets:

@@ -15,7 +15,12 @@ same order (the kernel with ``_rn`` intrinsics, so nothing becomes an
 FMA), and ranked serving through it must equal the plain path.  The
 sharded engine's hop kernel must equal its twin at every shape, gated-off
 lanes, degree-0 rows and a shard's last row included, and the sharded
-walk's kernel path must equal its plain path.
+walk's kernel path must equal its plain path.  The decode-attention
+kernel runs an online softmax where its twin runs two passes, so the two
+agree to float32 rounding: within 2e-6 absolute on the float32 output
+(edge lengths, ragged batches, head dims that are not multiples of 32,
+float32 and bf16 caches); the LM decode step's kernel path must give the
+plain path's greedy tokens.
 """
 
 import dataclasses
@@ -24,10 +29,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import qwen2_5_3b
 from repro_torch.core import counter, distributed, prng, service, walk
 from repro_torch.graphs import synthetic
-from repro_torch.serving import ranker
+from repro_torch.models import transformer
+from repro_torch.serving import decode, ranker
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import visit_counter as vc
 from repro_torch.kernels import walk_step as ws
@@ -421,3 +429,96 @@ def test_sharded_walk_kernel_path_matches_plain_path(cuda_device, slack, dead):
         assert torch.equal(fold[..., :sg20.graph.n_pins], flat.counts)
     else:
         assert int(out["pallas"].dropped) > 0 and int(out["pallas"].killed) > 0
+
+
+# (b, h, kh, dh, s, lengths): "ragged" draws each row's length, an int is
+# one length for every row
+ATTN_CASES = [
+    (2, 8, 2, 64, 512, "ragged"),
+    (1, 16, 16, 128, 300, "ragged"),
+    (4, 4, 1, 128, 1024, "ragged"),
+    (3, 16, 2, 128, 544, 1),          # length 1
+    (2, 15, 5, 64, 200, 131),         # smollm's group 3; not a tile multiple
+    (2, 6, 2, 16, 40, "ragged"),      # dh 16
+    (2, 3, 1, 20, 70, 67),            # dh 20, not a multiple of 32
+    (1, 64, 1, 256, 129, "ragged"),   # group 64, dh 256: large shared memory
+]
+
+
+def _attn_inputs(dev, b, h, kh, dh, s, lengths, kv_dtype, q_dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, dh), generator=g, device=dev).to(q_dtype)
+    k = torch.randn((b, s, kh, dh), generator=g, device=dev).to(kv_dtype)
+    v = torch.randn((b, s, kh, dh), generator=g, device=dev).to(kv_dtype)
+    if lengths == "ragged":
+        lengths = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                                dtype=torch.int32)
+        lengths[0] = s
+    return q, k, v, lengths
+
+
+@pytest.mark.parametrize("kv_dtype,q_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("b,h,kh,dh,s,lengths", ATTN_CASES)
+def test_decode_attention_kernel_matches_twin(cuda_device, b, h, kh, dh, s,
+                                              lengths, kv_dtype, q_dtype):
+    q, k, v, lens = _attn_inputs(cuda_device, b, h, kh, dh, s, lengths,
+                                 kv_dtype, q_dtype, b * s + dh)
+    got = da.decode_attention(q, k, v, lens)
+    want = da.decode_attention_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, h, dh)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 2e-6
+
+
+def test_decode_attention_wrapper_counts_launches_and_checks_inputs(cuda_device):
+    q, k, v, lens = _attn_inputs(cuda_device, 2, 4, 2, 32, 50, "ragged",
+                                 torch.float32, torch.float32, 0)
+    _build.reset_launches()
+    da.decode_attention(q, k, v, lens)
+    ops.decode_attention(q, k, v, 7, use_kernel=True)
+    ops.decode_attention(q, k, v, 7, use_kernel=False)
+    assert _build.launches["decode_attention"] == 2
+    with pytest.raises(ValueError, match=r"\[1, 50\]"):
+        da.decode_attention(q, k, v, 0)
+    with pytest.raises(ValueError, match=r"\[1, 50\]"):
+        da.decode_attention(q, k, v, torch.zeros_like(lens))
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention(q, k[:, ::2], v[:, ::2], 3)
+    with pytest.raises(ValueError, match="is on cpu"):
+        da.decode_attention(q.cpu(), k, v, 3)
+    wide = torch.zeros((1, 2, 1, 512), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention(torch.zeros((1, 1, 512), device=cuda_device),
+                            wide, wide, 1)
+    assert _build.launches["decode_attention"] == 2
+
+
+@pytest.mark.parametrize("pad_heads", [False, True])
+def test_decode_kernel_path_matches_plain_path(cuda_device, pad_heads):
+    import dataclasses
+
+    cfg = dataclasses.replace(qwen2_5_3b.SMOKE, cache_dtype=torch.float32)
+    if pad_heads:
+        cfg = dataclasses.replace(cfg, n_heads=6, n_kv_heads=2, pad_heads_to=8)
+    params = transformer.init_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (3, 9), dtype=torch.int32,
+                           generator=torch.Generator(device=cuda_device).manual_seed(1),
+                           device=cuda_device)
+    out = {}
+    for backend in ("pallas", "xla"):
+        _build.reset_launches()
+        out[backend] = decode.generate(params, prompt, cfg, max_new_tokens=6,
+                                       backend=backend)
+        torch.cuda.synchronize()
+        assert (_build.launches["decode_attention"] > 0) == (backend == "pallas")
+    assert torch.equal(out["pallas"], out["xla"])
+    logits = {}
+    for backend in ("pallas", "xla"):
+        _, cache = transformer.prefill(params, prompt, cfg, max_seq=12)
+        logits[backend], _ = transformer.decode_step(
+            params, cache, out["pallas"][:, 9], 9, cfg, backend=backend)
+    assert float((logits["pallas"] - logits["xla"]).abs().max()) <= 2e-6

@@ -45,8 +45,14 @@ def test_port_files_exist():
                  "kernels/ops.py", "serving/server.py", "serving/ranker.py",
                  "serving/recommend.py", "serving/resilience.py",
                  "serving/traffic.py", "configs/pixie.py",
-                 "core/distributed.py"):
+                 "core/distributed.py", "models/layers.py",
+                 "models/transformer.py", "serving/decode.py",
+                 "kernels/decode_attention.py", "configs/qwen2_5_3b.py",
+                 "configs/smollm_360m.py", "configs/minitron_4b.py"):
         assert twin in names
+    for src in ("walk_steps_fused.cu", "visit_counter.cu", "embedding_bag.cu",
+                "walk_hop.cu", "decode_attention.cu"):
+        assert (PORT / "kernels" / "csrc" / src).exists()
 
 
 @pytest.mark.parametrize(
@@ -69,6 +75,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.configs.pixie, repro_torch.kernels.ops\n"
         "import repro_torch.serving.traffic, repro_torch.serving.recommend\n"
         "import repro_torch.core.distributed\n"
+        "import repro_torch.serving.decode, repro_torch.configs.qwen2_5_3b\n"
+        "import repro_torch.configs.smollm_360m, repro_torch.configs.minitron_4b\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -123,6 +131,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                             n_slots=1, n_boards=4, alpha_u32=0, beta_u32=0)
     with pytest.raises(ValueError, match="CUDA"):
         ws.walk_hop_fused(z, z.bool(), z, z[:1], off, z)
+    from repro_torch.kernels import decode_attention as da
+
+    kv = torch.zeros((1, 4, 1, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention(torch.zeros((1, 2, 8)), kv, kv, 2)
 
 
 def test_dispatch_refuses_devices_without_a_path():
@@ -136,19 +149,25 @@ def test_dispatch_refuses_devices_without_a_path():
                                   m.reshape(1, 1, 4))
     with pytest.raises(ValueError, match="no kernel and no plain path"):
         ops.walk_hop(m, m.bool(), m, m, m, m[:1], use_kernel=True)
+    kv = torch.zeros((1, 4, 1, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel and no plain path"):
+        ops.decode_attention(torch.zeros((1, 2, 8), device="meta"), kv, kv, 2,
+                             use_kernel=True)
 
 
 def test_launch_counters_name_the_three_kernels_and_reset():
     """Name kept from the first slice; the embedding bag is the fourth
-    counter and the sharded engine's hop the fifth."""
+    counter, the sharded engine's hop the fifth and the LM decode step's
+    attention the sixth."""
     from repro_torch.kernels import _build
 
     assert set(_build.launches) == {
         "walk_steps_fused", "visit_counter_update_high", "visit_counter_wide",
-        "embedding_bag", "walk_hop_fused",
+        "embedding_bag", "walk_hop_fused", "decode_attention",
     }
     assert set(_build.SOURCES) == {
         "walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
+        "decode_attention",
     }
     _build.launches["visit_counter_wide"] += 3
     _build.reset_launches()
@@ -174,6 +193,9 @@ def test_cuda_sources_name_the_kernel_they_replace():
     assert "walk_steps_fused" in walk
     assert "visit_counter_update_high" in counter
     assert "visit_counter_wide" in counter
+    attn = (csrc / "decode_attention.cu").read_text()
+    assert "src/repro/kernels/decode_attention.py" in attn
+    assert "_decode_attn_kernel" in attn and "decode_attention_plain" in attn
     assert "sm_90a" in (PORT / "kernels" / "_build.py").read_text()
 
 

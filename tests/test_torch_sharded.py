@@ -466,10 +466,18 @@ def test_sharded_serve_batch_matches_reference(reference, port, case):
         slack=slack,
         shard_dead_at=None if dead is None else torch.tensor(dead))
     want = reference[f"serve/{case}"]
-    # with a fault schedule the port also hands back the kill tally
-    assert len(got) == (5 if dead is None else 6)
+    # the reference's five values, with a fault schedule or without one
+    assert len(got) == 5
     if dead is not None:
-        assert int(got[5]) > 0
+        # the kill tally lives behind the port-only return_killed flag
+        with_killed = tservice.serve_batch(
+            shg, port["qp"], port["qw"], torch.zeros(2, dtype=torch.int32),
+            prng.key(11, CPU), twalk.WalkConfig(backend="pallas", **SERVE_CFG),
+            with_stats=True, fabric=tdist.LocalFabric(2, device=CPU),
+            slack=slack, shard_dead_at=torch.tensor(dead), return_killed=True)
+        assert len(with_killed) == 6 and int(with_killed[5]) > 0
+        for a, b in zip(with_killed[:5], got):
+            _eq(a, b)
     for name, a, b in zip(("scores", "ids", "steps", "n_high", "dropped"),
                           got, want):
         _eq(a, np.asarray(b, np.float32 if name == "scores" else np.int32),
@@ -493,9 +501,35 @@ def test_recommend_sharded_batched_matches_reference(reference, port):
         tdist.LocalFabric(2, device=CPU), slack=0.05,
         shard_dead_at=torch.tensor([2, NEVER], dtype=torch.int32))
     want = reference["recommend/starved_dead"]
-    assert len(got) == len(want) + 1 and int(got[5]) > 0
+    assert len(got) == len(want) == 5
     for a, b in zip(got, want):
         _eq(a, np.asarray(b, a.numpy().dtype))
+    # the kill tally lives behind the port-only return_killed flag
+    with_killed = tdist.recommend_sharded_batched(
+        tdist.shard_graph(port["graph"], 2), port["qp"], port["qw"],
+        port["keys"], twalk.WalkConfig(**SERVE_CFG),
+        tdist.LocalFabric(2, device=CPU), slack=0.05,
+        shard_dead_at=torch.tensor([2, NEVER], dtype=torch.int32),
+        return_killed=True)
+    assert len(with_killed) == 6 and int(with_killed[5]) > 0
+    for a, b in zip(with_killed[:5], got):
+        _eq(a, b)
+
+
+def test_sharded_serve_batch_unpacks_like_the_reference(reference, port):
+    """The reference's callers unpack five values from a dead-shard
+    serve_batch; the port's must unpack the same way."""
+    s, i, st, nh, d = tservice.serve_batch(
+        tdist.shard_graph(port["graph"], 2), port["qp"], port["qw"],
+        torch.zeros(2, dtype=torch.int32), prng.key(11, CPU),
+        twalk.WalkConfig(backend="pallas", **SERVE_CFG), with_stats=True,
+        fabric=tdist.LocalFabric(2, device=CPU), slack=SERVE_CASES["dead"][0],
+        shard_dead_at=torch.tensor(SERVE_CASES["dead"][1]))
+    want = reference["serve/dead"]
+    for name, a, b in zip(("scores", "ids", "steps", "n_high", "dropped"),
+                          (s, i, st, nh, d), want):
+        _eq(a, np.asarray(b, np.float32 if name == "scores" else np.int32),
+            name)
 
 
 @pytest.mark.parametrize("case", list(RECIPE_CASES))
@@ -626,7 +660,8 @@ def test_sharded_server_matches_serve_batch_oracle(port):
         srv.graph, torch.from_numpy(pins), torch.from_numpy(weights),
         torch.zeros(4, dtype=torch.int32), keys, srv.cfg, with_stats=True,
         fabric=srv.fabric, slack=4.0,
-        shard_dead_at=torch.tensor([3, NEVER], dtype=torch.int32))
+        shard_dead_at=torch.tensor([3, NEVER], dtype=torch.int32),
+        return_killed=True)
     for i, r in enumerate(got):
         _eq(r.scores, scores[i])
         _eq(r.ids, ids[i])
