@@ -125,9 +125,39 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              16 greedy tokens after a 4 x 128 prompt, kernel path == plain
              path, the per-step logit difference.
 
+21. events  run after phase 5, while the full-width graph is resident: the
+             reference's serve_200m_replicated cell as the reference serves
+             it, in event mode (pixie_walk_events + recommend_from_events,
+             FULL_WALK, 8 slots, count_boards off) on the 24 requests of
+             phase 2: p50/max latency, the kernel path (walk_steps_fused)
+             equal to the plain path bit for bit (both lanes, steps_taken,
+             chunks_run, n_high, scores, ids); check_mode "incremental"
+             equal to "full" at check_every 1, 2 and 4 on two requests;
+             with early stopping off, equal to the dense engine's counts with
+             every query pin masked, and to walk.recommend itself where no
+             query pin was visited from another slot (the one place the two
+             reference engines part); one request under torch.profiler
+             (chiprun_out/chip_smoke_events_trace.json); peak memory.
+22. wide     16 slots (the reference's PixieArchConfig.n_slots): 2.24e9
+             packed (slot, pin) ids, which select_count_engine refuses for
+             dense counting; 8 requests of up to 16 pins in event mode,
+             kernel path == plain path.
+23. legacy   ops.walk_step chained for 5 supersteps over 8192 walkers on the
+             full-width graph (query pins of phase 2, seeded uint32 words),
+             kernel == twin at every step; ops.visit_counts over one event
+             request's pin lane (invalid events -1) into n_pins bins,
+             kernel == twin, and per slot equal to events_to_counts' runs;
+             both kernels at edge shapes (no events, negative and
+             out-of-range ids, bin counts off the 32-multiple, dead-end pins
+             and empty boards on each CSR's last row, high-bit words, alpha
+             0 and 2**32 - 1, walker counts off the 256-multiple); their
+             kernels-line rows (torch.bincount as visit_counter's library
+             call).
+
 Launch counts are reset just before and read just after each path that
-is driven (phases 2, 4, 6, 7, 9, 10, 12, 13, 14, 18, 19 and 19b, 20); the
-kernels line sums them.
+is driven (phases 2, 4, 6, 7, 9, 10, 12, 13, 14, 18, 19 and 19b, 20, 21,
+22, 23); the kernels line sums them, and every one of its eight kernels
+must have launched.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -313,9 +343,20 @@ def check_result(scores, ids, k: int, n_pins: int, what: str) -> None:
 
 def profile_request(server, req, req_id: int, top: int = 14,
                     trace: str = "chip_smoke_trace.json") -> None:
-    """One full-width request under torch.profiler: the device's busy and
-    idle share of the request's wall time, and where the device time goes
-    by kernel.  The trace goes to chiprun_out/<trace>."""
+    """One full-width request through ``server`` under torch.profiler
+    (``profile_call``)."""
+    def serve():
+        server.submit(*req[:2], user_feat=req[2], req_id=req_id)
+        server.pump()
+        server.harvest()
+
+    profile_call(serve, top, trace)
+
+
+def profile_call(fn, top: int = 14, trace: str = "chip_smoke_trace.json") -> None:
+    """``fn()`` under torch.profiler: the device's busy and idle share of
+    its wall time, and where the device time goes by kernel.  The trace
+    goes to chiprun_out/<trace>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -323,9 +364,7 @@ def profile_request(server, req, req_id: int, top: int = 14,
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t = time.perf_counter()
-        server.submit(*req[:2], user_feat=req[2], req_id=req_id)
-        server.pump()
-        server.harvest()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1619,6 +1658,349 @@ def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-23: event-mode serving and the legacy kernels
+# ---------------------------------------------------------------------------
+
+WIDE_SLOTS = 16            # the reference's PixieArchConfig.n_slots
+WIDE_REQUEST_PINS = (16, 12, 9, 16, 4, 16, 1, 10)
+CHECK_EVERY = (1, 2, 4)    # FULL_WALK runs 4 chunks: 4 checks, 2, or 1
+DENSE_CHECKED = (0, 1, 2)  # requests held against the dense engine
+LEGACY_STEPS = 5
+EVENT_FIELDS = ("slot_events", "pin_events", "steps_taken", "chunks_run",
+                "n_high", "scores", "ids")
+
+
+def wide_requests(graph):
+    """Requests of up to ``WIDE_SLOTS`` pins with edges, as
+    ``full_width_requests`` draws them."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 3)
+    cand = torch.from_numpy(
+        rng.integers(0, graph.n_pins, 512).astype(np.int32)
+    ).to(graph.device)
+    cand = cand[graph.pin_degree(cand) > 0].cpu().numpy()
+    reqs, at = [], 0
+    for k in WIDE_REQUEST_PINS:
+        pins = [int(p) for p in cand[at:at + k]]
+        at += k
+        weights = [float(w) for w in rng.uniform(0.1, 1.0, k).astype(np.float32)]
+        reqs.append((pins, weights, int(rng.integers(0, 4))))
+    return reqs
+
+
+def event_request(graph, req, rid: int, n_slots: int, cfg, **kw):
+    """One request through ``pixie_walk_events`` + ``recommend_from_events``
+    under the server key's fold for ``rid``: the EventWalkResult's fields,
+    then ``(scores, ids)``."""
+    from repro_torch.core import prng, walk
+
+    dev = graph.device
+    pins, weights, feats = padded_batch([req], n_slots, dev)
+    key = prng.fold_in(prng.key(SEED, dev), rid)
+    r = walk.pixie_walk_events(graph, pins[0], weights[0], feats[0], key, cfg, **kw)
+    return (*r, *walk.recommend_from_events(r, n_slots, graph.n_pins, pins[0],
+                                            cfg.top_k))
+
+
+def assert_events_equal(a, b, what: str) -> None:
+    import torch
+
+    for name, x, y in zip(EVENT_FIELDS, a, b):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def serve_events(graph, reqs, n_slots, cfg):
+    """Every request through event mode, each timed on the host clock
+    between two synchronisations -> (outputs, latencies in ms)."""
+    import torch
+
+    outs, lat = [], []
+    for rid, req in enumerate(reqs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(event_request(graph, req, rid, n_slots, cfg))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    return outs, lat
+
+
+def dense_oracle(graph, req, rid: int, n_slots: int, cfg):
+    """The dense engine on one request under the same key: ``walk.recommend``
+    itself; the dense counts with every query pin's column zeroed, boosted
+    and ranked (event mode's query-pin rule: the dense engine debits only a
+    slot's own query pin); and the visits query pins got from other
+    slots, the only thing that can part the two."""
+    from repro_torch.core import counter, prng, walk
+
+    dev = graph.device
+    pins, weights, feats = padded_batch([req], n_slots, dev)
+    key = prng.fold_in(prng.key(SEED, dev), rid)
+    rec = walk.recommend(graph, pins[0], weights[0], feats[0], key, cfg)
+    counts = walk.pixie_random_walk(graph, pins[0], weights[0], feats[0], key,
+                                    cfg).counts
+    q = pins[0][pins[0] >= 0].long()
+    cross = int(counts[:, q].sum())
+    counts[:, q] = 0
+    masked = counter.topk_dense(counter.boost_combine(counts), cfg.top_k)
+    return rec, masked, cross
+
+
+VISIT_EDGE_CASES = [(0, 64), (1, 1), (5000, 1300), (777, 33), (4096, 1),
+                    (300, 0), (200_000, 4099)]   # (events, bins)
+STEP_EDGE_WALKERS = (1, 100, 256, 4096)
+STEP_EDGE_ALPHAS = (0, 2**31, 2**32 - 1)
+
+
+def dead_end_csr(dev):
+    """6 pins, 4 boards (global ids 6..9): pins 0 and 5 (the last row)
+    have no boards, boards 2 and 3 (the last row) no pins, and pins 3 and
+    1 point at them, so both last rows are reached."""
+    import torch
+
+    t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return (t([0, 0, 2, 3, 4, 6, 6]), t([6, 9, 7, 8, 6, 7]),
+            t([0, 2, 4, 4, 4]), t([1, 4, 2, 4])), 6
+
+
+def int_err(a, b) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def legacy_edge_cases(graph, dev) -> int:
+    """Both legacy kernels against their twins at edge shapes; returns the
+    number of cases checked."""
+    import torch
+    from repro_torch.kernels import visit_counter as vc
+    from repro_torch.kernels import walk_step as ws
+
+    n = 0
+    for i, (m, n_bins) in enumerate(VISIT_EDGE_CASES):
+        rng = np.random.default_rng(SEED + 10 + i)
+        ev = rng.integers(-5, n_bins + 20, m).astype(np.int32)
+        if m >= 4:
+            ev[:4] = [-(2**31), 2**31 - 1, n_bins, -1]
+        ev = torch.as_tensor(ev, device=dev)
+        if int_err(vc.visit_counter(ev, n_bins), vc.visit_counter_plain(ev, n_bins)):
+            raise AssertionError(f"visit_counter edge case {(m, n_bins)} differs")
+        n += 1
+    dead, dead_pins = dead_end_csr(dev)
+    full = (graph.p2b.offsets, graph.p2b.targets, graph.b2p.offsets,
+            graph.b2p.targets)
+    for csr, n_pins, walkers in ((dead, dead_pins, STEP_EDGE_WALKERS),
+                                 (full, graph.n_pins, (8192,))):
+        for w in walkers:
+            for alpha in STEP_EDGE_ALPHAS:
+                gen = torch.Generator(device=dev).manual_seed(SEED + w + alpha % 97)
+                curr = torch.randint(0, n_pins, (w,), generator=gen, device=dev,
+                                     dtype=torch.int32)
+                query = torch.randint(0, n_pins, (w,), generator=gen, device=dev,
+                                      dtype=torch.int32)
+                words = torch.randint(0, 2**32, (w, 3), generator=gen, device=dev,
+                                      dtype=torch.int64)
+                words[::2] |= 2**31                 # high-bit draws
+                rb = ws.u32_bits_as_int32(words).contiguous()
+                got = ws.walk_step(curr, query, rb, *csr, n_pins=n_pins,
+                                   alpha_u32=alpha)
+                want = ws.walk_step_plain(curr, query, rb, *csr, n_pins=n_pins,
+                                          alpha_u32=alpha)
+                if any(int_err(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"walk_step edge case w={w} alpha={alpha} differs")
+                n += 1
+    return n
+
+
+def event_phases(graph, reqs, shape, dev):
+    """Phases 21-23 on the full-width graph; returns the kernels-line rows
+    of visit_counter and walk_step and the launch counts of each path."""
+    import torch
+    from repro_torch.configs.pixie import FULL_WALK
+    from repro_torch.core import counter, walk
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import visit_counter as vc
+    from repro_torch.kernels import walk_step as ws
+
+    cfg = FULL_WALK
+    plain = dataclasses.replace(cfg, backend="xla")
+    n_slots = shape.n_slots
+    n_pins = graph.n_pins
+
+    # 21. the replicated cell in event mode
+    torch.cuda.reset_peak_memory_stats()
+    event_request(graph, reqs[0], 0, n_slots, cfg)     # warm-up
+    _build.reset_launches()
+    outs, lat = serve_events(graph, reqs, n_slots, cfg)
+    replicated_launches = dict(_build.launches)
+    if replicated_launches["walk_steps_fused"] == 0:
+        raise AssertionError("event mode never launched walk_steps_fused")
+    for rid, out in enumerate(outs):
+        check_result(out[5], out[6], cfg.top_k, n_pins, f"event request {rid}")
+        assert_events_equal(out, event_request(graph, reqs[rid], rid, n_slots, plain),
+                            f"event request {rid}, kernel vs plain path")
+    modes = []
+    for rid in (0, 3):
+        for every in CHECK_EVERY:
+            inc = event_request(graph, reqs[rid], rid, n_slots, cfg, check_every=every)
+            full = event_request(graph, reqs[rid], rid, n_slots, cfg,
+                                 check_every=every, check_mode="full")
+            assert_events_equal(inc, full, f"event request {rid}, check_every "
+                                f"{every}: incremental vs full")
+            modes.append(dict(request=rid, check_every=every,
+                              chunks_run=int(inc[3]), n_high=int(inc[4].sum())))
+    nes = cfg.without_early_stop()
+    dense = []
+    for rid in DENSE_CHECKED:
+        ev = event_request(graph, reqs[rid], rid, n_slots, nes)
+        rec, masked, cross = dense_oracle(graph, reqs[rid], rid, n_slots, nes)
+        same_rec = torch.equal(ev[5], rec[0]) and torch.equal(ev[6], rec[1])
+        if not (torch.equal(ev[5], masked[0]) and torch.equal(ev[6], masked[1])):
+            raise AssertionError(f"event request {rid}: event mode differs from "
+                                 "the dense engine's counts")
+        if cross == 0 and not same_rec:
+            raise AssertionError(f"event request {rid}: event mode differs from "
+                                 "walk.recommend")
+        dense.append(dict(request=rid, query_pin_visits_from_other_slots=cross,
+                          equal_to_recommend=same_rec))
+    log("events_replicated", name=shape.name, n_slots=n_slots,
+        requests=len(outs), p50_ms=float(np.percentile(lat, 50)),
+        max_ms=float(np.max(lat)), latencies_ms=lat,
+        max_events=int(outs[0][0].shape[0]),
+        chunks_run=[int(o[3]) for o in outs],
+        steps_taken=[int(o[2].sum()) for o in outs],
+        n_high=[int(o[4].sum()) for o in outs],
+        identical_to_plain=True, incremental_equals_full=modes,
+        dense_without_early_stop=dense, launches=replicated_launches,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        resident_gb=torch.cuda.memory_allocated() / 1e9)
+    profile_call(lambda: event_request(graph, reqs[0], 0, n_slots, cfg),
+                 trace="chip_smoke_events_trace.json")
+
+    # 22. 16 slots: 2.24e9 packed ids, past what dense counting can index
+    try:
+        walk.select_count_engine(cfg.backend, WIDE_SLOTS, n_pins)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("dense counting accepted 16 slots at full width")
+    if "pixie_walk_events" not in refused:
+        raise AssertionError(f"dense refusal does not name event mode: {refused}")
+    wreqs = wide_requests(graph)
+    _build.reset_launches()
+    wouts, wlat = serve_events(graph, wreqs, WIDE_SLOTS, cfg)
+    wide_launches = dict(_build.launches)
+    if wide_launches["walk_steps_fused"] == 0:
+        raise AssertionError("16-slot event mode never launched walk_steps_fused")
+    for rid, out in enumerate(wouts):
+        check_result(out[5], out[6], cfg.top_k, n_pins, f"16-slot request {rid}")
+        assert_events_equal(out, event_request(graph, wreqs[rid], rid, WIDE_SLOTS,
+                                               plain),
+                            f"16-slot request {rid}, kernel vs plain path")
+    log("events_wide", n_slots=WIDE_SLOTS, packed_ids=WIDE_SLOTS * n_pins,
+        dense_refused=refused, requests=len(wouts),
+        pins=[len(r[0]) for r in wreqs], p50_ms=float(np.percentile(wlat, 50)),
+        max_ms=float(np.max(wlat)), latencies_ms=wlat,
+        chunks_run=[int(o[3]) for o in wouts], identical_to_plain=True,
+        launches=wide_launches)
+
+    # 23. the legacy kernels: ops.walk_step chained, ops.visit_counts over
+    # one event request's pin lane
+    w = cfg.n_walkers
+    qpins = torch.tensor([p for r in reqs for p in r[0]], dtype=torch.int32,
+                         device=dev)
+    query = qpins.repeat(-(-w // qpins.numel()))[:w].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    words = [torch.randint(0, 2**32, (w, 3), generator=gen, device=dev,
+                           dtype=torch.int64) for _ in range(LEGACY_STEPS)]
+    csr = (graph.p2b.offsets, graph.p2b.targets, graph.b2p.offsets,
+           graph.b2p.targets)
+    alpha = walk._prob_u32(cfg.alpha)
+    sev, pev = outs[0][0], outs[0][1]
+    lane = torch.where(sev < n_slots, pev, -1)
+    _build.reset_launches()
+    curr_k = curr_p = query
+    hops, step_err = [], 0
+    for s in range(LEGACY_STEPS):
+        got = ops.walk_step(curr_k, query, words[s], *csr, n_pins=n_pins,
+                            alpha_u32=alpha)
+        want = ops.walk_step(curr_p, query, words[s], *csr, n_pins=n_pins,
+                             alpha_u32=alpha, use_kernel=False)
+        step_err = max(step_err, *(int_err(a, b) for a, b in zip(got, want)))
+        if step_err:
+            raise AssertionError(f"ops.walk_step superstep {s}: kernel vs twin differ")
+        hops.append(int(got[2].sum()))
+        curr_k, curr_p = got[0], want[0]
+    hist = ops.visit_counts(lane, n_pins)
+    visit_err = int_err(hist, ops.visit_counts(lane, n_pins, use_kernel=False))
+    if visit_err:
+        raise AssertionError("ops.visit_counts: kernel vs twin differ")
+    uniq_slot, uniq_pin, counts = counter.events_to_counts(sev, pev, n_slots,
+                                                           sev.shape[0])
+    for slot in range(n_slots):
+        hs = ops.visit_counts(torch.where(sev == slot, pev, -1), n_pins)
+        sel = uniq_slot == slot
+        if not (torch.equal(hs[uniq_pin[sel].long()], counts[sel])
+                and int(hs.sum()) == int(counts[sel].sum())):
+            raise AssertionError(f"slot {slot}: histogram differs from the event runs")
+    legacy_launches = dict(_build.launches)
+    for name in ("walk_step", "visit_counter"):
+        if legacy_launches[name] == 0:
+            raise AssertionError(f"the legacy path never launched {name}")
+    n_edge = legacy_edge_cases(graph, dev)
+    log("legacy_kernels", walkers=w, supersteps=LEGACY_STEPS, hops_ok=hops,
+        events=int(lane.numel()), valid_events=int((lane >= 0).sum()),
+        n_bins=n_pins, identical=True, per_slot_equals_event_runs=True,
+        edge_cases_identical=n_edge, launches=legacy_launches)
+
+    # the two rows of the kernels line, at the legacy path's shapes
+    valid_ids = lane[lane >= 0]
+    ms = device_ms(lambda: vc.visit_counter(lane, n_pins), 50)
+    sectors = int(torch.unique(valid_ids >> 3).numel())
+    nbytes = 4 * lane.numel() + 4 * n_pins + SECTOR * sectors
+    visit_row = dict(
+        name="visit_counter", route="cuda",
+        source="src/repro_torch/kernels/csrc/visit_counter.cu",
+        replaces="src/repro/kernels/visit_counter.py:83", launches=None,
+        max_abs_err=visit_err, ms=ms,
+        plain_ms=cuda_ms(lambda: vc.visit_counter_plain(lane, n_pins), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.bincount(valid_ids, minlength=n_pins), 50),
+    )
+    log("kernel", name="visit_counter", device_ms=ms, events=int(lane.numel()),
+        valid_events=int(valid_ids.numel()), bins=n_pins,
+        distinct_sectors=sectors, bound_bytes=nbytes)
+    rb = ws.u32_bits_as_int32(words[0]).contiguous()
+    step = lambda: ws.walk_step(query, query, rb, *csr, n_pins=n_pins,
+                                alpha_u32=alpha)
+    _, visited, _ = step()
+    rb4 = torch.zeros((1, w, 4), dtype=torch.int32, device=dev)
+    rb4[0, :, 0], rb4[0, :, 2], rb4[0, :, 3] = rb[:, 0], rb[:, 1], rb[:, 2]
+    sectors = walk_sectors(dict(
+        rbits=rb4, feat=torch.zeros_like(query), query=query, curr=query,
+        csr=(*csr, None, None), kw=dict(n_pins=n_pins, alpha_u32=alpha,
+                                        beta_u32=0)), visited[None, :])
+    nbytes = SECTOR * sectors + (4 + 4 + 12 + 4 + 4 + 1) * w
+    ms = device_ms(step, 50)
+    step_row = dict(
+        name="walk_step", route="cuda",
+        source="src/repro_torch/kernels/csrc/walk_step.cu",
+        replaces="src/repro/kernels/walk_step.py:143", launches=None,
+        max_abs_err=step_err, ms=ms,
+        plain_ms=cuda_ms(lambda: ws.walk_step_plain(query, query, rb, *csr,
+                                                    n_pins=n_pins,
+                                                    alpha_u32=alpha), 5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None,
+    )
+    log("kernel", name="walk_step", device_ms=ms, walkers=w,
+        distinct_sectors=sectors, bound_bytes=nbytes)
+    del outs, wouts, lane, hist, counts
+    torch.cuda.empty_cache()
+    return [visit_row, step_row], [replicated_launches, wide_launches,
+                                   legacy_launches]
+
+
 def main() -> int:
     import torch
 
@@ -1725,6 +2107,9 @@ def main() -> int:
     )
     del winp, lanes, qev, sev, pev, kern, plain, server, results
     torch.cuda.empty_cache()
+
+    # 21-23. event-mode serving and the legacy kernels on the same graph ---------
+    event_rows, event_paths = event_phases(graph, reqs, shape, dev)
 
     # 6. full-width ranked serving ------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1951,21 +2336,25 @@ def main() -> int:
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
-             *sharded_paths, *lm_paths]
-    rows = [walk_row, high_row, wide_row, bag_row, hop_row, attn_row]
+             *sharded_paths, *lm_paths, *event_paths]
+    rows = [walk_row, high_row, wide_row, bag_row, hop_row, attn_row, *event_rows]
     for row in rows:
         row["launches"] = sum(p[row["name"]] for p in paths)
     if bag_row["launches"] == 0 or ranked_launches["embedding_bag"] == 0:
         raise AssertionError("the embedding bag never launched on the ranked path")
     if any(p["walk_hop_fused"] == 0 for p in sharded_paths):
         raise AssertionError("a sharded path never launched walk_hop_fused")
+    if any(row["launches"] == 0 for row in rows):
+        raise AssertionError(f"a kernel never launched: {[r['name'] for r in rows if not r['launches']]}")
     log("launches", retrieval=serve_launches, batched=batch_launches["pallas"],
         ranked=ranked_launches, open_loop=open_launches,
         batched_ranked=rlaunches["pallas"], users=user_launches,
         chaos=chaos_launches, sharded_parity=sharded_paths[0],
         sharded_recipe=sharded_paths[1], sharded_server=sharded_paths[2],
         sharded_open_loop=sharded_paths[3], lm_f32=lm_paths[0],
-        lm_bf16=lm_paths[1], decode_32k=lm_paths[2], lm_smollm=lm_paths[3])
+        lm_bf16=lm_paths[1], decode_32k=lm_paths[2], lm_smollm=lm_paths[3],
+        events_replicated=event_paths[0], events_wide=event_paths[1],
+        legacy_kernels=event_paths[2])
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

@@ -13,13 +13,17 @@ Two step engines (``WalkConfig.backend``), bit-identical by construction:
     their plain PyTorch twins on the CPU;
   * ``"xla"``    — the plain twins on any device: the oracle.
 
-Two walk drivers, as in the reference: the batch-native engine
+Three walk drivers, as in the reference: the batch-native engine
 (``pixie_random_walk_batched``), which packs every query's walkers
 query-major along one walker axis with a query event lane and one shared
 early-stop loop, and the per-query engine (``pixie_random_walk``), which
 ``serve_batch`` runs query by query for ``backend="xla"`` and past
 ``batched_engine_fits``.  Per-query random streams are the same in both,
-so they agree bit for bit.
+so they agree bit for bit.  The third is event mode
+(``pixie_walk_events`` + ``recommend_from_events``), the reference's
+replicated serving path: per query, it keeps the walk's wide (slot, pin)
+event lanes instead of a count table and aggregates them by sorting, so
+its memory is O(steps) and its packed id space has no int32 limit.
 
 The count buffers are updated IN PLACE every chunk: at production scale
 the batch-native buffer is 4.5 GB, and a copy per chunk would cost more
@@ -46,6 +50,13 @@ GATHER_MODES = ("scalar", "dma")
 NO_EARLY_STOP_NV = (2**31 - 1) // 2
 
 
+def packed_event_dtype(n_slots: int, n_pins: int) -> torch.dtype:
+    """Dtype of EACH wide event lane: int32 at every id-space scale, since
+    no lane ever holds the packed ``slot * n_pins + pin`` product."""
+    del n_slots, n_pins
+    return torch.int32
+
+
 def select_count_engine(
     backend: str, n_slots: int, n_pins: int, n_boards: int = 0
 ) -> str:
@@ -57,8 +68,8 @@ def select_count_engine(
     if n_bins + 1 >= 2**31:
         raise ValueError(
             f"dense counting materializes n_slots * n_dim = {n_bins} bins, "
-            "past int32 indexing; use event-mode counting for "
-            "production-scale id spaces"
+            "past int32 indexing; use event-mode counting "
+            "(pixie_walk_events) for production-scale id spaces"
         )
     return backend
 
@@ -133,6 +144,18 @@ class WalkResult(NamedTuple):
     board_counts: Optional[torch.Tensor]  # (..., n_slots, n_boards) or None
     steps_taken: torch.Tensor             # (..., n_slots) int32
     n_high: torch.Tensor                  # (..., n_slots) int32
+
+
+class EventWalkResult(NamedTuple):
+    """Event-mode walk output (scale-free, wide lanes)."""
+
+    slot_events: torch.Tensor  # (max_events,) int32 slot lane (n_slots = invalid)
+    pin_events: torch.Tensor   # (max_events,) int32 pin lane
+    steps_taken: torch.Tensor  # (n_slots,) int32
+    chunks_run: torch.Tensor   # () int32
+    n_high: torch.Tensor       # (n_slots,) int32 Algorithm 3 tally as of the
+                               # last completed check window (zeros when
+                               # early stopping never checked)
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +322,20 @@ def _plan(graph, query_pins, query_weights, cfg, step_budgets) -> _Plan:
                  walkers_per_slot)
 
 
+def _query_setup(graph, query_pins, query_weights, user_feat, cfg,
+                 step_budget=None):
+    """One query's plan, its feature per walker (checked against the bound
+    tables of a biased walk) and contiguous walker lanes: ``(plan, feat,
+    slot_of_walker, query_of_walker)``."""
+    plan = _plan(graph, query_pins, query_weights, cfg, step_budget)
+    feat = torch.as_tensor(user_feat, device=graph.device).to(torch.int32)
+    feat = feat.expand(cfg.n_walkers).contiguous()
+    if _validated_bias_bounds(graph, cfg)[0] is not None:
+        _check_feats(feat[:1], graph)
+    return (plan, feat, plan.slot_of_walker.contiguous(),
+            plan.query_of_walker.contiguous())
+
+
 def _debit_query_pins(per_slot, safe_q, high, n_v):
     """Never recommend the query pins themselves: zero their counts (in
     place) and debit the tally for any that had reached ``n_v``."""
@@ -329,18 +366,12 @@ def pixie_random_walk(
     clamped to ``cfg.n_steps``."""
     n_slots = int(query_pins.shape[0])
     n_pins = graph.n_pins
-    w = cfg.n_walkers
     dev = graph.device
     count_engine = select_count_engine(
         cfg.backend, n_slots, n_pins, graph.n_boards if cfg.count_boards else 0
     )
-    plan = _plan(graph, query_pins, query_weights, cfg, step_budget)
-    feat = torch.as_tensor(user_feat, device=dev).to(torch.int32).expand(w)
-    feat = feat.contiguous()
-    if _validated_bias_bounds(graph, cfg)[0] is not None:
-        _check_feats(feat[:1], graph)
-    slot_of_walker = plan.slot_of_walker.contiguous()
-    query_of_walker = plan.query_of_walker.contiguous()
+    plan, feat, slot_of_walker, query_of_walker = _query_setup(
+        graph, query_pins, query_weights, user_feat, cfg, step_budget)
     key = key.to(dev)
 
     counts = torch.zeros((n_slots * n_pins,), dtype=torch.int32, device=dev)
@@ -418,6 +449,181 @@ def recommend(graph, query_pins, query_weights, user_feat, key, cfg):
         graph, query_pins, query_weights, user_feat, key, cfg
     )
     return scores, ids
+
+
+# ---------------------------------------------------------------------------
+# Event mode: the scale-free path of the replicated serving cell
+# ---------------------------------------------------------------------------
+
+
+def pixie_walk_events(
+    graph: PinBoardGraph,
+    query_pins: torch.Tensor,     # (n_slots,) int32, padded with -1
+    query_weights: torch.Tensor,  # (n_slots,) float32, 0 for padding
+    user_feat,                    # int or () int32 personalization feature
+    key: torch.Tensor,            # (2,) PRNG key
+    cfg: WalkConfig,
+    check_every: int = 4,
+    check_mode: str = "incremental",
+) -> EventWalkResult:
+    """Event-buffer walk for one query: memory O(steps), independent of the
+    graph's size and of the packed id space.
+
+    Each chunk's wide (slot, pin) lanes (from ``walk_steps_fused`` on the
+    card with ``backend="pallas"``) are written in place into lane buffers
+    allocated once for ``max_chunks`` chunks; lanes of stopped walkers
+    become the (``n_slots``, 0) sentinel.  Early stopping checks after
+    every ``check_every``-th chunk:
+
+      * ``"incremental"`` folds only the new window's events into an
+        ``EventHighState`` (``counter.events_high_fold``): every sort is
+        window-sized;
+      * ``"full"`` re-sorts the whole buffer (``events_n_high_per_slot``),
+        the oracle the incremental tally is held against.
+
+    Between checks a slot stays active while it has budget left, as in
+    the reference (a stop holds until the next chunk unless every slot
+    stopped).  Board counting is forced off: event mode buffers pins only.
+    ``n_v`` must be >= 1, as in the dense engines.
+    """
+    if check_mode not in ("incremental", "full"):
+        raise ValueError(
+            f"unknown check_mode {check_mode!r}; use 'incremental' or 'full'"
+        )
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    if cfg.count_boards:
+        cfg = dataclasses.replace(cfg, count_boards=False)
+    n_slots = int(query_pins.shape[0])
+    n_pins = graph.n_pins
+    w = cfg.n_walkers
+    dev = graph.device
+    per_chunk = w * cfg.chunk_steps
+    max_chunks = cfg.max_chunks()
+    max_events = max_chunks * per_chunk
+    # check windows that can fire: they size the run-segment state
+    n_windows = max_chunks // check_every
+    seg_cap = check_every * per_chunk
+
+    plan, feat, slot_of_walker, query_of_walker = _query_setup(
+        graph, query_pins, query_weights, user_feat, cfg)
+    key = key.to(dev)
+
+    sev_buf = torch.full((max_events,), n_slots, dtype=torch.int32, device=dev)
+    pev_buf = torch.zeros((max_events,), dtype=torch.int32, device=dev)
+    incremental = check_mode == "incremental" and n_windows > 0
+    hstate = counter_lib.events_high_init(
+        n_slots, n_windows if incremental else 0,
+        seg_cap if incremental else 1, device=dev,
+    )
+    steps_taken = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+    slot_active = plan.valid_q.clone()
+    curr = query_of_walker.clone()
+    it = 0
+    while it < max_chunks and bool(slot_active.any()):
+        walker_active = slot_active[slot_of_walker.long()]
+        curr2, sev, pev, _ = _walk_chunk(
+            graph, curr, query_of_walker, feat, slot_of_walker, key,
+            it * cfg.chunk_steps, cfg, n_slots,
+        )
+        curr = torch.where(walker_active, curr2, curr)
+        # mask BOTH lanes to the (n_slots, 0) sentinel, so aggregated runs
+        # stay sorted end to end (events_high_fold binary-searches them)
+        live = walker_active[None, :]
+        window = slice(it * per_chunk, (it + 1) * per_chunk)
+        sev_buf[window] = torch.where(live, sev, n_slots).reshape(-1)
+        pev_buf[window] = torch.where(live, pev, 0).reshape(-1)
+        steps_taken += (
+            plan.walkers_per_slot * slot_active.to(torch.int32) * cfg.chunk_steps
+        )
+        budget_left = plan.valid_q & (steps_taken < plan.n_q)
+        if (it + 1) % check_every == 0:
+            if incremental:
+                start = (it + 1) * per_chunk - seg_cap
+                hstate = counter_lib.events_high_fold(
+                    hstate, sev_buf[start:start + seg_cap],
+                    pev_buf[start:start + seg_cap], n_slots, n_pins,
+                    cfg.n_v, seg_cap=seg_cap,
+                )
+            else:
+                hstate = hstate._replace(high=counter_lib.events_n_high_per_slot(
+                    sev_buf, pev_buf, n_slots, n_pins, cfg.n_v, max_events
+                ))
+            slot_active = budget_left & (hstate.high <= cfg.n_p)
+        else:
+            slot_active = budget_left
+        it += 1
+    return EventWalkResult(
+        slot_events=sev_buf,
+        pin_events=pev_buf,
+        steps_taken=steps_taken,
+        chunks_run=torch.tensor(it, dtype=torch.int32, device=dev),
+        n_high=hstate.high,
+    )
+
+
+def pixie_walk_events_fixed(
+    graph: PinBoardGraph,
+    query_pins: torch.Tensor,
+    query_weights: torch.Tensor,
+    user_feat,
+    key: torch.Tensor,
+    cfg: WalkConfig,
+    n_chunks: int,
+    unroll: bool = True,
+) -> EventWalkResult:
+    """Exactly ``n_chunks`` chunks, no early stopping and no masking: the
+    reference's cost-model twin of ``pixie_walk_events``.  ``unroll`` is
+    its XLA unrolling knob, accepted for parity; it changes no bit."""
+    del unroll
+    if cfg.count_boards:
+        cfg = dataclasses.replace(cfg, count_boards=False)
+    n_slots = int(query_pins.shape[0])
+    dev = graph.device
+    _, feat, slot_of_walker, query_of_walker = _query_setup(
+        graph, query_pins, query_weights, user_feat, cfg)
+    key = key.to(dev)
+    curr = query_of_walker.clone()
+    sev_chunks, pev_chunks = [], []
+    for it in range(n_chunks):
+        curr, sev, pev, _ = _walk_chunk(
+            graph, curr, query_of_walker, feat, slot_of_walker, key,
+            it * cfg.chunk_steps, cfg, n_slots,
+        )
+        sev_chunks.append(sev.reshape(-1))
+        pev_chunks.append(pev.reshape(-1))
+    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+    return EventWalkResult(
+        slot_events=torch.cat(sev_chunks) if sev_chunks else empty,
+        pin_events=torch.cat(pev_chunks) if pev_chunks else empty,
+        steps_taken=torch.full((n_slots,), n_chunks * cfg.chunk_steps,
+                               dtype=torch.int32, device=dev),
+        chunks_run=torch.tensor(n_chunks, dtype=torch.int32, device=dev),
+        n_high=torch.zeros((n_slots,), dtype=torch.int32, device=dev),
+    )
+
+
+def recommend_from_events(
+    result: EventWalkResult,
+    n_slots: int,
+    n_pins: int,
+    query_pins: torch.Tensor,
+    top_k: int,
+):
+    """Eq. 3 + top-k from wide event lane buffers -> ``(scores, pin ids)``.
+    Pair-sort aggregation on the int32 lanes: no 64-bit packed id, so id
+    spaces past 2**31 packed ids are served as any other."""
+    max_events = result.slot_events.shape[0]
+    uniq_slot, uniq_pin, counts = counter_lib.events_to_counts(
+        result.slot_events, result.pin_events, n_slots, max_events
+    )
+    pin_ids, boosted = counter_lib.boosted_from_events(
+        uniq_slot, uniq_pin, counts, n_slots, n_pins, max_events
+    )
+    query_pins = torch.as_tensor(query_pins, device=pin_ids.device)
+    is_query = torch.isin(pin_ids, query_pins.to(torch.int32))
+    boosted = torch.where(is_query, 0.0, boosted)
+    return counter_lib.topk_events(pin_ids, boosted, top_k)
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 SOURCES = ("walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
-           "decode_attention")
+           "decode_attention", "walk_step")
 
 launches: Dict[str, int] = {
     "walk_steps_fused": 0,
@@ -44,6 +44,8 @@ launches: Dict[str, int] = {
     "embedding_bag": 0,
     "walk_hop_fused": 0,
     "decode_attention": 0,
+    "visit_counter": 0,
+    "walk_step": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

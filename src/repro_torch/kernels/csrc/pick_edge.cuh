@@ -1,6 +1,7 @@
-// The edge pick shared by the walk kernels (walk_steps_fused.cu and
-// walk_hop.cu): one piece of code, so a fused superstep and the sharded
-// engine's split hops choose the same edge from the same random word.
+// The edge pick shared by the walk kernels (walk_steps_fused.cu,
+// walk_hop.cu and walk_step.cu): one piece of code, so a fused superstep,
+// the sharded engine's split hops and the legacy one-superstep walk choose
+// the same edge from the same random word.
 //
 // Port of _pick_edge in src/repro/kernels/walk_step.py and of the
 // `start + r % max(deg, 1)` pick of kernels/ref.py.

@@ -1,6 +1,9 @@
-// visit_counter: dense visit counting over wide event lanes, in place.
+// visit_counter: dense visit counting over event lanes.
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/visit_counter.py:
+// Replaces three Pallas TPU kernels of src/repro/kernels/visit_counter.py:
+//   * visit_counter (body _visit_counter_kernel): a fresh (n_bins,) histogram
+//     of flat int32 ids; ids outside [0, n_bins), negatives included, are
+//     dropped;
 //   * visit_counter_update_high (body _visit_counter_high_kernel): counts +=
 //     histogram of the valid (query, slot, pin) events over query-major bins
 //     (q * n_slots + s) * n_pins + p, and per row the number of bins whose
@@ -8,7 +11,8 @@
 //   * visit_counter_wide (body _visit_counter_wide_kernel): counts +=
 //     histogram of (slot, id) or (query, slot, id) lanes.
 // Plain twins: repro_torch/kernels/visit_counter.py :: *_plain (ports of
-// kernels/ref.py visit_counter_update_high_ref and visit_counter_wide_ref).
+// kernels/ref.py visit_counter_ref, visit_counter_update_high_ref and
+// visit_counter_wide_ref).
 //
 // An event counts iff 0 <= slot < n_slots, 0 <= id < n_dim and, with a query
 // lane, 0 <= query < n_queries; invalid lanes are masked before the flat bin
@@ -24,6 +28,11 @@
 // 1, so for each bin that crosses exactly one thread's atomicAdd returns
 // n_v - 1, whatever the order of the atomics, and that thread adds 1 to its
 // row's tally.  Integer results are therefore bit-identical to the twin.
+//
+// The flat histogram (visit_counter) is the same design on one lane: one
+// thread per event, one atomicAdd into a buffer the wrapper zeroes.  The
+// TPU kernel's tile and chunk sizes shaped its one-hot scan and have no
+// counterpart here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,6 +77,17 @@ int launch(const int* qev, const int* sev, const int* iev, long long m,
   return static_cast<int>(cudaGetLastError());
 }
 
+__global__ void histogram_kernel(const int* __restrict__ ev, long long m,
+                                 int n_bins, int* __restrict__ counts) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       e < m; e += stride) {
+    const int id = ev[e];
+    if (id >= 0 && id < n_bins) atomicAdd(&counts[id], 1);
+  }
+}
+
 }  // namespace
 
 // counts (n_rows * n_pins,) is updated in place; delta (n_rows,) must be
@@ -87,4 +107,19 @@ extern "C" int visit_counter_wide_launch(
     int n_dim, int n_queries, int* counts, void* stream) {
   return launch(qev, sev, iev, m, n_slots, n_dim, n_queries, 0, counts,
                 nullptr, stream);
+}
+
+// counts (n_bins,) must be zeroed by the caller and receives the histogram
+// of ev (m,); ids outside [0, n_bins) are skipped.  Launches nothing when
+// m or n_bins is 0.  Returns cudaGetLastError().
+extern "C" int visit_counter_launch(const int* ev, long long m, int n_bins,
+                                    int* counts, void* stream) {
+  constexpr int kBlock = 256;
+  if (m > 0 && n_bins > 0) {
+    long long blocks = (m + kBlock - 1) / kBlock;
+    const int grid = static_cast<int>(blocks < 65535 ? blocks : 65535);
+    histogram_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        ev, m, n_bins, counts);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

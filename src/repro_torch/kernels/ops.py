@@ -9,6 +9,10 @@ device of the tensors decides.  Every op takes ``use_kernel``:
     for a CPU tensor, and an error for any other device.  There is no
     fallback: a CUDA tensor whose kernel fails to build or launch raises.
 
+``visit_counts`` and ``walk_step``, the reference's public entry points to
+its two legacy kernels, take ``use_kernel=None`` as the reference does:
+``None`` lets the tensor's device decide, as ``True`` does.
+
 ``decode_attention`` takes ``use_kernel`` from the LM decode step's
 ``backend`` (``"xla"``: the twin), as the walk ops take it from the walk's.
 
@@ -43,6 +47,16 @@ def _kernel_for(use_kernel: bool, t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel and no plain path for device {t.device}")
+
+
+def visit_counts(
+    events: torch.Tensor, n_bins: int, *, use_kernel: Optional[bool] = None
+) -> torch.Tensor:
+    """Histogram of flat int32 visit events over ``[0, n_bins)``: a fresh
+    ``(n_bins,)`` int32 buffer; ids outside the range are dropped."""
+    if _kernel_for(use_kernel is not False, events):
+        return vc.visit_counter(events, n_bins)
+    return vc.visit_counter_plain(events, n_bins)
 
 
 def visit_counts_wide(
@@ -82,6 +96,31 @@ def visit_counts_update_high(
     )
     return fn(counts, slot_events, pin_events, query_events,
               n_slots=n_slots, n_pins=n_pins, n_v=n_v, n_queries=n_queries)
+
+
+def walk_step(
+    curr: torch.Tensor,
+    query: torch.Tensor,
+    rbits: torch.Tensor,
+    p2b_offsets: torch.Tensor,
+    p2b_targets: torch.Tensor,
+    b2p_offsets: torch.Tensor,
+    b2p_targets: torch.Tensor,
+    *,
+    n_pins: int,
+    alpha_u32: int,
+    use_kernel: Optional[bool] = None,
+):
+    """One unbiased walk superstep -> ``(next, visited, ok)``.  ``rbits``
+    ``(w, 3)`` holds uint32 words as int32 bit patterns, int64 values or
+    torch.uint32; the kernel gets the bit patterns."""
+    args = (p2b_offsets, p2b_targets, b2p_offsets, b2p_targets)
+    kw = dict(n_pins=n_pins, alpha_u32=alpha_u32)
+    if _kernel_for(use_kernel is not False, curr):
+        return ws.walk_step(curr, query,
+                            ws.u32_bits_as_int32(rbits).contiguous(),
+                            *args, **kw)
+    return ws.walk_step_plain(curr, query, rbits, *args, **kw)
 
 
 def walk_chunk_fused(

@@ -1,7 +1,14 @@
 """Visit-counter kernels (``csrc/visit_counter.cu``) and their plain twins.
 
-Twins of ``repro/kernels/visit_counter.py``'s ``visit_counter_update_high``
-and ``visit_counter_wide``.  Both histogram wide int32 event lanes —
+Twins of ``repro/kernels/visit_counter.py``'s ``visit_counter``,
+``visit_counter_update_high`` and ``visit_counter_wide``.
+
+``visit_counter`` is the flat histogram: a fresh ``(n_bins,)`` int32
+buffer counting the int32 ids of one event lane that lie in ``[0,
+n_bins)``; every other id, negatives included, is dropped, and no events
+give zeros.  ``ops.visit_counts`` is its entry point.
+
+The other two histogram wide int32 event lanes —
 (slot, id), or (query, slot, id) in batch-native mode — over flat
 query-major bins ``(query * n_slots + slot) * n_dim + id``, and both add
 INTO the caller's running count buffer in place: the reference returns a
@@ -14,9 +21,10 @@ how many bins crossed from below ``n_v`` to ``>= n_v`` in this update:
 the incremental early-stop tally of Algorithm 3.
 
 The kernel wrappers take CUDA tensors only; the ``*_plain`` functions are
-the plain PyTorch twins (ports of ``ref.visit_counter_update_high_ref`` /
-``ref.visit_counter_wide_ref``; the crossing tally is found from the
-chunk's own touched bins, not a full-buffer reduction).
+the plain PyTorch twins (ports of ``ref.visit_counter_ref``,
+``ref.visit_counter_update_high_ref`` and ``ref.visit_counter_wide_ref``;
+the crossing tally is found from the chunk's own touched bins, not a
+full-buffer reduction).
 """
 
 from __future__ import annotations
@@ -145,9 +153,40 @@ def visit_counter_wide(
     return counts
 
 
+def visit_counter(events: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Histogram of ``events`` over ``[0, n_bins)`` on the card: a fresh
+    ``(n_bins,)`` int32 buffer.  ``events`` is a contiguous 1-D int32 CUDA
+    tensor; ids outside the range are dropped."""
+    if not 0 <= n_bins < 2**31:
+        raise ValueError(f"n_bins must lie in [0, 2**31), got {n_bins}")
+    dev = events.device
+    counts = torch.zeros((n_bins,), dtype=torch.int32, device=dev)
+    _check(counts, [("events", events)], n_bins, "visit_counter")
+    m = events.shape[0]
+    if m == 0 or n_bins == 0:
+        return counts
+    fn = _fn("visit_counter_launch",
+             [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+              ctypes.c_void_p, ctypes.c_void_p])
+    err = fn(events.data_ptr(), m, n_bins, counts.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "visit_counter")
+    _build.launches["visit_counter"] += 1
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch twins
 # ---------------------------------------------------------------------------
+
+
+def visit_counter_plain(events: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Plain twin of ``visit_counter`` (``ref.visit_counter_ref``): the
+    in-range ids scatter-added into zeros."""
+    valid = (events >= 0) & (events < n_bins)
+    ids = events[valid].long()
+    counts = torch.zeros((n_bins,), dtype=torch.int32, device=events.device)
+    return counts.scatter_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
 
 
 def _valid_bins(slot_events, id_events, query_events, n_slots, n_dim, n_queries):

@@ -1,5 +1,5 @@
-"""The walk kernels (``csrc/walk_steps_fused.cu``, ``csrc/walk_hop.cu``) and
-their plain twins.
+"""The walk kernels (``csrc/walk_steps_fused.cu``, ``csrc/walk_hop.cu``,
+``csrc/walk_step.cu``) and their plain twins.
 
 Twin of ``repro/kernels/walk_step.py::walk_steps_fused``.  One launch runs
 ``chunk_steps`` supersteps for every walker and emits wide int32 event
@@ -24,7 +24,17 @@ reference's ``walk_hop_fused``): one CSR hop for the routed walkers of
 every co-located shard in ONE launch, the walker buffers stacked
 ``(n_shards, L)`` over ``(n_shards, rows + 1)`` / ``(n_shards, E_max)``
 CSR slices.  ``walk_hop_ref`` is its plain twin (port of
-``ref.walk_hop_ref``).  Both kernels pick an edge with one piece of code
+``ref.walk_hop_ref``).
+
+``walk_step`` is the legacy unbiased one-superstep walk (twin of the
+reference's ``walk_step``): for ``(w,)`` walkers and ``(w, 3)`` uint32
+words (restart, board pick, pin pick) it returns ``(next, visited, ok)``;
+a dead end gives ``next = query``, ``visited = 0``, ``ok = False``.
+``walk_step_plain`` is its plain twin (port of ``ref.walk_step_ref``).
+Unlike the reference, any walker count is accepted: its multiple-of-256
+rule was the TPU kernel's block size.
+
+All three kernels pick an edge with one piece of code
 (``csrc/pick_edge.cuh``).
 """
 
@@ -84,6 +94,28 @@ def _hop_fn():
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _step_fn():
+    fn = _build.library("walk_step").walk_step_launch
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_uint32]
+            + [ctypes.c_void_p] * 4
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def u32_bits_as_int32(r: torch.Tensor) -> torch.Tensor:
+    """uint32 words as int32 bit patterns: int32 passes, int64 values in
+    ``[0, 2**32)`` wrap, torch.uint32 is reinterpreted."""
+    if r.dtype == torch.int64:
+        return (r & _U32).to(torch.int32)
+    if r.dtype == torch.uint32:
+        return r.view(torch.int32)
+    return r
 
 
 def walk_steps_fused(
@@ -233,9 +265,106 @@ def walk_hop_fused(
     return out, ok
 
 
+def walk_step(
+    curr: torch.Tensor,
+    query: torch.Tensor,
+    rbits: torch.Tensor,
+    p2b_offsets: torch.Tensor,
+    p2b_targets: torch.Tensor,
+    b2p_offsets: torch.Tensor,
+    b2p_targets: torch.Tensor,
+    *,
+    n_pins: int,
+    alpha_u32: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One unbiased superstep for every walker in ONE kernel launch ->
+    ``(next, visited, ok)``, int32, int32 and bool, each ``(w,)``.
+
+    ``curr`` and ``query`` are ``(w,)`` int32 pins in ``[0, n_pins)``,
+    ``rbits`` ``(w, 3)`` int32 holding the uint32 bit patterns of the
+    restart, board and pin words; a walker restarts iff ``rbits[:, 0] <
+    alpha_u32`` as uint32.  Every tensor must be a contiguous CUDA tensor
+    on one device; board targets are global ids (``>= n_pins``).
+    """
+    dev = curr.device
+    if dev.type != "cuda":
+        raise ValueError(f"walk_step runs on CUDA tensors, got {dev}")
+    w = int(curr.shape[0])
+    _check_lane("curr", curr, (w,), dev)
+    _check_lane("query", query, (w,), dev)
+    _check_lane("rbits", rbits, (w, 3), dev)
+    _check_lane("p2b_offsets", p2b_offsets, (n_pins + 1,), dev)
+    _check_lane("p2b_targets", p2b_targets, None, dev)
+    _check_lane("b2p_offsets", b2p_offsets, None, dev)
+    _check_lane("b2p_targets", b2p_targets, None, dev)
+    if not 0 <= alpha_u32 <= _U32:
+        raise ValueError("alpha_u32 must be a uint32 threshold")
+    nxt = torch.empty((w,), dtype=torch.int32, device=dev)
+    visited = torch.empty((w,), dtype=torch.int32, device=dev)
+    ok = torch.empty((w,), dtype=torch.bool, device=dev)
+    if w == 0:
+        return nxt, visited, ok
+    err = _step_fn()(
+        curr.data_ptr(), query.data_ptr(), rbits.data_ptr(),
+        p2b_offsets.data_ptr(), p2b_targets.data_ptr(),
+        b2p_offsets.data_ptr(), b2p_targets.data_ptr(), w, n_pins,
+        alpha_u32, nxt.data_ptr(), visited.data_ptr(), ok.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "walk_step")
+    _build.launches["walk_step"] += 1
+    return nxt, visited, ok
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch twins
 # ---------------------------------------------------------------------------
+
+
+def _take_clamped(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``a[idx]`` with ``idx`` clamped into range (0 for an empty ``a``):
+    the reads the reference's gather makes at a dead end, whose values
+    every caller masks."""
+    if a.numel() == 0:
+        return torch.zeros_like(idx, dtype=a.dtype)
+    return a[idx.clamp(0, a.numel() - 1)]
+
+
+def walk_step_plain(
+    curr: torch.Tensor,
+    query: torch.Tensor,
+    rbits: torch.Tensor,
+    p2b_offsets: torch.Tensor,
+    p2b_targets: torch.Tensor,
+    b2p_offsets: torch.Tensor,
+    b2p_targets: torch.Tensor,
+    *,
+    n_pins: int,
+    alpha_u32: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of ``walk_step`` (``ref.walk_step_ref``): ``(next,
+    visited, ok)``.  ``rbits`` holds uint32 words as int32 bit patterns,
+    int64 values or torch.uint32; the picks are masked with
+    ``0x7FFFFFFF`` before use.  Reads at a dead end are clamped."""
+    rb = u32_bits_as_int32(rbits).long() & _U32
+    curr = curr.to(torch.int32)
+    query = query.to(torch.int32)
+    pos = torch.where(rb[:, 0] < alpha_u32, query, curr).long()
+    r_board = rb[:, 1] & RMASK
+    r_pin = rb[:, 2] & RMASK
+
+    start = p2b_offsets[pos].long()
+    deg = p2b_offsets[pos + 1].long() - start
+    board = _take_clamped(p2b_targets, start + r_board % deg.clamp(min=1))
+    board_ok = deg > 0
+    b_local = torch.where(board_ok, board.long() - n_pins, 0)
+    bstart = _take_clamped(b2p_offsets, b_local).long()
+    bdeg = _take_clamped(b2p_offsets, b_local + 1).long() - bstart
+    pin = _take_clamped(b2p_targets, bstart + r_pin % bdeg.clamp(min=1))
+    ok = board_ok & (bdeg > 0)
+    nxt = torch.where(ok, pin.to(torch.int32), query)
+    visited = torch.where(ok, pin.to(torch.int32), 0).to(torch.int32)
+    return nxt, visited, ok
 
 
 def walk_hop_ref(

@@ -20,7 +20,11 @@ kernel runs an online softmax where its twin runs two passes, so the two
 agree to float32 rounding: within 2e-6 absolute on the float32 output
 (edge lengths, ragged batches, head dims that are not multiples of 32,
 float32 and bf16 caches); the LM decode step's kernel path must give the
-plain path's greedy tokens.
+plain path's greedy tokens.  The legacy flat histogram and one-superstep
+walk must equal their twins exactly (no events, out-of-range ids, dead
+ends on each CSR's last row, high-bit words, walker counts off the
+256-multiple), and event mode's kernel path its plain path and the CPU
+run, every field.
 """
 
 import dataclasses
@@ -522,3 +526,112 @@ def test_decode_kernel_path_matches_plain_path(cuda_device, pad_heads):
         logits[backend], _ = transformer.decode_step(
             params, cache, out["pallas"][:, 9], 9, cfg, backend=backend)
     assert float((logits["pallas"] - logits["xla"]).abs().max()) <= 2e-6
+
+
+# ---------------------------------------------------------------------------
+# the legacy kernels and event mode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,n_bins", [
+    (0, 64), (1, 1), (5000, 1300), (777, 33), (200_000, 4099), (300, 0),
+])
+def test_visit_counter_kernel_matches_twin(cuda_device, m, n_bins):
+    rng = np.random.default_rng(m + n_bins)
+    ev = rng.integers(-5, n_bins + 20, m).astype(np.int32)
+    if m >= 4:
+        ev[:4] = [-(2**31), 2**31 - 1, n_bins, -1]
+    ev = torch.as_tensor(ev, device=cuda_device)
+    _build.reset_launches()
+    got = vc.visit_counter(ev, n_bins)
+    assert _build.launches["visit_counter"] == (1 if m and n_bins else 0)
+    assert torch.equal(got, vc.visit_counter_plain(ev, n_bins))
+    assert torch.equal(ops.visit_counts(ev, n_bins), got)
+    with pytest.raises(TypeError, match="int32"):
+        vc.visit_counter(ev.long(), n_bins)
+
+
+def _dead_end_csr(dev):
+    """6 pins, 4 boards (global ids 6..9): pins 0 and 5 (the last row)
+    have no boards, boards 2 and 3 (the last row) no pins, and pins 3 and
+    1 point at them."""
+    t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    return (t([0, 0, 2, 3, 4, 6, 6]), t([6, 9, 7, 8, 6, 7]),
+            t([0, 2, 4, 4, 4]), t([1, 4, 2, 4]), 6)
+
+
+@pytest.mark.parametrize("w", [1, 100, 256, 4096])
+@pytest.mark.parametrize("alpha_u32", [0, 2**31, 2**32 - 1])
+@pytest.mark.parametrize("which", ["small_test_graph", "dead_ends"])
+def test_walk_step_kernel_matches_twin(graph, cuda_device, which, alpha_u32, w):
+    if which == "dead_ends":
+        *csr, n_pins = _dead_end_csr(cuda_device)
+    else:
+        csr, n_pins = list(_csr(graph)[:4]), graph.n_pins
+    rng = np.random.default_rng(w + alpha_u32 % 97)
+    t = lambda a: torch.as_tensor(a, device=cuda_device)
+    curr = t(rng.integers(0, n_pins, w).astype(np.int32))
+    query = t(rng.integers(0, n_pins, w).astype(np.int32))
+    words = rng.integers(0, 2**32, (w, 3), dtype=np.uint64).astype(np.uint32)
+    words[::2] |= np.uint32(2**31)          # high-bit draws
+    rbits = t(words.view(np.int32))
+    _build.reset_launches()
+    got = ws.walk_step(curr, query, rbits, *csr, n_pins=n_pins,
+                       alpha_u32=alpha_u32)
+    assert _build.launches["walk_step"] == 1
+    want = ws.walk_step_plain(curr, query, rbits, *csr, n_pins=n_pins,
+                              alpha_u32=alpha_u32)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    via_ops = ops.walk_step(curr, query, t(words.astype(np.int64)), *csr,
+                            n_pins=n_pins, alpha_u32=alpha_u32)
+    for a, b in zip(via_ops, got):
+        assert torch.equal(a, b)
+
+
+def test_walk_step_wrapper_checks_inputs(graph, cuda_device):
+    csr = _csr(graph)[:4]
+    z = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shape"):
+        ws.walk_step(z, z, torch.zeros((8, 4), dtype=torch.int32,
+                                       device=cuda_device),
+                     *csr, n_pins=graph.n_pins, alpha_u32=0)
+    with pytest.raises(ValueError, match="uint32"):
+        ws.walk_step(z, z, torch.zeros((8, 3), dtype=torch.int32,
+                                       device=cuda_device),
+                     *csr, n_pins=graph.n_pins, alpha_u32=2**32)
+
+
+@pytest.mark.parametrize("check_mode", ["incremental", "full"])
+@pytest.mark.parametrize("early_stop", [True, False])
+def test_event_walk_kernel_path_matches_plain_path(sg, check_mode, early_stop):
+    """pixie_walk_events + recommend_from_events: the kernel path equals the
+    twin path on the card and the CPU run, every field bit for bit."""
+    graph = sg.graph
+    cfg = walk.WalkConfig(n_steps=20_000, n_walkers=256, chunk_steps=4,
+                          top_k=50, n_p=30, n_v=3)
+    if not early_stop:
+        cfg = cfg.without_early_stop()
+    qs = synthetic.top_degree_pins(sg, 20)
+    pins = torch.tensor([qs[0], qs[3], -1, qs[5]], dtype=torch.int32)
+    weights = torch.tensor([1.0, 0.5, 0.0, 0.3])
+
+    def run(g, backend):
+        c = dataclasses.replace(cfg, backend=backend)
+        dev = g.device
+        r = walk.pixie_walk_events(g, pins.to(dev), weights.to(dev), 1,
+                                   prng.key(5, dev), c, check_every=2,
+                                   check_mode=check_mode)
+        return (*r, *walk.recommend_from_events(r, 4, g.n_pins, pins.to(dev),
+                                                c.top_k))
+
+    _build.reset_launches()
+    got = run(graph, "pallas")
+    torch.cuda.synchronize()
+    assert _build.launches["walk_steps_fused"] == int(got[3])
+    _build.reset_launches()
+    want = run(graph, "xla")
+    assert not any(_build.launches.values())
+    cpu = run(graph.to("cpu"), "pallas")
+    for a, b, c in zip(got, want, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)

@@ -51,7 +51,7 @@ def test_port_files_exist():
                  "configs/smollm_360m.py", "configs/minitron_4b.py"):
         assert twin in names
     for src in ("walk_steps_fused.cu", "visit_counter.cu", "embedding_bag.cu",
-                "walk_hop.cu", "decode_attention.cu"):
+                "walk_hop.cu", "decode_attention.cu", "walk_step.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -131,6 +131,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                             n_slots=1, n_boards=4, alpha_u32=0, beta_u32=0)
     with pytest.raises(ValueError, match="CUDA"):
         ws.walk_hop_fused(z, z.bool(), z, z[:1], off, z)
+    with pytest.raises(ValueError, match="CUDA"):
+        vc.visit_counter(z, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ws.walk_step(z, z, torch.zeros((4, 3), dtype=torch.int32), off, z,
+                     off, z, n_pins=4, alpha_u32=0)
     from repro_torch.kernels import decode_attention as da
 
     kv = torch.zeros((1, 4, 1, 8))
@@ -149,6 +154,13 @@ def test_dispatch_refuses_devices_without_a_path():
                                   m.reshape(1, 1, 4))
     with pytest.raises(ValueError, match="no kernel and no plain path"):
         ops.walk_hop(m, m.bool(), m, m, m, m[:1], use_kernel=True)
+    # the legacy entry points: None lets the device decide, as True does
+    for use_kernel in (None, True):
+        with pytest.raises(ValueError, match="no kernel and no plain path"):
+            ops.visit_counts(m, 4, use_kernel=use_kernel)
+        with pytest.raises(ValueError, match="no kernel and no plain path"):
+            ops.walk_step(m, m, m.reshape(4, 1), m, m, m, m, n_pins=3,
+                          alpha_u32=0, use_kernel=use_kernel)
     kv = torch.zeros((1, 4, 1, 8), device="meta")
     with pytest.raises(ValueError, match="no kernel and no plain path"):
         ops.decode_attention(torch.zeros((1, 2, 8), device="meta"), kv, kv, 2,
@@ -157,17 +169,19 @@ def test_dispatch_refuses_devices_without_a_path():
 
 def test_launch_counters_name_the_three_kernels_and_reset():
     """Name kept from the first slice; the embedding bag is the fourth
-    counter, the sharded engine's hop the fifth and the LM decode step's
-    attention the sixth."""
+    counter, the sharded engine's hop the fifth, the LM decode step's
+    attention the sixth, and the legacy flat histogram and one-superstep
+    walk the seventh and eighth: one counter per TPU kernel of the repo."""
     from repro_torch.kernels import _build
 
     assert set(_build.launches) == {
         "walk_steps_fused", "visit_counter_update_high", "visit_counter_wide",
         "embedding_bag", "walk_hop_fused", "decode_attention",
+        "visit_counter", "walk_step",
     }
     assert set(_build.SOURCES) == {
         "walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
-        "decode_attention",
+        "decode_attention", "walk_step",
     }
     _build.launches["visit_counter_wide"] += 3
     _build.reset_launches()
@@ -180,10 +194,14 @@ def test_cuda_sources_name_the_kernel_they_replace():
     counter = (csrc / "visit_counter.cu").read_text()
     bag = (csrc / "embedding_bag.cu").read_text()
     hop = (csrc / "walk_hop.cu").read_text()
+    step = (csrc / "walk_step.cu").read_text()
     assert "src/repro/kernels/walk_step.py" in hop
     assert "_walk_hop_kernel" in hop and "walk_hop_ref" in hop
-    # both walk kernels pick an edge with the one shared function
-    for src in (walk, hop):
+    assert "src/repro/kernels/walk_step.py" in step
+    assert "_walk_step_kernel" in step and "walk_step_ref" in step
+    assert "_visit_counter_kernel" in counter and "visit_counter_ref" in counter
+    # the walk kernels pick an edge with the one shared function
+    for src in (walk, hop, step):
         assert '#include "pick_edge.cuh"' in src
         assert "int pick_edge(" not in src
     assert "int pick_edge(" in (csrc / "pick_edge.cuh").read_text()
