@@ -25,7 +25,11 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              visit_counter_wide kernel; checked against the plain path.
  5. kernels  each kernel against its plain twin at the main path's shapes
              (exact match), timed with CUDA events beside its twin, its
-             bandwidth bound and, for the counters, torch's index_add_.
+             bandwidth bound and, for the counters, torch's index_add_;
+             visit_counter_update_high timed as the path calls it (the
+             crossings added into a running tally in place, one launch),
+             its old three-launch sequence (zeroed delta, kernel, add)
+             logged beside it.
              Each bound counts the distinct 32-byte sectors the run's own
              inputs touch (repeat reads of a row are L2 hits), plus the
              lanes and walker state read or written once.
@@ -112,7 +116,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              they agree on: bf16 rounding lets greedy paths part),
              prefill ms, decode ms per step (p50 of 32), tokens/s at batch
              4, decode-attention launches, one profiled step (device idle
-             share).  Then the
+             share), and the attention kernel on that step's layer-0
+             inputs (the serving shape) beside SDPA and its bound.  Then the
              reference's decode_32k cell, cut: batch 16 instead of 128 (a
              bf16 cache of 128 x 32,768 tokens is 154.6 GB), the cache
              filled with seeded random bf16 values, one decode_step at
@@ -120,7 +125,8 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              on that step's layer-0 inputs the kernel against its twin
              (<= 2e-6), its device ms beside the twin, torch's
              scaled_dot_product_attention(enable_gqa=True) and the byte
-             bound.
+             bound.  Both timed attention calls log the kernel's split
+             plan (splits, CTAs) and must give the same bits twice.
 20. smollm   SmolLM-360M at full width in float32 (15 heads padded to 16):
              16 greedy tokens after a 4 x 128 prompt, kernel path == plain
              path, the per-step logit difference.
@@ -518,46 +524,68 @@ def check_walk_kernel(inp):
 
 
 def check_counter_kernel(name, kernel, plain, n_bins, lanes, kw, replaces):
+    """A counter kernel against its twin on a warm buffer, then timed.
+    ``visit_counter_update_high`` runs as the main path calls it: the
+    crossings added into a running tally in place, one launch; its old
+    three-launch sequence (a zeroed delta, the kernel, an add) is timed
+    beside it once, for the record."""
     import torch
     from repro_torch.kernels.visit_counter import _valid_bins
 
     dev = lanes[0].device
+    high = name == "visit_counter_update_high"
     base = torch.zeros((n_bins,), dtype=torch.int32, device=dev)
     qev, sev, iev = lanes
     n_dim = kw.get("n_pins", kw.get("n_dim"))
+    n_rows = n_bins // n_dim
     bins = _valid_bins(sev, iev, qev, kw["n_slots"], n_dim, kw["n_queries"])
     # a warm buffer: every other touched bin sits one below n_v, so the
     # checked round's first event there crosses it
     base[bins[::2]] = kw.get("n_v", 4) - 1
     ck, cp = base.clone(), base.clone()
-    got = kernel(ck, sev, iev, qev, **kw)
+    extra = {}
+    if high:
+        # a running tally that already holds counts: the kernel adds to it
+        tally = torch.arange(7, 7 + n_rows, dtype=torch.int32, device=dev)
+        extra = dict(high=tally.clone())
+    got = kernel(ck, sev, iev, qev, **kw, **extra)
     want = plain(cp, sev, iev, qev, **kw)
     err = int((ck.long() - cp.long()).abs().max())
-    if name == "visit_counter_update_high":
+    if high:
         if int(want.sum()) == 0:
             raise AssertionError(f"{name}: the checked round crossed no bin")
-        err = max(err, int((got.long() - want.long()).abs().max()))
+        if got is not extra["high"]:
+            raise AssertionError(f"{name}: the tally was not updated in place")
+        err = max(err, int((got.long() - (tally + want).long()).abs().max()))
     if err:
         raise AssertionError(f"{name} differs from its twin: max err {err}")
     del cp
-    ms = device_ms(lambda: kernel(ck, sev, iev, qev, **kw), 50)
-    call_ms = cuda_ms(lambda: kernel(ck, sev, iev, qev, **kw), 50)
+    run = lambda: kernel(ck, sev, iev, qev, **kw, **extra)
+    ms = device_ms(run, 50)
+    call_ms = cuda_ms(run, 50)
     plain_ms = cuda_ms(lambda: plain(ck, sev, iev, qev, **kw), 5)
     ones = torch.ones_like(bins, dtype=torch.int32)
     library_ms = device_ms(lambda: ck.index_add_(0, bins, ones), 50)
+    three_ms = None
+    if high:
+        t = extra["high"]
+        three_ms = device_ms(lambda: t.add_(kernel(ck, sev, iev, qev, **kw)), 50)
     m = sev.shape[0]
     # bound: the lanes read once, and each distinct 32-byte sector of the
     # count buffer the events touch read once and written once (a bin hit
     # again is an L2 hit: the buffer of the wide check fits in L2 whole)
     sectors = int(torch.unique(bins >> 3).numel())
-    n_rows = n_bins // n_dim
     nbytes = 4 * 3 * m + 2 * SECTOR * sectors
-    if name == "visit_counter_update_high":
-        nbytes += 4 * n_rows
+    if high:
+        nbytes += 2 * 4 * n_rows          # the tally read and written
     log("kernel", name=name, device_ms=ms, call_ms=call_ms, events=m,
         valid_events=int(bins.shape[0]), bins=n_bins,
+        distinct_bins=int(torch.unique(bins).numel()),
         distinct_sectors=sectors, bound_bytes=nbytes,
-        crossed=int(want.sum()) if name == "visit_counter_update_high" else None)
+        crossed=int(want.sum()) if high else None,
+        index_add_ms=library_ms, three_launch_ms=three_ms,
+        three_launch_is="torch.zeros delta, the kernel, tally + delta: the "
+                        "sequence before the in-place tally" if high else None)
     return dict(
         name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/visit_counter.cu",
@@ -1395,17 +1423,28 @@ def sdpa_yardstick(q, k, v, lengths):
 def time_attn(q, k, v, lengths, what: str) -> dict:
     """Device ms of the kernel (back to back), its twin's ms, SDPA's ms
     and the bound, on one call's inputs (``lengths`` an int: the wrapper
-    then never synchronises)."""
+    then never synchronises), with the kernel's split plan; two calls on
+    the same inputs must give the same bits."""
+    import torch
     from repro_torch.kernels import decode_attention as da
 
     err = check_attn(q, k, v, lengths, what)
+    if not torch.equal(da.decode_attention(q, k, v, lengths),
+                       da.decode_attention(q, k, v, lengths)):
+        raise AssertionError(f"decode_attention {what}: two runs differ")
+    b, h, dh = q.shape
+    plan = da.plan(b, h, k.shape[2], dh, k.dtype,
+                   lengths if isinstance(lengths, int) else k.shape[1])
     row = dict(
         ms=device_ms(lambda: da.decode_attention(q, k, v, lengths), 20),
         plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, k, v, lengths), 3),
         library_ms=device_ms(sdpa_yardstick(q, k, v, lengths), 20),
         max_abs_err=err, **attn_bound(q, k, lengths))
     log("attn_timing", what=what, q=list(q.shape), k=list(k.shape),
-        cache_dtype=str(k.dtype), lengths=lengths, **row)
+        cache_dtype=str(k.dtype), lengths=lengths, splits=plan.n_splits,
+        split_len=plan.split_len, ctas=plan.ctas,
+        kernel_over_sdpa=row["ms"] / row["library_ms"],
+        share_of_bound=row["bound_ms"] / row["ms"], **row)
     return row
 
 
@@ -1492,7 +1531,8 @@ def generate_both(params, cfg, prompt, n_new: int, what: str, identical=True):
 
 def profile_decode_step(fn) -> dict:
     """One decode step under torch.profiler: wall ms, device busy ms and the
-    idle share, and the device operations it issued."""
+    idle share, the device operations it issued, and the host operations
+    that took the most host time (self time, profiler overhead included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1502,15 +1542,19 @@ def profile_decode_step(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
     return dict(wall_ms=wall, device_busy_ms=busy,
                 device_idle_share=max(0.0, 1 - busy / wall) if wall else None,
                 device_ops=sum(e.count for e in kernels),
                 top=[dict(kernel=e.key[:80], count=e.count,
-                          ms=e.self_device_time_total / 1e3) for e in kernels[:6]])
+                          ms=e.self_device_time_total / 1e3) for e in kernels[:6]],
+                top_host=[dict(op=e.key[:80], count=e.count,
+                               ms=e.self_cpu_time_total / 1e3) for e in host[:8]])
 
 
 def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
@@ -1576,6 +1620,11 @@ def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
         for i in range(new_tokens)]
     prof = profile_decode_step(lambda: transformer.decode_step(
         served, cache, toks[:, -1], prompt_len + new_tokens - 1, qwen))
+    # the kernel at the serving shape: layer 0 of the last step
+    _, (q, k, v, lengths) = capture_attention(lambda: transformer.decode_step(
+        served, cache, toks[:, -1], prompt_len + new_tokens - 1, qwen))
+    serve_row = time_attn(q, k, v, lengths, f"serving batch {lm_batch} layer 0")
+    del q, k, v
     p50 = float(np.percentile(step_ms, 50))
     log("lm_bf16", model=qwen.name, compute_dtype="bfloat16", cache_dtype="bfloat16",
         batch=lm_batch, prompt=prompt_len, new_tokens=new_tokens,
@@ -1648,7 +1697,8 @@ def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:80",
-        launches=None, max_abs_err=max(row["max_abs_err"], *errs),
+        launches=None,
+        max_abs_err=max(row["max_abs_err"], serve_row["max_abs_err"], *errs),
         **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms")},
     )

@@ -69,18 +69,20 @@ def accumulate_packed_events_with_high(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Accumulate wide events AND maintain the early-stop tally (Alg. 3).
 
-    ``counts`` (flat int32) is updated IN PLACE; ``high`` gains, per row,
-    the number of bins whose count crossed from below ``n_v`` to
-    ``>= n_v``.  Returns ``(counts, new_high)``.  Dense bins must fit int32
-    and ``n_v >= 1``; the kernels and their twins refuse anything else.
+    ``counts`` (flat int32) is updated IN PLACE, and so is ``high``, the
+    ``(n_rows,)`` int32 tally, which gains per row the number of bins whose
+    count crossed from below ``n_v`` to ``>= n_v`` (the reference returns
+    a new tally; here one chunk's counting is one kernel launch).  Returns
+    ``(counts, high)``.  Dense bins must fit int32 and ``n_v >= 1``; the
+    kernels and their twins refuse anything else.
     """
-    delta = ops.visit_counts_update_high(
+    ops.visit_counts_update_high(
         counts, slot_events.reshape(-1), pin_events.reshape(-1),
         None if query_events is None else query_events.reshape(-1),
         n_slots=n_slots, n_pins=n_pins, n_v=n_v, n_queries=n_queries,
-        use_kernel=backend == "pallas",
+        high=high, use_kernel=backend == "pallas",
     )
-    return counts, high + delta
+    return counts, high
 
 
 def fold_sharded_counts(

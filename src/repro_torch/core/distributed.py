@@ -445,19 +445,18 @@ def pixie_walk_sharded_batched(
 
     def count(buf, sev, iev, qev, n_dim, with_high):
         """Each local shard's events into its own bins (one counting call
-        per shard, as each reference shard makes its own)."""
-        out = []
+        per shard, as each reference shard makes its own); with
+        ``with_high`` each shard's row of ``high`` gains its crossings in
+        place."""
         for s in range(s_l):
             if with_high:
-                _, h = counter_lib.accumulate_packed_events_with_high(
+                counter_lib.accumulate_packed_events_with_high(
                     buf[s], high[s], sev[s], iev[s], n_slots, n_dim, cfg.n_v,
                     count_engine, query_events=qev[s], n_queries=n_queries)
-                out.append(h)
             else:
                 counter_lib.accumulate_packed_events(
                     buf[s], sev[s], iev[s], n_slots, n_dim, count_engine,
                     query_events=qev[s], n_queries=n_queries)
-        return torch.stack(out) if with_high else None
 
     n_chunks = 0
     for it in range(cfg.max_chunks()):
@@ -545,7 +544,7 @@ def pixie_walk_sharded_batched(
             # bins and the incremental crossing tally
             g2l = g2.long()
             cnt_ok = v2 & (e2 == 1)
-            high = count(
+            count(
                 counts,
                 torch.where(cnt_ok, slot_of_walker[g2l], n_slots),
                 torch.where(cnt_ok, p2 - pin_lo[:, None], 0),

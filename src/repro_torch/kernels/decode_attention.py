@@ -18,15 +18,21 @@ with one device-to-host read.
 ``decode_attention_plain`` is the two-pass form of the reference's
 ``_decode_attention_ref`` / ``ref.decode_attention_ref``: the scores, the
 mask at -1e30, ``softmax``, then the weighted sum of v.  The CUDA kernel
-runs an online softmax instead, so the two agree to float32 rounding
-(held within 2e-6 on the card and in the tests), not bit for bit.  The
-kernel wrapper takes CUDA tensors only.
+splits the sequence across CTAs and merges their online softmaxes
+(``plan`` says how for given shapes), so the two agree to float32
+rounding (held within 2e-6 on the card and in the tests), not bit for
+bit; the kernel gives the same bits from run to run.  The kernel wrapper
+takes CUDA tensors only.  With more than one split it hands the kernel a
+float32 workspace (``torch.empty``) and a per-device array of ticket
+counters that every launch leaves zeroed, so launches that might overlap
+on one device must share a stream.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+import threading
+from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
@@ -39,9 +45,56 @@ SMEM_LIMIT = 232_448   # bytes of shared memory one H100 block can use
 
 Lengths = Union[int, torch.Tensor]
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] + [
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
     ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p]
+
+_tickets: Dict[torch.device, torch.Tensor] = {}
+_tickets_lock = threading.Lock()
+
+
+class Plan(NamedTuple):
+    """How the kernel splits one call (``csrc/decode_attention.cu``)."""
+
+    n_splits: int        # CTAs along the sequence per (row, kv head, chunk)
+    split_len: int       # positions per split, a multiple of the tile
+    n_chunks: int        # head chunks per kv head
+    heads_per_chunk: int
+    tile: int            # positions per pipeline stage
+    stages: int          # cp.async ring depth
+    ctas: int            # the grid's size
+
+
+def _fn(lib, name: str, argtypes, restype):
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return fn
+
+
+def plan(b: int, h: int, kh: int, dh: int, kv_dtype: torch.dtype,
+         max_len: int) -> Plan:
+    """The kernel's split plan for these shapes; ``max_len`` is the int
+    length, or the cache's ``s`` for a tensor of lengths.  Builds the
+    library (a CUDA host only)."""
+    lib = _build.library("decode_attention")
+    out = (ctypes.c_int * 7)()
+    _fn(lib, "decode_attention_plan", [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        None)(b, h, kh, dh, int(kv_dtype == torch.bfloat16), max_len, out)
+    return Plan(*out)
+
+
+def _ticket_array(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tickets on ``dev``, kept across calls
+    (the kernel resets every ticket it takes)."""
+    with _tickets_lock:
+        t = _tickets.get(dev)
+        if t is None or t.numel() < n:
+            t = torch.zeros((max(n, 2 * (0 if t is None else t.numel())),),
+                            dtype=torch.int32, device=dev)
+            _tickets[dev] = t
+        return t
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,7 +139,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: Lengths) -> torch.Tensor:
-    """Decode attention on the card: one launch, ``(b, h, dh)`` float32."""
+    """Decode attention on the card: one launch (split-K with an in-kernel
+    merge), ``(b, h, dh)`` float32.  Sync-free for an int length."""
     b, h, dh, s, kh = _check(q, k, v, lengths)
     dev = k.device
     if dev.type != "cuda":
@@ -100,29 +154,34 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {dh} > {MAX_HEAD_DIM}")
     lib = _build.library("decode_attention")
-    smem = lib.decode_attention_smem_bytes
-    if smem.argtypes is None:
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        smem.restype = ctypes.c_longlong
-    if smem(h // kh, dh) > SMEM_LIMIT:
+    kv_bf16 = int(k.dtype == torch.bfloat16)
+    smem = _fn(lib, "decode_attention_smem_bytes", [ctypes.c_int] * 2,
+               ctypes.c_longlong)
+    if smem(dh, kv_bf16) > SMEM_LIMIT:
         raise ValueError(
-            f"a group of {h // kh} heads of dim {dh} needs more shared "
-            f"memory than one block has ({SMEM_LIMIT} bytes)"
+            f"head_dim {dh} needs more shared memory than one block has "
+            f"({SMEM_LIMIT} bytes)"
         )
     q = q.contiguous()
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     if isinstance(lengths, torch.Tensor):
-        len_ptr, uniform = lengths.contiguous().data_ptr(), 0
+        lengths = lengths.contiguous()
+        len_ptr, uniform, max_len = lengths.data_ptr(), 0, s
     else:
-        len_ptr, uniform = None, int(lengths)
-    fn = lib.decode_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        len_ptr, uniform, max_len = None, int(lengths), int(lengths)
+    p = plan(b, h, kh, dh, k.dtype, max_len)
+    ws = tickets = None
+    if p.n_splits > 1:
+        rows = b * kh * p.n_chunks
+        ws = torch.empty((rows * p.n_splits * p.heads_per_chunk * (dh + 2),),
+                         dtype=torch.float32, device=dev)
+        tickets = _ticket_array(dev, rows)
+    fn = _fn(lib, "decode_attention_launch", _ARGTYPES, ctypes.c_int)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), len_ptr, uniform,
-        out.data_ptr(), b, s, h, kh, dh, dh ** -0.5,
-        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), b, s, h, kh, dh,
+        dh ** -0.5, int(q.dtype == torch.bfloat16), kv_bf16,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "decode_attention")

@@ -88,14 +88,18 @@ def visit_counts_update_high(
     n_pins: int,
     n_v: int,
     n_queries: int = 0,
+    high: Optional[torch.Tensor] = None,
     use_kernel: bool,
 ) -> torch.Tensor:
-    """``counts += hist`` in place; returns the per-row n_v crossings."""
+    """``counts += hist`` in place; the per-row n_v crossings are added
+    into ``high`` in place (returned), or returned as a fresh delta (the
+    reference's shape)."""
     fn = vc.visit_counter_update_high if _kernel_for(use_kernel, counts) else (
         vc.visit_counter_update_high_plain
     )
     return fn(counts, slot_events, pin_events, query_events,
-              n_slots=n_slots, n_pins=n_pins, n_v=n_v, n_queries=n_queries)
+              n_slots=n_slots, n_pins=n_pins, n_v=n_v, n_queries=n_queries,
+              high=high)
 
 
 def walk_step(

@@ -16,9 +16,15 @@ fresh buffer, but at production scale the buffer is 4.5 GB and a copy per
 chunk would cost more than the chunk.  An event counts iff every lane is
 in range (the walk's sentinels ``n_slots`` / ``n_queries`` drop out).
 
-``visit_counter_update_high`` also returns, per row (``bin // n_pins``),
+``visit_counter_update_high`` also counts, per row (``bin // n_pins``),
 how many bins crossed from below ``n_v`` to ``>= n_v`` in this update:
-the incremental early-stop tally of Algorithm 3.
+the incremental early-stop tally of Algorithm 3.  Given the caller's
+running ``(n_rows,)`` int32 tally as ``high``, it adds the crossings into
+it in place and returns it: one launch per counting call, where a fresh
+delta would cost a fill and an add besides.  Without ``high`` it returns
+a fresh delta, the reference's shape: the in-place path applied to a
+zeroed tally.  The kernel keeps a per-block tally in shared memory, so
+``n_rows`` is capped at ``MAX_HIGH_ROWS``.
 
 The kernel wrappers take CUDA tensors only; the ``*_plain`` functions are
 the plain PyTorch twins (ports of ``ref.visit_counter_ref``,
@@ -37,6 +43,7 @@ import torch
 from repro_torch.kernels import _build
 
 _LANES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+MAX_HIGH_ROWS = 12_288   # the kernel's per-block tally: 48 KB of shared memory
 
 
 def _fn(name: str, argtypes):
@@ -85,6 +92,19 @@ def _check(counts, lanes, n_bins: int, kernel: str) -> torch.device:
     return dev
 
 
+def _tally(high, n_rows: int, dev) -> torch.Tensor:
+    """The caller's running tally, checked, or a fresh zeroed one."""
+    if high is None:
+        return torch.zeros((n_rows,), dtype=torch.int32, device=dev)
+    if high.shape != (n_rows,) or high.dtype != torch.int32:
+        raise ValueError(
+            f"high must be ({n_rows},) int32, got {tuple(high.shape)} {high.dtype}"
+        )
+    if high.device != dev or not high.is_contiguous():
+        raise ValueError(f"high must be a contiguous tensor on {dev}")
+    return high
+
+
 def visit_counter_update_high(
     counts: torch.Tensor,
     slot_events: torch.Tensor,
@@ -95,17 +115,24 @@ def visit_counter_update_high(
     n_pins: int,
     n_v: int,
     n_queries: int = 0,
+    high: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``counts += hist(events)`` in place on the card; returns the
-    ``(n_rows,)`` int32 crossing tally.  Requires ``n_v >= 1``."""
+    """``counts += hist(events)`` in place on the card, one launch; the
+    per-row crossings are added into ``high`` in place (returned), or into
+    a fresh zeroed ``(n_rows,)`` int32 delta.  Requires ``n_v >= 1``."""
     if n_v < 1:
         raise ValueError(f"n_v must be >= 1 for crossing tallies, got {n_v}")
     n_rows = _n_rows(n_slots, n_queries, query_events)
     require_dense_bins(n_rows * n_pins)
+    if n_rows > MAX_HIGH_ROWS:
+        raise ValueError(
+            f"visit_counter_update_high tallies at most {MAX_HIGH_ROWS} rows "
+            f"in shared memory, got {n_rows}"
+        )
     lanes = [("query_events", query_events), ("slot_events", slot_events),
              ("pin_events", pin_events)]
     dev = _check(counts, lanes, n_rows * n_pins, "visit_counter_update_high")
-    delta = torch.zeros((n_rows,), dtype=torch.int32, device=dev)
+    high = _tally(high, n_rows, dev)
     fn = _fn(
         "visit_counter_update_high_launch",
         _LANES + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
@@ -114,12 +141,12 @@ def visit_counter_update_high(
         None if query_events is None else query_events.data_ptr(),
         slot_events.data_ptr(), pin_events.data_ptr(), slot_events.shape[0],
         n_slots, n_pins, n_queries if query_events is not None else 0,
-        min(int(n_v), 2**31 - 1), counts.data_ptr(), delta.data_ptr(),
+        min(int(n_v), 2**31 - 1), counts.data_ptr(), high.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "visit_counter_update_high")
     _build.launches["visit_counter_update_high"] += 1
-    return delta
+    return high
 
 
 def visit_counter_wide(
@@ -234,11 +261,13 @@ def visit_counter_update_high_plain(
     n_pins: int,
     n_v: int,
     n_queries: int = 0,
+    high: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain twin of ``visit_counter_update_high``: the chunk's touched
     bins are deduplicated with their event counts, their old and new
     counts compared against ``n_v``, and the counts written back in
-    place.  Returns the ``(n_rows,)`` int32 crossing tally."""
+    place.  The ``(n_rows,)`` int32 crossing tally is added into ``high``
+    in place (returned), or returned fresh."""
     if n_v < 1:
         raise ValueError(f"n_v must be >= 1 for crossing tallies, got {n_v}")
     n_rows = _n_rows(n_slots, n_queries, query_events)
@@ -251,4 +280,7 @@ def visit_counter_update_high_plain(
     new = old + hits.to(counts.dtype)
     counts[uniq] = new
     crossed = uniq[(old < n_v) & (new >= n_v)]
-    return torch.bincount(crossed // n_pins, minlength=n_rows).to(torch.int32)
+    delta = torch.bincount(crossed // n_pins, minlength=n_rows).to(torch.int32)
+    if high is None:
+        return delta
+    return _tally(high, n_rows, counts.device).add_(delta)

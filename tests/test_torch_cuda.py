@@ -20,11 +20,16 @@ kernel runs an online softmax where its twin runs two passes, so the two
 agree to float32 rounding: within 2e-6 absolute on the float32 output
 (edge lengths, ragged batches, head dims that are not multiples of 32,
 float32 and bf16 caches); the LM decode step's kernel path must give the
-plain path's greedy tokens.  The legacy flat histogram and one-superstep
-walk must equal their twins exactly (no events, out-of-range ids, dead
-ends on each CSR's last row, high-bit words, walker counts off the
-256-multiple), and event mode's kernel path its plain path and the CPU
-run, every field.
+plain path's greedy tokens.  The kernel splits the sequence across CTAs:
+rows that end at, just before or just after a split's edge, or leave
+splits empty, agree with the twin too, and two runs give the same bits.
+The counter adds its crossing tally into the caller's tally in place, one
+launch, equal to the twin's prior tally plus its delta (one bin hit by
+every event, n_v 1, many rows, the row cap).  The legacy flat histogram
+and one-superstep walk must equal their twins exactly (no events,
+out-of-range ids, dead ends on each CSR's last row, high-bit words,
+walker counts off the 256-multiple), and event mode's kernel path its
+plain path and the CPU run, every field.
 """
 
 import dataclasses
@@ -162,6 +167,67 @@ def test_counter_kernels_match_twins(cuda_device, with_query):
     vc.visit_counter_wide_plain(wp, s, p, qe, n_slots=n_slots, n_dim=n_pins,
                                 n_queries=nq)
     assert torch.equal(wk, wp)
+
+
+@pytest.mark.parametrize("with_query", [False, True])
+def test_update_high_adds_into_a_prefilled_tally(cuda_device, with_query):
+    """One launch: the crossings land in the caller's tally, added to what
+    it held, bit for bit the twin's prior tally plus its fresh delta."""
+    n_queries, n_slots, n_pins, n_v = 4, 3, 5000, 4
+    q, s, p = _events(cuda_device, 21, 200_000, n_queries, n_slots, n_pins)
+    qe = q if with_query else None
+    nq = n_queries if with_query else 0
+    n_rows = n_queries * n_slots if with_query else n_slots
+    rng = np.random.default_rng(6)
+    prior = torch.as_tensor(rng.integers(0, 5, n_rows * n_pins).astype(np.int32),
+                            device=cuda_device)
+    tally = torch.as_tensor(rng.integers(0, 100, n_rows).astype(np.int32),
+                            device=cuda_device)
+    ck, cp, hk = prior.clone(), prior.clone(), tally.clone()
+    _build.reset_launches()
+    out = vc.visit_counter_update_high(ck, s, p, qe, n_slots=n_slots, n_pins=n_pins,
+                                       n_v=n_v, n_queries=nq, high=hk)
+    assert out is hk and _build.launches["visit_counter_update_high"] == 1
+    dp = vc.visit_counter_update_high_plain(cp, s, p, qe, n_slots=n_slots,
+                                            n_pins=n_pins, n_v=n_v, n_queries=nq)
+    assert torch.equal(ck, cp) and torch.equal(hk, tally + dp)
+    assert int(dp.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["one_bin", "n_v_1", "many_rows", "row_cap"])
+def test_update_high_edge_cases_match_twin(cuda_device, case):
+    rng = np.random.default_rng(len(case))
+    n_queries, n_slots, n_pins, n_v, m = 2, 4, 300, 3, 50_000
+    if case == "many_rows":
+        n_queries, n_slots = 128, 16
+    if case == "row_cap":
+        n_queries, n_slots, n_pins = vc.MAX_HIGH_ROWS // 8, 8, 64
+    if case == "n_v_1":
+        n_v = 1
+    q = rng.integers(0, n_queries, m).astype(np.int32)
+    s = rng.integers(0, n_slots, m).astype(np.int32)
+    p = rng.integers(0, n_pins, m).astype(np.int32)
+    if case == "one_bin":
+        q[:], s[:], p[:], n_v = 1, 2, 7, 20_000
+    t = lambda a: torch.as_tensor(a, device=cuda_device)
+    n_rows = n_queries * n_slots
+    ck = torch.zeros(n_rows * n_pins, dtype=torch.int32, device=cuda_device)
+    cp = ck.clone()
+    hk = torch.full((n_rows,), 5, dtype=torch.int32, device=cuda_device)
+    kw = dict(n_slots=n_slots, n_pins=n_pins, n_v=n_v, n_queries=n_queries)
+    vc.visit_counter_update_high(ck, t(s), t(p), t(q), high=hk, **kw)
+    dp = vc.visit_counter_update_high_plain(cp, t(s), t(p), t(q), **kw)
+    assert torch.equal(ck, cp) and torch.equal(hk, 5 + dp)
+    if case == "one_bin":
+        assert int(dp.sum()) == 1 and int(dp[1 * n_slots + 2]) == 1
+    if case == "n_v_1":
+        assert int(dp.sum()) == int((cp > 0).sum())
+    if case == "row_cap":
+        with pytest.raises(ValueError, match="at most"):
+            vc.visit_counter_update_high(
+                torch.zeros((n_rows + 8) * n_pins, dtype=torch.int32,
+                            device=cuda_device), t(s), t(p), t(q),
+                n_slots=n_slots, n_pins=n_pins, n_v=n_v, n_queries=n_queries + 1)
 
 
 def test_wrappers_count_launches_and_check_inputs(graph, cuda_device):
@@ -475,6 +541,45 @@ def test_decode_attention_kernel_matches_twin(cuda_device, b, h, kh, dh, s,
     assert got.dtype == torch.float32 and got.shape == (b, h, dh)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split_boundaries(cuda_device, kv_dtype):
+    """Rows of one ragged batch at 1, a split's length - 1, its length,
+    + 1 and the whole cache: rows that fill one split and rows that fill
+    them all, the rest of the splits empty."""
+    b, h, kh, dh, s = 5, 16, 2, 128, 4096
+    plan = da.plan(b, h, kh, dh, kv_dtype, s)
+    sl = plan.split_len
+    assert plan.n_splits > 1 and plan.ctas == plan.n_splits * b * kh
+    q, k, v, _ = _attn_inputs(cuda_device, b, h, kh, dh, s, 1, kv_dtype,
+                              kv_dtype, 31)
+    lens = torch.tensor([1, sl - 1, sl, sl + 1, s], dtype=torch.int32,
+                        device=cuda_device)
+    got = da.decode_attention(q, k, v, lens)
+    want = da.decode_attention_plain(q, k, v, lens)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 2e-6
+    for length in (sl - 1, sl, sl + 1, s):     # one int length for every row
+        got = da.decode_attention(q, k, v, length)
+        want = da.decode_attention_plain(q, k, v, length)
+        assert float((got - want).abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("b,kh,length", [(2, 2, 32768), (70, 2, 300), (3, 2, 100)])
+def test_decode_attention_is_the_same_bits_run_to_run(cuda_device, b, kh, length):
+    """The splits merge in a fixed order with no float atomics; (70, 2)
+    fills the card and (3, 2, 100) is short: both take the one-split
+    path, which writes the output with no merge."""
+    h, dh = 8 * kh, 128
+    q, k, v, _ = _attn_inputs(cuda_device, b, h, kh, dh, length, 1,
+                              torch.bfloat16, torch.bfloat16, 3)
+    plan = da.plan(b, h, kh, dh, torch.bfloat16, length)
+    assert (plan.n_splits > 1) == (b * kh < 132 and length > 128)
+    first = da.decode_attention(q, k, v, length)
+    assert torch.equal(first, da.decode_attention(q, k, v, length))
+    want = da.decode_attention_plain(q, k, v, length)
+    assert float((first - want).abs().max()) <= 2e-6
 
 
 def test_decode_attention_wrapper_counts_launches_and_checks_inputs(cuda_device):
