@@ -6,7 +6,11 @@
 Phases (any failure exits non-zero; nothing is caught and reported ok):
 
  1. build    nvcc-compiles every kernel in src/repro_torch/kernels/csrc
-             (one process per source, all at once) into build/.
+             (one process per source, all at once, threefry.cuh and
+             walk_bits.cu with the rest, and the pointer_chase.cu latency
+             probe beside them) into build/; then the probe: one thread
+             follows a random cycle through 1 GiB of int32 (and through 16
+             MiB, held in L2), 100,000 dependent reads, ns a read.
  2. serve    the serve_200m_replicated graph (140M pins, 60M boards, 1.2B
              edges, 4 edge languages) drawn uniformly on the card from a
              seeded generator and compiled by the port's build_graph;
@@ -26,6 +30,15 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
  5. kernels  each kernel against its plain twin at the main path's shapes
              (exact match), timed with CUDA events beside its twin, its
              bandwidth bound and, for the counters, torch's index_add_;
+             the walk kernel draws its words from the keys, its twin takes
+             walk._chunk_rbits' table of the same keys (timed alone on the
+             card beside the walk row), its bound the larger of its bytes
+             and its threefry integer operations; its chain of dependent
+             reads replayed per walker and priced at the probe's L2-hit
+             latency (the chain floor), at its DRAM latency, and by a
+             first-touch L2 model of a cold chunk (with the L2 hit share);
+             one launch at a time timed after a write that evicts L2 and
+             without;
              visit_counter_update_high timed as the path calls it (the
              crossings added into a running tally in place, one launch),
              its old three-launch sequence (zeroed delta, kernel, add)
@@ -89,12 +102,19 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              chiprun_out/chip_smoke_sharded_trace.json); a seeded
              run_open_loop with two shard deaths replays identically
              twice.
-15. hop      the walk_hop kernel against its twin on the exact routed
-             buffers of superstep 8 of a recipe walk (both hops, 16 shards
-             per launch) and on edge cases (all lanes gated off, degree-0
-             rows, each shard's last row, row_base > 0, board rows); device
-             ms, twin ms and the byte bound (lanes once plus the distinct
-             CSR sectors the gated lanes read).
+15. hop      the walk_hop kernel (each lane's word read from the chunk's
+             table by walker id) against its twin on the gathered words, on
+             the exact routed buffers and table of superstep 8 of a recipe
+             walk (both hops, 16 shards per launch) and on edge cases (all
+             lanes gated off, degree-0 rows, each shard's last row, row_base
+             > 0, board rows, garbage positions and walker ids on gated-off
+             lanes); device ms a launch, twin ms, the byte bound (lanes once
+             plus the distinct sectors the gated lanes need), the chain of
+             2 dependent reads priced as the walk's is, and one launch at a
+             time with a cold and a warm L2.  Then walk_bits against
+             walk._chunk_rbits at the sharded replica's chunk (one request)
+             and the parity batch's (8 requests), bit for bit, timed beside
+             it.
 16. nccl     ProcessGroupFabric over NCCL on one rank (a TCP store on
              localhost) equals LocalFabric(1) on the 20k graph, and the
              4-way sharded walk's board counts equal the unsharded ones.
@@ -162,8 +182,13 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
 
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 6, 7, 9, 10, 12, 13, 14, 18, 19 and 19b, 20, 21,
-22, 23); the kernels line sums them, and every one of its eight kernels
-must have launched.
+22, 23); the kernels line sums them, and every one of its nine kernels
+(the eight TPU kernels' and walk_bits) must have launched.  The profiled
+dense, event-mode and sharded requests (phases 2, 21, 14) must draw no
+torch threefry words (no prng.bits call); a "request_ops" line gives
+their device operations and chunks beside the card's operations of one
+torch word table (walk._chunk_rbits), which a parent commit's request
+drew once a chunk.
 
 Prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line.  Exits
@@ -184,7 +209,17 @@ import numpy as np
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+# 32-bit integer ALU operations a second: the data sheet's 67 TFLOP/s
+# float32 rate over 4 (an H100 SM has half as many INT32 lanes as FP32
+# lanes, and the float32 rate counts an FMA as two operations)
+INT32_OPS_PER_S = 67e12 / 4
+# one threefry2x32 block: 20 rounds of add, rotate and xor, 10 key
+# injections, 2 initial key adds; a word adds its y0 ^ y1
+THREEFRY_OPS = 72
 SECTOR = 32                        # bytes per DRAM sector touched at random
+CHASE_INTS = 2**28                 # the latency probe's cycle: 1 GiB of int32
+CHASE_L2_INTS = 2**22              # and one that L2 holds: 16 MiB
+CHASE_READS = 100_000
 REQUEST_PINS = (8, 3, 1, 5, 8, 2) * 4  # pins per full-width request
 OPEN_LOOP_REQUESTS = 200
 
@@ -348,21 +383,45 @@ def check_result(scores, ids, k: int, n_pins: int, what: str) -> None:
 
 
 def profile_request(server, req, req_id: int, top: int = 14,
-                    trace: str = "chip_smoke_trace.json") -> None:
+                    trace: str = "chip_smoke_trace.json") -> dict:
     """One full-width request through ``server`` under torch.profiler
-    (``profile_call``)."""
+    (``profile_call``): its device operations and launches by kernel."""
     def serve():
         server.submit(*req[:2], user_feat=req[2], req_id=req_id)
         server.pump()
         server.harvest()
 
-    profile_call(serve, top, trace)
+    return profiled_ops(serve, trace, top)
 
 
-def profile_call(fn, top: int = 14, trace: str = "chip_smoke_trace.json") -> None:
+def profiled_ops(fn, trace: str, top: int = 14) -> dict:
+    """``profile_call`` with the port's launch counts of the same call and
+    the number of torch threefry word draws (``prng.bits`` calls) in it,
+    which the kernel path must not make."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import _build
+
+    real_bits, draws = prng.bits, []
+
+    def counted_bits(*a, **kw):
+        draws.append(1)
+        return real_bits(*a, **kw)
+
+    _build.reset_launches()
+    prng.bits = counted_bits
+    try:
+        n_ops = profile_call(fn, top, trace)
+    finally:
+        prng.bits = real_bits
+    return dict(ops=n_ops, launches=dict(_build.launches),
+                torch_threefry_draws=len(draws))
+
+
+def profile_call(fn, top: int = 14, trace: str = "chip_smoke_trace.json") -> int:
     """``fn()`` under torch.profiler: the device's busy and idle share of
     its wall time, and where the device time goes by kernel.  The trace
-    goes to chiprun_out/<trace>."""
+    goes to chiprun_out/<trace>; returns the number of device operations
+    (kernels and copies) the call ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -377,14 +436,16 @@ def profile_call(fn, top: int = 14, trace: str = "chip_smoke_trace.json") -> Non
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    n_ops = sum(e.count for e in kernels)
     log("profile", trace=trace, wall_ms=wall, device_busy_ms=busy,
         device_idle_share=max(0.0, 1 - busy / wall) if wall else None,
-        kernel_launches=sum(e.count for e in kernels),
+        kernel_launches=n_ops,
         top=[dict(kernel=e.key[:90], count=e.count,
                   ms=e.self_device_time_total / 1e3) for e in kernels[:top]])
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(out / trace))
+    return n_ops
 
 
 # ---------------------------------------------------------------------------
@@ -410,6 +471,9 @@ def walk_inputs(graph, reqs, n_slots, cfg):
         feat=feats.repeat_interleave(w),
         slot=plan.slot_of_walker.reshape(-1).contiguous(),
         qid=torch.arange(n_queries, dtype=torch.int32, device=dev).repeat_interleave(w),
+        keys=walk._key_bits(keys, dev),
+        steps=dict(step_base=0, chunk_steps=cfg.chunk_steps),
+        # the twin's words (and the sector replay's): the same keys' table
         rbits=walk._chunk_rbits(keys, 0, cfg.chunk_steps, w),
         csr=(graph.p2b.offsets, graph.p2b.targets, graph.b2p.offsets,
              graph.b2p.targets, p2b_fb, b2p_fb),
@@ -420,12 +484,17 @@ def walk_inputs(graph, reqs, n_slots, cfg):
     )
 
 
-def walk_sectors(inp, pin_events) -> int:
-    """Distinct 32-byte sectors of the CSR and feature-bound arrays that
-    this chunk's walk reads: the kernel's reads replayed step by step in
-    plain PyTorch (sectors counted from each array's start).  The replay's
-    pin lane must equal the kernel's, so the address model is the
-    kernel's own."""
+def walk_sectors(inp, pin_events):
+    """The 32-byte sectors of the CSR and feature-bound arrays that this
+    chunk's walk reads: the kernel's reads replayed step by step in plain
+    PyTorch (sectors counted from each array's start), the query pin's row
+    read once up front as the kernel reads it.  The replay's pin lane must
+    equal the kernel's, so the address model is the kernel's own.
+
+    Returns ``(distinct sectors, reads)``: ``reads`` is ``(round, walker,
+    sector)`` for every read, round ``4 * s + k`` for hop ``k`` of step
+    ``s`` (offset pair with its feature bounds, target, the board's offset
+    pair with its feature bounds, target), for ``read_chain``."""
     import torch
     from repro_torch.core import prng
     from repro_torch.kernels.walk_step import RMASK
@@ -436,18 +505,21 @@ def walk_sectors(inp, pin_events) -> int:
     rb = prng.from_int32_bits(inp["rbits"])
     feat, query = inp["feat"].long(), inp["query"].long()
     cur = inp["curr"].long()
-    touched = []
+    walker = torch.arange(cur.numel(), device=cur.device)
+    touched, rounds, walkers = [], [], []
 
-    def touch(array_id, idx, mask):
+    def touch(array_id, idx, mask, rnd):
         touched.append((idx[mask] >> 3) | (array_id << 40))
+        walkers.append(walker[mask])
+        rounds.append(torch.full_like(walkers[-1], rnd))
 
-    def pick(start, deg, r, use_b, fb, rows, mask, array_id):
+    def pick(start, deg, r, use_b, fb, rows, mask, read, array_id, rnd):
         base, span = start, deg.clamp(min=1)
         if biased:
             m = use_b & mask
             at = rows * fb.shape[1] + feat
-            touch(array_id, at, m)
-            touch(array_id, at + 1, m)
+            touch(array_id, at, read, rnd)
+            touch(array_id, at + 1, read, rnd)
             flat = fb.reshape(-1)
             lo, hi = flat[at].long(), flat[at + 1].long()
             sub = m & (hi > lo)
@@ -455,41 +527,154 @@ def walk_sectors(inp, pin_events) -> int:
             span = torch.where(sub, hi - lo, span)
         return torch.where(mask, base + r % span, 0)
 
+    every = torch.ones_like(query, dtype=torch.bool)
+    touch(0, query, every, 0)
+    touch(0, query + 1, every, 0)
+    if biased:
+        touch(1, query * p2b_fb.shape[1] + feat, every, 0)
+        touch(1, query * p2b_fb.shape[1] + feat + 1, every, 0)
     pins = []
     for s in range(rb.shape[0]):
         use_b = rb[s, :, 1] < kw["beta_u32"]
         pos = torch.where(rb[s, :, 0] < kw["alpha_u32"], query, cur)
-        every = torch.ones_like(use_b)
-        touch(0, pos, every)
-        touch(0, pos + 1, every)
+        away = pos != query                 # else the row is in registers
+        touch(0, pos, away, 4 * s)
+        touch(0, pos + 1, away, 4 * s)
         start = p2b_off[pos].long()
         deg = p2b_off[pos + 1].long() - start
         ok1 = deg > 0
-        eidx = pick(start, deg, rb[s, :, 2] & RMASK, use_b, p2b_fb, pos, ok1, 1)
-        touch(2, eidx, ok1)
+        eidx = pick(start, deg, rb[s, :, 2] & RMASK, use_b, p2b_fb, pos, ok1,
+                    use_b & away, 1, 4 * s)
+        touch(2, eidx, ok1, 4 * s + 1)
         board = torch.where(ok1, p2b_tgt[eidx].long() - kw["n_pins"], 0)
-        touch(3, board, ok1)
-        touch(3, board + 1, ok1)
+        touch(3, board, ok1, 4 * s + 2)
+        touch(3, board + 1, ok1, 4 * s + 2)
         bstart = b2p_off[board].long()
         bdeg = b2p_off[board + 1].long() - bstart
         ok = ok1 & (bdeg > 0)
-        bidx = pick(bstart, bdeg, rb[s, :, 3] & RMASK, use_b, b2p_fb, board, ok, 4)
-        touch(5, bidx, ok)
+        bidx = pick(bstart, bdeg, rb[s, :, 3] & RMASK, use_b, b2p_fb, board,
+                    ok, use_b & ok1, 4, 4 * s + 2)
+        touch(5, bidx, ok, 4 * s + 3)
         pin = b2p_tgt[bidx].long()
         cur = torch.where(ok, pin, query)
         pins.append(torch.where(ok, pin, 0))
     if not torch.equal(torch.stack(pins).int(), pin_events):
         raise AssertionError("walk sector replay disagrees with the kernel's pin lane")
-    return int(torch.unique(torch.cat(touched)).numel())
+    sectors = torch.cat(touched)
+    reads = (torch.cat(rounds), torch.cat(walkers), sectors)
+    return int(torch.unique(sectors).numel()), reads
 
 
-def check_walk_kernel(inp):
+def read_chain(reads, n_lanes: int, lat: dict) -> dict:
+    """Each lane's chain of dependent reads, priced two ways.
+
+    ``reads`` is ``(round, lane, sector)`` for every read; a lane's reads
+    in one round are issued together, each round waits for the one before.
+    ``chain_floor_ms``: the longest chain with every read at the L2-hit
+    latency (the least it can take, L1 hits aside; also what a rerun of the
+    same chunk pays once its lines sit in L2).  ``chain_dram_ms``: every
+    read at the DRAM latency.  ``chain_cold_ms``: a first-touch model of a
+    chunk that starts with a cold L2 -- a read misses when it is among the
+    first round to touch its sector, hits L2 after -- priced per lane,
+    the longest lane taken; ``l2_hit_share`` is its share of reads that
+    hit.  The model takes the chunk's lines to fit in the 50 MB L2
+    (``footprint_mib``, 128-byte lines) and ignores what an earlier chunk
+    left there."""
+    import torch
+
+    rnd, lane, sec = reads
+    if sec.numel() == 0:
+        return dict(chain_reads=0, chain_floor_ms=0.0, chain_dram_ms=0.0,
+                    chain_cold_ms=0.0, l2_hit_share=0.0, reads=0,
+                    footprint_mib=0.0)
+    uniq, inv = torch.unique(sec, return_inverse=True)
+    first = torch.full((uniq.numel(),), 2**62, dtype=torch.int64,
+                       device=sec.device).scatter_reduce(0, inv, rnd, "amin")
+    miss = (rnd == first[inv]).long()
+    n_rounds = int(rnd.max()) + 1
+    cell = rnd * n_lanes + lane
+    read = torch.zeros(n_rounds * n_lanes, dtype=torch.long, device=sec.device)
+    read[cell] = 1
+    missed = torch.zeros_like(read).scatter_reduce(0, cell, miss, "amax")
+    per_lane_reads = read.view(n_rounds, n_lanes).sum(0)
+    per_lane_misses = missed.view(n_rounds, n_lanes).sum(0)
+    cold_ns = (per_lane_misses * lat["dram_ns"]
+               + (per_lane_reads - per_lane_misses) * lat["l2_ns"])
+    longest = int(per_lane_reads.max())
+    n_reads = int(read.sum())
+    return dict(
+        chain_reads=longest,
+        chain_floor_ms=longest * lat["l2_ns"] * 1e-6,
+        chain_dram_ms=longest * lat["dram_ns"] * 1e-6,
+        chain_cold_ms=float(cold_ns.max()) * 1e-6,
+        l2_hit_share=1 - int(missed.sum()) / max(n_reads, 1),
+        reads=n_reads,
+        footprint_mib=torch.unique(sec >> 2).numel() * 128 / 2**20,
+    )
+
+
+def cold_l2_ms(fn, dev, n: int = 20) -> dict:
+    """Mean device ms of single ``fn()`` launches timed one at a time with
+    CUDA events, after a 256 MiB write that evicts the 50 MB L2
+    (``cold_ms``) and with no write between (``warm_ms``): the same timing
+    both ways, so their ratio is the L2's doing.  The card sleeps before
+    each launch so the host is ahead and no enqueue gap is timed.  ``fn``
+    must not synchronise."""
+    import torch
+
+    flush = torch.empty(2**26, dtype=torch.int32, device=dev)
+    out = {}
+    for name, evict in (("warm_ms", False), ("cold_ms", True)):
+        fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for i in range(n):
+            torch.cuda._sleep(10**6)
+            if evict:
+                flush.fill_(i)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        out[name] = sum(a.elapsed_time(b) for a, b in pairs) / n
+    del flush
+    return out
+
+
+def walk_ops(n_keys: int, walkers: int, chunk_steps: int) -> int:
+    """32-bit integer operations of one chunk's threefry words: a step key
+    per key and step, four words per walker and step."""
+    return chunk_steps * (n_keys * THREEFRY_OPS
+                          + 4 * walkers * (THREEFRY_OPS + 1))
+
+
+def run_walk_kernel(inp):
+    """``walk_steps_fused`` on ``inp``."""
+    from repro_torch.kernels import walk_step as ws
+
+    return ws.walk_steps_fused(
+        inp["curr"], inp["query"], inp["feat"], inp["slot"], inp["keys"],
+        *inp["csr"], inp["qid"], **inp["steps"], **inp["kw"])
+
+
+def check_walk_kernel(inp, lat: dict):
+    """The walk kernel (words drawn from the keys) against its twin on the
+    table of the same keys; timed beside the plain version (the table drawn
+    in torch, then the twin) and the card's time for that table
+    (``_chunk_rbits``) alone, and one launch at a time with a warm and a
+    cold L2 beside its chain of dependent reads (``read_chain``)."""
+    from repro_torch.core import walk
     from repro_torch.kernels import walk_step as ws
 
     a = (inp["curr"], inp["query"], inp["feat"], inp["slot"])
-    kern = lambda: ws.walk_steps_fused(*a, inp["rbits"], *inp["csr"], inp["qid"], **inp["kw"])
-    plain = lambda: ws.walk_chunk_batched_plain(*a, inp["qid"], inp["rbits"], *inp["csr"], **inp["kw"])
-    got, want = kern(), plain()
+    c, w = inp["rbits"].shape[0], inp["rbits"].shape[1]
+    n_keys = inp["keys"].shape[0]
+    table = lambda: walk._chunk_rbits(inp["keys"], 0, c, w // n_keys)
+    plain = lambda: ws.walk_chunk_batched_plain(*a, inp["qid"], table(), *inp["csr"], **inp["kw"])
+    got, want = run_walk_kernel(inp), plain()
     err = 0
     for x, y in zip(got, want):
         if (x is None) != (y is None):
@@ -498,29 +683,113 @@ def check_walk_kernel(inp):
             err = max(err, int((x.long() - y.long()).abs().max()))
     if err:
         raise AssertionError(f"walk_steps_fused differs from its twin: max err {err}")
-    ms = device_ms(kern, 50)
-    call_ms = cuda_ms(kern, 50)
+    ms = device_ms(lambda: run_walk_kernel(inp), 50)
+    call_ms = cuda_ms(lambda: run_walk_kernel(inp), 50)
     plain_ms = cuda_ms(plain, 5)
+    rbits_ms = cuda_ms(table, 20)
     # bound: the distinct CSR and feature-bound sectors this chunk reads,
-    # plus the random words and walker state read once and the lanes and
-    # next pins written once
-    c, w = inp["rbits"].shape[0], inp["rbits"].shape[1]
+    # plus the keys and walker state read once and the lanes and next pins
+    # written once; against the threefry words' integer operations
     _, _, sev, pev, _ = got
     n_ok = int((sev != inp["kw"]["n_slots"]).sum())
-    sectors = walk_sectors(inp, pev)
+    sectors, reads = walk_sectors(inp, pev)
+    chain = read_chain(reads, w, lat)
     lanes = 3 + (1 if inp["kw"]["count_boards"] else 0)
-    nbytes = SECTOR * sectors + 16 * c * w + 4 * lanes * c * w + 4 * 6 * w
+    nbytes = SECTOR * sectors + 8 * n_keys + 4 * lanes * c * w + 4 * 6 * w
+    n_ops = walk_ops(n_keys, w, c)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    single = cold_l2_ms(lambda: run_walk_kernel(inp), inp["curr"].device)
     log("kernel", name="walk_steps_fused", device_ms=ms, call_ms=call_ms,
-        walkers=w, chunk_steps=c, valid_events=n_ok, distinct_sectors=sectors,
-        bound_bytes=nbytes)
+        walkers=w, chunk_steps=c,
+        valid_events=n_ok, distinct_sectors=sectors, bound_bytes=nbytes,
+        bound_int32_ops=n_ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+        **chain, **single,
+        chunk_rbits_ms=rbits_ms, plain_is="walk._chunk_rbits, then the twin")
     return dict(
         name="walk_steps_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/walk_steps_fused.cu",
         replaces="src/repro/kernels/walk_step.py:519",
         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None, chain_floor_ms=chain["chain_floor_ms"],
+        chunk_rbits_ms=rbits_ms,
     ), got
+
+
+def check_bits_kernel(keys, chunk_steps: int, w: int, what: str):
+    """``walk_bits`` against ``walk._chunk_rbits`` bit for bit, then timed
+    beside it; ``keys`` as int32 bit patterns."""
+    import torch
+    from repro_torch.core import walk
+    from repro_torch.kernels import walk_step as ws
+
+    got = ws.walk_bits(keys, 0, chunk_steps, w)
+    want = walk._chunk_rbits(keys, 0, chunk_steps, w)
+    if not torch.equal(got, want):
+        raise AssertionError(f"walk_bits {what}: differs from _chunk_rbits")
+    n_keys = 1 if keys.dim() == 1 else keys.shape[0]
+    ms = device_ms(lambda: ws.walk_bits(keys, 0, chunk_steps, w), 50)
+    plain_ms = cuda_ms(lambda: walk._chunk_rbits(keys, 0, chunk_steps, w), 20)
+    nbytes = 8 * n_keys + got.numel() * 4
+    n_ops = walk_ops(n_keys, n_keys * w, chunk_steps)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    log("bits", what=what, shape=list(got.shape), identical=True, device_ms=ms,
+        plain_ms=plain_ms, bound_bytes=nbytes, bound_int32_ops=n_ops,
+        bytes_ms=bytes_ms, ops_ms=ops_ms)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def chase_latency(dev) -> dict:
+    """Nanoseconds of one dependent read: one thread follows a seeded
+    random cycle through ``CHASE_INTS`` int32 (1 GiB, far past the 50 MB
+    L2) ``CHASE_READS`` times (``csrc/pointer_chase.cu``): ``dram_ns``; the
+    same chase through ``CHASE_L2_INTS`` (16 MiB, held in L2): ``l2_ns``,
+    a dependent read that hits L2."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import _build
+
+    fn = _build.library("pointer_chase").pointer_chase_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ns = {}
+    for n_ints in (CHASE_INTS, CHASE_L2_INTS):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        perm = torch.randperm(n_ints, generator=gen, device=dev, dtype=torch.int32)
+        nxt = torch.empty_like(perm)
+        nxt[perm.long()] = torch.roll(perm, -1)   # one cycle through every slot
+        del perm
+
+        def chase(n):
+            _build.check(fn(nxt.data_ptr(), 0, n, out.data_ptr(), stream),
+                         "pointer_chase")
+
+        chase(CHASE_READS // 10)                   # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        chase(CHASE_READS)
+        end.record()
+        end.synchronize()
+        ns[n_ints] = start.elapsed_time(end) * 1e6 / CHASE_READS
+        # a launch that reads nothing: the floor of any one-launch kernel
+        launch_ms = device_ms(lambda: chase(0), 100)
+        del nxt
+    log("chase", reads=CHASE_READS, ns_per_read=ns[CHASE_INTS],
+        gib=CHASE_INTS * 4 / 2**30, l2_ns_per_read=ns[CHASE_L2_INTS],
+        l2_mib=CHASE_L2_INTS * 4 / 2**20, launch_floor_ms=launch_ms,
+        last=int(out))
+    torch.cuda.empty_cache()
+    return dict(dram_ns=ns[CHASE_INTS], l2_ns=ns[CHASE_L2_INTS])
 
 
 def check_counter_kernel(name, kernel, plain, n_bins, lanes, kw, replaces):
@@ -946,15 +1215,21 @@ def shard_sizes(shg) -> dict:
     )
 
 
-def hop_sectors(pos, gate, r, base, off, tgt, out) -> int:
-    """Distinct 32-byte sectors the kernel reads from the arrays it touches
-    only on some lanes: ``pos`` at the gated lanes, ``r`` at the lanes that
-    hop, and the offsets and targets that the gated lanes read (offset
-    pair, then target), replayed in plain PyTorch; the replayed targets
-    must equal the kernel's, so the address model is the kernel's own."""
+def hop_sectors(hop, out):
+    """Distinct 32-byte sectors the kernel needs from the arrays it reads
+    on some lanes only: ``pos`` and ``walker`` at the gated lanes, the
+    table's words at the gated lanes, and the offsets and targets that the
+    gated lanes read (offset pair, then target), replayed in plain
+    PyTorch; the replayed targets must equal the kernel's, so the address
+    model is the kernel's own.  Returns ``(distinct sectors, reads)``:
+    ``reads`` is ``(round, lane, sector)`` of the dependent reads for
+    ``read_chain``, round 0 the offset pair with the word beside it,
+    round 1 the target."""
     import torch
     from repro_torch.kernels.walk_step import RMASK
 
+    pos, gate, table, step, column, walker, base, off, tgt = hop
+    n = table.shape[1]
     s_idx = torch.arange(pos.shape[0], device=pos.device)[:, None]
     local = torch.where(gate, pos - base[:, None], 0).long()
     at_o = s_idx * off.shape[1] + local
@@ -962,24 +1237,40 @@ def hop_sectors(pos, gate, r, base, off, tgt, out) -> int:
     start = flat_o[at_o].long()
     deg = flat_o[at_o + 1].long() - start
     ok = gate & (deg > 0)
+    at_w = (step * n + torch.where(gate, walker, 0).long()) * 4 + column
+    r = table.reshape(-1)[at_w]
     at_t = s_idx * tgt.shape[1] + torch.where(
         ok, start + (r.long() & RMASK) % deg.clamp(min=1), 0)
     if not torch.equal(torch.where(ok, tgt.reshape(-1)[at_t], 0), out):
         raise AssertionError("walk_hop sector replay disagrees with the kernel")
     sec_o = torch.unique(torch.cat([at_o[gate], at_o[gate] + 1]) >> 3).numel()
     sec_t = torch.unique(at_t[ok] >> 3).numel()
+    sec_w = torch.unique(at_w[gate] >> 3).numel()
     lane = s_idx * pos.shape[1] + torch.arange(pos.shape[1], device=pos.device)
-    sec_pos = torch.unique(lane[gate] >> 3).numel()
-    sec_r = torch.unique(lane[ok] >> 3).numel()
-    return int(sec_o + sec_t + sec_pos + sec_r)
+    sec_lanes = 2 * torch.unique(lane[gate] >> 3).numel()   # pos and walker
+    lane = lane.expand_as(pos)
+    parts = [(0, 0, at_o, gate), (0, 0, at_o + 1, gate), (0, 1, at_w, gate),
+             (1, 2, at_t, ok)]
+    reads = tuple(torch.cat(x) for x in zip(*[
+        (torch.full_like(lane[m], rnd), lane[m], (at[m] >> 3) | (arr << 40))
+        for rnd, arr, at, m in parts]))
+    return int(sec_o + sec_t + sec_w + sec_lanes), reads
 
 
-def check_hop(pos, gate, r, base, off, tgt, what: str):
-    """The hop kernel against its twin on the same inputs, exactly."""
+def hop_args(pos, gate, table, off, tgt, base, *, step, column, walker):
+    """An ``ops.walk_hop`` call's arguments in ``walk_hop_fused``'s order."""
+    return (pos, gate, table, step, column, walker, base, off, tgt)
+
+
+def check_hop(hop, what: str):
+    """The hop kernel against its twin on the words gathered from the
+    table, exactly."""
     import torch
     from repro_torch.kernels import walk_step as ws
 
-    got = ws.walk_hop_fused(pos, gate, r, base, off, tgt)
+    pos, gate, table, step, column, walker, base, off, tgt = hop
+    got = ws.walk_hop_fused(*hop)
+    r = table[step, :, column][torch.where(gate, walker, 0).long()]
     want = ws.walk_hop_ref(pos, gate, r, off, tgt, base)
     torch.cuda.synchronize()
     err = int((got[0].long() - want[0].long()).abs().max()) if got[0].numel() else 0
@@ -988,41 +1279,57 @@ def check_hop(pos, gate, r, base, off, tgt, what: str):
     return got
 
 
-def time_hop(hop, what: str) -> dict:
-    """Device ms of one hop launch (back to back), its twin's ms and the
-    byte bound: ``gate`` read and ``out``/``ok`` written once for every
-    lane, ``row_base`` once, plus the distinct sectors of ``pos``, ``r``
-    and the CSR slices that the gated or hopping lanes read."""
+def time_hop(hop, what: str, lat: dict) -> dict:
+    """Device ms of one hop launch (back to back), its twin's ms (the
+    words gathered from the table, then ``walk_hop_ref``) and the byte
+    bound: ``gate`` read and ``out``/``ok`` written once for every lane,
+    ``row_base`` once, plus the distinct sectors the gated or hopping
+    lanes need (``hop_sectors``); the hop's chain of two dependent random
+    reads (offset pair, then target) priced by ``read_chain``, and one
+    launch at a time with a warm and a cold L2."""
+    import torch
     from repro_torch.kernels import walk_step as ws
 
-    pos, gate, r, base, off, tgt = hop
-    out, ok = check_hop(*hop, what)
+    pos, gate, table, step, column, walker, base, off, tgt = hop
+    out, ok = check_hop(hop, what)
     lanes = pos.numel()
-    sectors = hop_sectors(pos, gate, r, base, off, tgt, out)
+    sectors, reads = hop_sectors(hop, out)
+    chain = read_chain(reads, lanes, lat)
     nbytes = lanes * (1 + 4 + 1) + 4 * base.numel() + SECTOR * sectors
+
+    def plain():
+        r = table[step, :, column][torch.where(gate, walker, 0).long()]
+        return ws.walk_hop_ref(pos, gate, r, off, tgt, base)
+
     row = dict(
-        ms=device_ms(lambda: ws.walk_hop_fused(pos, gate, r, base, off, tgt), 50),
-        plain_ms=cuda_ms(lambda: ws.walk_hop_ref(pos, gate, r, off, tgt, base), 5),
+        ms=device_ms(lambda: ws.walk_hop_fused(*hop), 50),
+        plain_ms=cuda_ms(plain, 5),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        chain_floor_ms=chain["chain_floor_ms"],
     )
+    single = cold_l2_ms(lambda: ws.walk_hop_fused(*hop), pos.device)
     log("hop", hop=what, shape=list(pos.shape), gated=int(gate.sum()),
         hopped=int(ok.sum()), distinct_sectors=sectors, bound_bytes=nbytes,
-        **row)
+        **{**row, **chain, **single})
     return row
 
 
 def hop_edge_cases(shg, dev) -> int:
     """All lanes gated off; degree-0 rows and each shard's last row at
-    row_base > 0; garbage positions on gated-off lanes."""
+    row_base > 0; garbage positions and walker ids on gated-off lanes;
+    the table's last walker and last step."""
     import torch
 
     s, pps = shg.n_shards, shg.pins_per_shard
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     off, tgt = shg.p2b_offsets, shg.p2b_targets
     base = (torch.arange(s, device=dev, dtype=torch.int32) * pps).contiguous()
-    l = 256
-    r = torch.randint(-2**31, 2**31 - 1, (s, l), generator=gen, device=dev,
-                      dtype=torch.int32)
+    l, n = 256, 4096
+    table = torch.randint(-2**31, 2**31 - 1, (3, n, 4), generator=gen,
+                          device=dev, dtype=torch.int32)
+    walker = torch.randint(0, n, (s, l), generator=gen, device=dev,
+                           dtype=torch.int32)
+    walker[:, 0] = n - 1
     local = torch.randint(0, pps, (s, l), generator=gen, device=dev)
     deg = off[:, 1:] - off[:, :-1]
     for i in range(s):
@@ -1031,32 +1338,39 @@ def hop_edge_cases(shg, dev) -> int:
     local[:, -1] = pps - 1
     pos = (base[:, None] + local).to(torch.int32).contiguous()
     none = torch.zeros((s, l), dtype=torch.bool, device=dev)
-    got = check_hop(pos, none, r, base, off, tgt, "all lanes gated off")
+    got = check_hop((pos, none, table, 0, 2, walker, base, off, tgt),
+                    "all lanes gated off")
     if got[0].any() or got[1].any():
         raise AssertionError("walk_hop_fused: a gated-off lane hopped")
     every = torch.ones_like(none)
-    got = check_hop(pos, every, r, base, off, tgt, "degree-0 and last rows")
+    got = check_hop((pos, every, table, 2, 2, walker, base, off, tgt),
+                    "degree-0 and last rows")
     if bool(got[1][deg.gather(1, local) == 0].any()):
         raise AssertionError("walk_hop_fused: a degree-0 row hopped")
     half = torch.rand((s, l), generator=gen, device=dev) < 0.5
     garbage = torch.where(half, pos, torch.full_like(pos, -7))
-    check_hop(garbage, half, r, base, off, tgt, "garbage on gated-off lanes")
+    junk = torch.where(half, walker, torch.full_like(walker, -(2**31)))
+    check_hop((garbage, half, table, 1, 2, junk, base, off, tgt),
+              "garbage on gated-off lanes")
     bo = shg.b2p_offsets
     bbase = (torch.arange(s, device=dev, dtype=torch.int32) * shg.boards_per_shard)
     blocal = torch.randint(0, shg.boards_per_shard, (s, l), generator=gen, device=dev)
     blocal[:, -1] = shg.boards_per_shard - 1
-    check_hop((bbase[:, None] + blocal).to(torch.int32).contiguous(), every, r,
-              bbase.contiguous(), bo, shg.b2p_targets, "board rows")
+    check_hop(((bbase[:, None] + blocal).to(torch.int32).contiguous(), every,
+               table, 2, 3, walker, bbase.contiguous(), bo, shg.b2p_targets),
+              "board rows")
     return 4
 
 
-def sharded_phases(graph, reqs, shape, dev):
-    """Phases 11-15 on the full-width graph; returns the hop kernel's row
-    and the launch counts of each sharded path."""
+def sharded_phases(graph, reqs, shape, dev, read_ns: dict):
+    """Phases 11-15 on the full-width graph; returns the hop and word-table
+    kernels' rows, the launch counts of each sharded path and the profiled
+    request's operation counts."""
     import torch
     from repro_torch.configs.pixie import FULL_WALK, SERVE_3B_SHARDED, SHARDED_WALK
     from repro_torch.core import distributed as dist
     from repro_torch.core import prng, service
+    from repro_torch.core import walk as walk_lib
     from repro_torch.kernels import _build, ops
     from repro_torch.serving import traffic
     from repro_torch.serving.resilience import overlap_at_k
@@ -1104,7 +1418,7 @@ def sharded_phases(graph, reqs, shape, dev):
         raise AssertionError("sharded parity: early stop never fired")
     for i in range(len(ids)):
         check_result(got[0][i], got[1][i], cfg0.top_k, graph.n_pins, f"sharded {ids[i]}")
-    for name in ("walk_hop_fused", "visit_counter_update_high"):
+    for name in ("walk_hop_fused", "visit_counter_update_high", "walk_bits"):
         if parity_launches[name] == 0:
             raise AssertionError(f"the sharded parity run never launched {name}")
     log("sharded_parity", requests=ids, identical=True, dropped=0,
@@ -1134,13 +1448,14 @@ def sharded_phases(graph, reqs, shape, dev):
             recipe_launches[name] += n
         calls = []
 
-        def recording_hop(*args, **kw):
-            # the routed buffers of superstep 8's two hops, as the engine
-            # hands them over (none is written to after the call)
+        def recording_hop(*args, use_kernel, **kw):
+            # the routed buffers of superstep 8's two hops and the chunk's
+            # word table, as the engine hands them over (none is written to
+            # after the call)
             if rid == 0 and len(calls) in (16, 17):
-                captured[len(calls)] = args
+                captured[len(calls)] = hop_args(*args, **kw)
             calls.append(None)
-            return real_hop(*args, **kw)
+            return real_hop(*args, use_kernel=use_kernel, **kw)
 
         ops.walk_hop = recording_hop
         try:
@@ -1172,23 +1487,39 @@ def sharded_phases(graph, reqs, shape, dev):
         kernel_equals_plain=True, launches=recipe_launches)
 
     # 15. the hop kernel against its twin at the production shapes
-    hops = []
-    for i in (16, 17):
-        pos, gate, r, off, tgt, base = captured[i]
-        hops.append((pos, gate, r, base, off, tgt))
-    timed = [time_hop(h, w) for h, w in zip(hops, ("pin->board", "board->pin"))]
+    hops = [captured[i] for i in (16, 17)]
+    timed = [time_hop(h, w, read_ns)
+             for h, w in zip(hops, ("pin->board", "board->pin"))]
     n_edge = hop_edge_cases(shg, dev)
     hop_row = dict(
         name="walk_hop_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/walk_hop.cu",
         replaces="src/repro/kernels/walk_step.py:760",
         launches=None, max_abs_err=0,
-        **{k: timed[0][k] + timed[1][k] for k in ("ms", "plain_ms", "bound_ms")},
+        **{k: (timed[0][k] + timed[1][k]) / 2
+           for k in ("ms", "plain_ms", "bound_ms", "chain_floor_ms")},
         bound_by="bytes", library_ms=None,
     )
     log("hop_kernel", superstep=8, identical=True, edge_cases_identical=n_edge,
-        row_is="the sum of one superstep's two hops, all 16 shards per launch",
+        row_is="one launch: the mean of one superstep's two hops, all 16 "
+               "shards per launch",
         library="none: no single torch call computes the hop")
+
+    # the word-table kernel at the sharded replica's chunk (one request,
+    # FULL_WALK's walkers and chunk), and at the parity batch's
+    sk = prng.fold_in(server_key, torch.arange(len(ids), device=dev))
+    kbits = walk_lib._key_bits(sk, dev)
+    bits = check_bits_kernel(kbits[:1], cfg0.chunk_steps, cfg0.n_walkers,
+                             "one request")
+    check_bits_kernel(kbits, cfg0.chunk_steps, cfg0.n_walkers,
+                      f"{len(ids)} requests")
+    bits_row = dict(
+        name="walk_bits", route="cuda",
+        source="src/repro_torch/kernels/csrc/walk_bits.cu",
+        replaces="src/repro/core/walk.py:262 (_chunk_rbits: jax.random, "
+                 "no Pallas kernel)",
+        launches=None, max_abs_err=0, library_ms=None, **bits,
+    )
 
     # 14. the sharded replica: healthy, one shard killed, revived
     def serve_all(srv):
@@ -1227,7 +1558,8 @@ def sharded_phases(graph, reqs, shape, dev):
     srv.revive_shards()
     revived = serve_all(srv)
     assert_results_equal(revived, healthy, "revived vs healthy")
-    profile_request(srv, reqs[0], len(reqs), trace="chip_smoke_sharded_trace.json")
+    sharded_ops = profile_request(srv, reqs[0], len(reqs),
+                                  trace="chip_smoke_sharded_trace.json")
     log("sharded_server", requests=len(healthy), p50_ms=float(np.percentile(hlat, 50)),
         max_ms=float(np.max(hlat)), latencies_ms=hlat,
         killed_p50_ms=float(np.percentile([r.latency_ms for r in killed], 50)),
@@ -1267,7 +1599,9 @@ def sharded_phases(graph, reqs, shape, dev):
         p50_ms=a.percentile(50), p99_ms=a.percentile(99), launches=open_launches)
     del shg, srv, osrv, reps, captured, hops
     torch.cuda.empty_cache()
-    return hop_row, [parity_launches, recipe_launches, server_launches, open_launches]
+    return ([hop_row, bits_row],
+            [parity_launches, recipe_launches, server_launches, open_launches],
+            sharded_ops)
 
 
 def nccl_fabric(sg, dev) -> None:
@@ -1864,7 +2198,8 @@ def legacy_edge_cases(graph, dev) -> int:
 
 def event_phases(graph, reqs, shape, dev):
     """Phases 21-23 on the full-width graph; returns the kernels-line rows
-    of visit_counter and walk_step and the launch counts of each path."""
+    of visit_counter and walk_step, the launch counts of each path and the
+    profiled request's operation counts."""
     import torch
     from repro_torch.configs.pixie import FULL_WALK
     from repro_torch.core import counter, walk
@@ -1924,8 +2259,8 @@ def event_phases(graph, reqs, shape, dev):
         dense_without_early_stop=dense, launches=replicated_launches,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
         resident_gb=torch.cuda.memory_allocated() / 1e9)
-    profile_call(lambda: event_request(graph, reqs[0], 0, n_slots, cfg),
-                 trace="chip_smoke_events_trace.json")
+    event_ops = profiled_ops(lambda: event_request(graph, reqs[0], 0, n_slots, cfg),
+                             trace="chip_smoke_events_trace.json")
 
     # 22. 16 slots: 2.24e9 packed ids, past what dense counting can index
     try:
@@ -2026,7 +2361,7 @@ def event_phases(graph, reqs, shape, dev):
     _, visited, _ = step()
     rb4 = torch.zeros((1, w, 4), dtype=torch.int32, device=dev)
     rb4[0, :, 0], rb4[0, :, 2], rb4[0, :, 3] = rb[:, 0], rb[:, 1], rb[:, 2]
-    sectors = walk_sectors(dict(
+    sectors, _ = walk_sectors(dict(
         rbits=rb4, feat=torch.zeros_like(query), query=query, curr=query,
         csr=(*csr, None, None), kw=dict(n_pins=n_pins, alpha_u32=alpha,
                                         beta_u32=0)), visited[None, :])
@@ -2048,7 +2383,7 @@ def event_phases(graph, reqs, shape, dev):
     del outs, wouts, lane, hist, counts
     torch.cuda.empty_cache()
     return [visit_row, step_row], [replicated_launches, wide_launches,
-                                   legacy_launches]
+                                   legacy_launches], event_ops
 
 
 def main() -> int:
@@ -2065,7 +2400,6 @@ def main() -> int:
     from repro_torch.graphs import synthetic
     from repro_torch.kernels import _build
     from repro_torch.kernels import visit_counter as vc
-    from repro_torch.kernels import walk_step as ws
     from repro_torch.serving import ranker, traffic
     from repro_torch.serving.resilience import ResilienceConfig
     from repro_torch.serving.server import PixieServer
@@ -2075,10 +2409,18 @@ def main() -> int:
     log("env", torch=torch.__version__, cuda=torch.version.cuda,
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-    # 1. build --------------------------------------------------------------
+    # 1. build (the latency probe beside the kernels), then the probe -------
     t = time.perf_counter()
-    built = _build.build()
-    log("build", seconds=time.perf_counter() - t, built=built)
+    built = _build.build([*_build.SOURCES, "pointer_chase"])
+    log("build", seconds=time.perf_counter() - t, built=built,
+        ptxas=_build.ptxas_reports)
+    for name in ("walk_steps_fused", "walk_hop", "walk_bits"):
+        # (a library built by an earlier run in this checkout has no report)
+        spills = [r for r in _build.ptxas_reports.get(name, [])
+                  if "spill" in r and "0 bytes spill stores, 0 bytes spill loads" not in r]
+        if spills:
+            raise AssertionError(f"{name} spills registers: {spills}")
+    read_ns = chase_latency(dev)
 
     # 2. full-width serving ---------------------------------------------------
     shape = SERVE_200M_REPLICATED
@@ -2128,7 +2470,7 @@ def main() -> int:
         launches=serve_launches,
         steps_budget=cfg.n_steps, walkers=cfg.n_walkers)
 
-    profile_request(server, reqs[0], len(reqs))
+    dense_ops = profile_request(server, reqs[0], len(reqs))
 
     # 3. parity on the card -----------------------------------------------------
     ids = list(range(len(reqs)))
@@ -2146,7 +2488,7 @@ def main() -> int:
     # 5a. walk + update_high at the full-width shapes, while that graph is
     # resident (launch counts are filled in from phases 2 and 4)
     winp = walk_inputs(graph, reqs[:1], shape.n_slots, cfg)
-    walk_row, lanes = check_walk_kernel(winp)
+    walk_row, lanes = check_walk_kernel(winp, read_ns)
     _, qev, sev, pev, _ = lanes
     high_row = check_counter_kernel(
         "visit_counter_update_high", vc.visit_counter_update_high,
@@ -2159,7 +2501,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 21-23. event-mode serving and the legacy kernels on the same graph ---------
-    event_rows, event_paths = event_phases(graph, reqs, shape, dev)
+    event_rows, event_paths, event_ops = event_phases(graph, reqs, shape, dev)
 
     # 6. full-width ranked serving ------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -2276,9 +2618,35 @@ def main() -> int:
 
     # 11-15. the sharded engine on the full-width graph (the item table is
     # freed first) ----------------------------------------------------------------
-    hop_row, sharded_paths = sharded_phases(graph, reqs, shape, dev)
+    sharded_rows, sharded_paths, sharded_ops = sharded_phases(
+        graph, reqs, shape, dev, read_ns)
+    # the card's operations of one torch word table, in the per-query and
+    # batched layouts the plain routes draw it in
+    rbits_ops = {}
+    for layout, k in (("per_query", prng.key(SEED, dev)),
+                      ("batched", prng.key(SEED, dev)[None, :])):
+        rbits_ops[layout] = profile_call(
+            lambda: walk._chunk_rbits(k, 0, cfg.chunk_steps, cfg.n_walkers),
+            top=4, trace=f"chip_smoke_chunk_rbits_{layout}_trace.json")
     del graph
     torch.cuda.empty_cache()
+    requests_ops = dict(dense=dense_ops, events=event_ops, sharded=sharded_ops)
+    for path, r in requests_ops.items():
+        if r["torch_threefry_draws"]:
+            raise AssertionError(f"the {path} kernel path drew its words in torch")
+    # chunks of each profiled request: one walk launch (dense, events) or
+    # one table launch (sharded) a chunk
+    chunks = dict(dense=dense_ops["launches"]["walk_steps_fused"],
+                  events=event_ops["launches"]["walk_steps_fused"],
+                  sharded=sharded_ops["launches"]["walk_bits"])
+    layout = dict(dense="batched", events="per_query", sharded="batched")
+    log("request_ops", ops={p: r["ops"] for p, r in requests_ops.items()},
+        chunks=chunks, chunk_rbits_ops=rbits_ops,
+        torch_threefry_draws={p: r["torch_threefry_draws"]
+                              for p, r in requests_ops.items()},
+        chunks_x_chunk_rbits_ops={p: chunks[p] * rbits_ops[layout[p]]
+                                  for p in chunks},
+        note="a parent commit's request drew one torch table a chunk")
 
     # 4. batched qid lanes, count_boards -----------------------------------------
     sg = synthetic.generate(
@@ -2330,9 +2698,7 @@ def main() -> int:
 
     # 5b. wide counter at the batched board shapes
     binp = walk_inputs(sg.graph, small, 4, bcfg)
-    _, bq, bs, _, bb = ws.walk_steps_fused(
-        binp["curr"], binp["query"], binp["feat"], binp["slot"], binp["rbits"],
-        *binp["csr"], binp["qid"], **binp["kw"])
+    _, bq, bs, _, bb = run_walk_kernel(binp)
     wide_row = check_counter_kernel(
         "visit_counter_wide", vc.visit_counter_wide, vc.visit_counter_wide_plain,
         len(small) * 4 * sg.graph.n_boards,
@@ -2387,13 +2753,14 @@ def main() -> int:
     paths = [serve_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *sharded_paths, *lm_paths, *event_paths]
-    rows = [walk_row, high_row, wide_row, bag_row, hop_row, attn_row, *event_rows]
+    rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
+            *event_rows, sharded_rows[1]]
     for row in rows:
         row["launches"] = sum(p[row["name"]] for p in paths)
     if bag_row["launches"] == 0 or ranked_launches["embedding_bag"] == 0:
         raise AssertionError("the embedding bag never launched on the ranked path")
-    if any(p["walk_hop_fused"] == 0 for p in sharded_paths):
-        raise AssertionError("a sharded path never launched walk_hop_fused")
+    if any(p["walk_hop_fused"] == 0 or p["walk_bits"] == 0 for p in sharded_paths):
+        raise AssertionError("a sharded path never launched walk_hop_fused or walk_bits")
     if any(row["launches"] == 0 for row in rows):
         raise AssertionError(f"a kernel never launched: {[r['name'] for r in rows if not r['launches']]}")
     log("launches", retrieval=serve_launches, batched=batch_launches["pallas"],

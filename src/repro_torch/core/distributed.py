@@ -10,7 +10,9 @@ at the hop boundary:
 
   * a walker's identity is its GLOBAL walker id (query-major,
     ``q * n_walkers + i``), so it draws the unsharded engine's counter-RNG
-    bits (``walk._chunk_rbits``) wherever it resides;
+    bits wherever it resides: one word table a chunk (``ops.walk_bits``:
+    one kernel launch on the card), from which each hop reads the word of
+    each lane's walker id;
   * one superstep = restart kill/rebirth-at-home -> hop pin -> board on
     the local p2b slice (``ops.walk_hop``) -> ONE bounded exchange to the
     board's owner -> hop board -> pin on the local b2p slice (board
@@ -395,7 +397,7 @@ def pixie_walk_sharded_batched(
 
     qp = torch.as_tensor(query_pins, device=dev).to(torch.int32)
     qw = torch.as_tensor(query_weights, device=dev).float()
-    keys = keys.to(dev)
+    keys = walk_lib._key_bits(keys, dev)
     valid_q = (qp >= 0) & (qw > 0)
     safe_q = torch.where(valid_q, qp, 0)
 
@@ -463,9 +465,11 @@ def pixie_walk_sharded_batched(
         if not bool(row_active.any()):
             break
         step_base = it * cfg.chunk_steps
-        # the whole batch's counter-RNG bits, once per chunk for every
-        # local shard: walker q*w+i draws its unsharded bits
-        rbits = walk_lib._chunk_rbits(keys, step_base, cfg.chunk_steps, w)
+        # the whole batch's counter-RNG words, one table a chunk for every
+        # local shard (one walk_bits launch on the card): walker q*w+i
+        # draws its unsharded words, and each hop reads its own
+        rbits = ops.walk_bits(keys, step_base, cfg.chunk_steps, w,
+                              use_kernel=use_kernel)
         restarts = (rbits[..., 0].long() & prng.MASK32) < alpha_u32
         active_w = row_active[row_of_walker]
         for s in range(cfg.chunk_steps):
@@ -502,8 +506,8 @@ def pixie_walk_sharded_batched(
 
             # ---- phase A: pin -> board on the local p2b slices
             b_pick, ok1 = ops.walk_hop(
-                sel_p, sel_v, rbits[s, :, 2][g], p2b_off,
-                p2b_tgt, pin_lo, use_kernel=use_kernel)
+                sel_p, sel_v, rbits, p2b_off, p2b_tgt, pin_lo, step=s,
+                column=2, walker=sel_g, use_kernel=use_kernel)
             qpin = query_of_walker[g]
             # a dead-end pin forces a restart: the walker routes home
             # carrying its query pin (flag 0 skips hop 2 and counting)
@@ -523,8 +527,8 @@ def pixie_walk_sharded_batched(
             g1l = g1.long()
             live1 = v1 & (f1 == 1)
             pin_pick, ok2 = ops.walk_hop(
-                p1, live1, rbits[s, :, 3][g1l], b2p_off, b2p_tgt, board_lo,
-                use_kernel=use_kernel)
+                p1, live1, rbits, b2p_off, b2p_tgt, board_lo, step=s,
+                column=3, walker=g1, use_kernel=use_kernel)
             if cfg.count_boards:
                 count(bcounts,
                       torch.where(ok2, slot_of_walker[g1l], n_slots),

@@ -2,9 +2,12 @@
 
 Twin of ``repro/core/walk.py``: W walkers run in lockstep; one step is
 maybe-restart -> board from E(pin) -> pin from E(board) -> record visit.
-Each superstep chunk draws the counter-based threefry bits
-(``_chunk_rbits``), runs the fused walk (``kernels/ops``), and folds the
-chunk's wide event lanes into the running counts and the early-stop tally.
+Each superstep chunk draws the counter-based threefry bits, runs the fused
+walk (``kernels/ops``), and folds the chunk's wide event lanes into the
+running counts and the early-stop tally.  On the card the walk kernel
+draws the bits itself from the keys; the plain twins take them as a
+table (``_chunk_rbits``).  Keys travel as int32 bit patterns, converted
+once per request.
 
 Two step engines (``WalkConfig.backend``), bit-identical by construction:
 
@@ -41,6 +44,7 @@ from repro_torch.core import counter as counter_lib
 from repro_torch.core import prng, sampling
 from repro_torch.core.graph import PinBoardGraph
 from repro_torch.kernels import ops
+from repro_torch.kernels import walk_step as ws
 
 BACKENDS = ("xla", "pallas")
 GATHER_MODES = ("scalar", "dma")
@@ -166,14 +170,19 @@ class EventWalkResult(NamedTuple):
 def _chunk_rbits(
     keys: torch.Tensor, step_base: int, chunk_steps: int, w: int
 ) -> torch.Tensor:
-    """Counter-based random bits for one chunk as int32 bit patterns.
+    """Counter-based random bits for one chunk as int32 bit patterns: the
+    plain twin of the ``walk_bits`` kernel (the walk kernel draws the same
+    words in registers from the keys).
 
     ``keys`` is one ``(2,)`` key -> ``(chunk_steps, w, 4)``, or ``(n, 2)``
     per-query keys -> ``(chunk_steps, n * w, 4)`` laid out query-major
-    along the walker axis.  Step ``s`` of query ``q`` draws
-    ``bits(fold_in(keys[q], step_base + s), (w, 4))``: keyed by the
-    absolute step, so a restarted run replays the identical walk.
+    along the walker axis; keys are int64 word values or int32 bit
+    patterns.  Step ``s`` of query ``q`` draws ``bits(fold_in(keys[q],
+    step_base + s), (w, 4))``: keyed by the absolute step, so a restarted
+    run replays the identical walk.
     """
+    if keys.dtype != torch.int64:
+        keys = prng.from_int32_bits(keys)
     steps = step_base + torch.arange(
         chunk_steps, dtype=torch.int64, device=keys.device
     )
@@ -185,6 +194,12 @@ def _chunk_rbits(
         rb = prng.bits(step_keys, (w, 4))                       # (Q, C, w, 4)
         rb = rb.transpose(0, 1).reshape(chunk_steps, -1, 4)
     return prng.to_int32_bits(rb).contiguous()
+
+
+def _key_bits(keys: torch.Tensor, dev) -> torch.Tensor:
+    """The walk's key(s) as the uint32 bit patterns the kernels read (int32),
+    converted once per request and handed to every chunk."""
+    return ws.u32_bits_as_int32(keys.to(dev)).contiguous()
 
 
 def _validated_bias_bounds(graph: PinBoardGraph, cfg: WalkConfig):
@@ -230,13 +245,14 @@ def _walk_chunk(
     n_slots: int,
 ):
     """Per-query chunk -> ``(new_curr, slot_events, pin_events,
-    board_events | None)``, each lane ``(chunk_steps, W)`` int32."""
+    board_events | None)``, each lane ``(chunk_steps, W)`` int32.  ``key``
+    is the query's key as int32 bit patterns (``_key_bits``)."""
     p2b_fb, b2p_fb = _validated_bias_bounds(graph, cfg)
-    rbits = _chunk_rbits(key, step_base, cfg.chunk_steps, curr.shape[0])
     return ops.walk_chunk_fused(
-        curr, query_of_walker, feat_of_walker, slot_of_walker, rbits,
+        curr, query_of_walker, feat_of_walker, slot_of_walker, key,
         graph.p2b.offsets, graph.p2b.targets,
         graph.b2p.offsets, graph.b2p.targets, p2b_fb, b2p_fb,
+        step_base=step_base, chunk_steps=cfg.chunk_steps,
         n_pins=graph.n_pins, n_slots=n_slots, n_boards=graph.n_boards,
         alpha_u32=_prob_u32(cfg.alpha), beta_u32=_prob_u32(cfg.bias_beta),
         count_boards=cfg.count_boards, use_kernel=cfg.backend == "pallas",
@@ -259,14 +275,14 @@ def _walk_chunk_batched(
     """Batch-native chunk: every query's walkers in ONE fused call ->
     ``(new_curr, query_events, slot_events, pin_events, board_events |
     None)``.  Walker ``q * w + i`` draws exactly the bits it would draw in
-    the per-query engine for query ``q``."""
+    the per-query engine for query ``q``.  ``keys`` are the per-query
+    keys as int32 bit patterns (``_key_bits``)."""
     p2b_fb, b2p_fb = _validated_bias_bounds(graph, cfg)
-    w = curr.shape[0] // n_queries
-    rbits = _chunk_rbits(keys, step_base, cfg.chunk_steps, w)
     return ops.walk_chunk_fused_batched(
         curr, query_of_walker, feat_of_walker, slot_of_walker, qid_of_walker,
-        rbits, graph.p2b.offsets, graph.p2b.targets,
+        keys, graph.p2b.offsets, graph.p2b.targets,
         graph.b2p.offsets, graph.b2p.targets, p2b_fb, b2p_fb,
+        step_base=step_base, chunk_steps=cfg.chunk_steps,
         n_pins=graph.n_pins, n_slots=n_slots, n_queries=n_queries,
         n_boards=graph.n_boards, alpha_u32=_prob_u32(cfg.alpha),
         beta_u32=_prob_u32(cfg.bias_beta), count_boards=cfg.count_boards,
@@ -372,7 +388,7 @@ def pixie_random_walk(
     )
     plan, feat, slot_of_walker, query_of_walker = _query_setup(
         graph, query_pins, query_weights, user_feat, cfg, step_budget)
-    key = key.to(dev)
+    key = _key_bits(key, dev)
 
     counts = torch.zeros((n_slots * n_pins,), dtype=torch.int32, device=dev)
     bcounts = (
@@ -507,7 +523,7 @@ def pixie_walk_events(
 
     plan, feat, slot_of_walker, query_of_walker = _query_setup(
         graph, query_pins, query_weights, user_feat, cfg)
-    key = key.to(dev)
+    key = _key_bits(key, dev)
 
     sev_buf = torch.full((max_events,), n_slots, dtype=torch.int32, device=dev)
     pev_buf = torch.zeros((max_events,), dtype=torch.int32, device=dev)
@@ -582,7 +598,7 @@ def pixie_walk_events_fixed(
     dev = graph.device
     _, feat, slot_of_walker, query_of_walker = _query_setup(
         graph, query_pins, query_weights, user_feat, cfg)
-    key = key.to(dev)
+    key = _key_bits(key, dev)
     curr = query_of_walker.clone()
     sev_chunks, pev_chunks = [], []
     for it in range(n_chunks):
@@ -680,7 +696,7 @@ def pixie_random_walk_batched(
     walkers_per_slot = plan.walkers_per_slot.reshape(-1)
     valid_row = plan.valid_q.reshape(-1)
     n_q_row = plan.n_q.reshape(-1)
-    keys = keys.to(dev)
+    keys = _key_bits(keys, dev)
 
     counts = torch.zeros((n_rows * n_pins,), dtype=torch.int32, device=dev)
     bcounts = (

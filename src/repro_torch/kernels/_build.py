@@ -7,9 +7,11 @@ into ``build/lib<name>.so`` at the repo root (git-ignored), at first use
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/lib<name>.so csrc/<name>.cu
 
-A library is rebuilt when its source or any header is newer.  Every C
-entry point returns ``cudaGetLastError()`` and ``check`` raises when it is
-not 0.
+A library is rebuilt when its source or any header is newer; ptxas's
+register and spill report of each build is kept in ``ptxas_reports``.
+Every C entry point returns ``cudaGetLastError()`` and ``check`` raises
+when it is not 0.  ``csrc/pointer_chase.cu`` is a latency probe that
+``chip_smoke.py`` builds beside the kernels, not a kernel of the port.
 Nothing here runs at import: this module loads on hosts without ``nvcc``.
 
 ``launches`` counts kernel launches by kernel name; each wrapper adds one
@@ -32,10 +34,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
-           "decode_attention", "walk_step")
+           "decode_attention", "walk_step", "walk_bits")
 
 launches: Dict[str, int] = {
     "walk_steps_fused": 0,
@@ -46,7 +48,12 @@ launches: Dict[str, int] = {
     "decode_attention": 0,
     "visit_counter": 0,
     "walk_step": 0,
+    "walk_bits": 0,
 }
+
+# per library built in this process: ptxas's register and spill lines
+# for each of its kernels (from -Xptxas -v)
+ptxas_reports: Dict[str, List[str]] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -106,6 +113,10 @@ def build(names: Iterable[str] = SOURCES) -> List[str]:
             errors.append(f"nvcc failed on {name}.cu:\n{out}")
         else:
             os.replace(tmp, _lib_path(name))
+            ptxas_reports[name] = [
+                line.split(":", 1)[-1].strip() for line in out.splitlines()
+                if "registers" in line or "spill" in line
+            ]
     if errors:
         raise RuntimeError("\n".join(errors))
     return todo

@@ -16,23 +16,30 @@ namespace pixie {
 // int (the reference's `r & _RMASK` before the int cast).
 constexpr uint32_t kRMask = 0x7FFFFFFFu;
 
-// Uniform over [start, start + deg), or the feature subrange
-// [start + lo, start + hi) when the bias draw fired and it is non-empty.
-// Callers guarantee deg > 0; fb_row is null for an unbiased pick.
+// Uniform over [start, start + deg), or over the feature subrange
+// [start + lo, start + hi) when use_sub (the bias draw fired) and it is
+// non-empty.  Callers guarantee deg > 0.  The bounds come in registers, so
+// a caller can read them beside the row's offsets.
+__device__ __forceinline__ int pick_edge_in(int start, int deg, int r,
+                                            bool use_sub, int lo, int hi) {
+  int base = start;
+  int span = deg;
+  if (use_sub && hi > lo) {
+    base = start + lo;
+    span = hi - lo;
+  }
+  return base + r % span;
+}
+
+// The same pick reading the bounds fb_row[feat], fb_row[feat + 1] itself;
+// fb_row is null for an unbiased pick.
 __device__ __forceinline__ int pick_edge(int start, int deg, int r,
                                          bool use_b, const int* fb_row,
                                          int feat) {
-  int base = start;
-  int span = deg;
   if (fb_row != nullptr && use_b) {
-    const int lo = fb_row[feat];
-    const int hi = fb_row[feat + 1];
-    if (hi > lo) {
-      base = start + lo;
-      span = hi - lo;
-    }
+    return pick_edge_in(start, deg, r, true, fb_row[feat], fb_row[feat + 1]);
   }
-  return base + r % span;
+  return start + r % deg;
 }
 
 }  // namespace pixie

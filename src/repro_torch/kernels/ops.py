@@ -127,43 +127,100 @@ def walk_step(
     return ws.walk_step_plain(curr, query, rbits, *args, **kw)
 
 
+def _chunk_rbits(keys, step_base, chunk_steps, w):
+    """``core/walk._chunk_rbits``: the walk kernels' plain word table
+    (imported here at call time, as ``core/walk`` imports this module)."""
+    from repro_torch.core import walk
+
+    return walk._chunk_rbits(keys, step_base, chunk_steps, w)
+
+
+def _chunk_words(bits, step_base, chunk_steps, n):
+    """The plain route's word table for ``n`` walkers: ``bits`` itself when
+    it is the table (``step_base`` None), else drawn from the key(s)
+    ``bits`` (one key, or per-query keys over query-major walkers)."""
+    if step_base is None:
+        return bits
+    if chunk_steps is None:
+        raise ValueError("keys given with step_base but no chunk_steps")
+    w = n if bits.dim() == 1 else n // bits.shape[0]
+    return _chunk_rbits(bits, step_base, chunk_steps, w)
+
+
+def _kernel_keys(bits, step_base, chunk_steps):
+    """The keys for the walk kernel, which draws its own words: a word
+    table is refused on the card."""
+    if step_base is None or chunk_steps is None:
+        raise ValueError(
+            "the walk kernel draws its own words: pass the key(s) with "
+            "step_base= and chunk_steps=, not a word table"
+        )
+    return ws.u32_bits_as_int32(bits).contiguous()
+
+
+def walk_bits(keys, step_base: int, chunk_steps: int, w: int, *,
+              use_kernel: bool) -> torch.Tensor:
+    """One chunk's ``(chunk_steps, n, 4)`` int32 word table from one
+    ``(2,)`` key (n = w) or ``(Q, 2)`` per-query keys (n = Q * w,
+    query-major); keys are int32 bit patterns or int64 word values."""
+    if _kernel_for(use_kernel, keys):
+        return ws.walk_bits(ws.u32_bits_as_int32(keys).contiguous(),
+                            step_base, chunk_steps, w)
+    return _chunk_rbits(keys, step_base, chunk_steps, w)
+
+
 def walk_chunk_fused(
-    curr, query, feat, slot, rbits,
+    curr, query, feat, slot, bits,
     p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
     p2b_feat_bounds=None, b2p_feat_bounds=None,
-    *, n_pins: int, n_slots: int, n_boards: int, alpha_u32: int,
+    *, step_base: Optional[int] = None, chunk_steps: Optional[int] = None,
+    n_pins: int, n_slots: int, n_boards: int, alpha_u32: int,
     beta_u32: int, count_boards: bool = False, use_kernel: bool,
 ):
     """Per-query chunk: ``(next, slot_events, pin_events, board_events |
-    None)``."""
-    args = (curr, query, feat, slot, rbits, p2b_offsets, p2b_targets,
-            b2p_offsets, b2p_targets, p2b_feat_bounds, b2p_feat_bounds)
+    None)``.  ``bits`` is the walk's ``(2,)`` key with ``step_base`` and
+    ``chunk_steps`` given (the kernel draws the words; the plain route
+    draws their table with ``core/walk._chunk_rbits``), or, on the plain route
+    only, the chunk's ``(chunk_steps, w, 4)`` word table itself."""
     kw = dict(n_pins=n_pins, n_slots=n_slots, n_boards=n_boards,
               alpha_u32=alpha_u32, beta_u32=beta_u32,
               count_boards=count_boards)
+    csr = (p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
+           p2b_feat_bounds, b2p_feat_bounds)
     if _kernel_for(use_kernel, curr):
-        return ws.walk_steps_fused(*args, **kw)
-    return ws.walk_chunk_plain(*args, **kw)
+        return ws.walk_steps_fused(
+            curr, query, feat, slot,
+            _kernel_keys(bits, step_base, chunk_steps), *csr,
+            step_base=step_base, chunk_steps=chunk_steps, **kw)
+    rbits = _chunk_words(bits, step_base, chunk_steps, curr.shape[0])
+    return ws.walk_chunk_plain(curr, query, feat, slot, rbits, *csr, **kw)
 
 
 def walk_chunk_fused_batched(
-    curr, query, feat, slot, qid, rbits,
+    curr, query, feat, slot, qid, bits,
     p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
     p2b_feat_bounds=None, b2p_feat_bounds=None,
-    *, n_pins: int, n_slots: int, n_queries: int, n_boards: int,
+    *, step_base: Optional[int] = None, chunk_steps: Optional[int] = None,
+    n_pins: int, n_slots: int, n_queries: int, n_boards: int,
     alpha_u32: int, beta_u32: int, count_boards: bool = False,
     use_kernel: bool,
 ):
     """Batch-native chunk: ``(next, query_events, slot_events, pin_events,
-    board_events | None)`` for the whole serving batch in one call."""
+    board_events | None)`` for the whole serving batch in one call.
+    ``bits`` is the ``(n_queries, 2)`` per-query keys with ``step_base``
+    and ``chunk_steps`` given, or, on the plain route only, the chunk's
+    ``(chunk_steps, w, 4)`` word table (as in ``walk_chunk_fused``)."""
     kw = dict(n_pins=n_pins, n_slots=n_slots, n_boards=n_boards,
               alpha_u32=alpha_u32, beta_u32=beta_u32,
               count_boards=count_boards, n_queries=n_queries)
     csr = (p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
            p2b_feat_bounds, b2p_feat_bounds)
     if _kernel_for(use_kernel, curr):
-        return ws.walk_steps_fused(curr, query, feat, slot, rbits, *csr,
-                                   qid, **kw)
+        return ws.walk_steps_fused(
+            curr, query, feat, slot,
+            _kernel_keys(bits, step_base, chunk_steps), *csr, qid,
+            step_base=step_base, chunk_steps=chunk_steps, **kw)
+    rbits = _chunk_words(bits, step_base, chunk_steps, curr.shape[0])
     return ws.walk_chunk_batched_plain(curr, query, feat, slot, qid, rbits,
                                        *csr, **kw)
 
@@ -176,18 +233,33 @@ def walk_hop(
     targets: torch.Tensor,
     row_base: torch.Tensor,
     *,
+    step: Optional[int] = None,
+    column: Optional[int] = None,
+    walker: Optional[torch.Tensor] = None,
     use_kernel: bool,
 ):
     """ONE walk hop on shard-local CSR slices -> ``(tgt, ok)``: the
     sharded superstep's half step, one launch for every co-located shard.
-    ``r`` holds uint32 words as int32 bit patterns or as int64 (the
-    port's threefry representation); the kernel gets the low 32 bits."""
+
+    With ``walker`` (the lanes' walker ids), ``r`` is the chunk's
+    ``(chunk_steps, n, 4)`` word table (``walk_bits``) and a gated lane's
+    word is ``r[step, walker, column]``: the kernel reads it itself, the
+    plain route gathers it (gated-off lanes may hold any walker id).
+    Without, ``r`` holds each lane's word already gathered, as uint32
+    values in int32 bit patterns or int64 (the reference's contract; the
+    plain route only: on the card the kernel reads the table)."""
     if not _kernel_for(use_kernel, pos):
+        if walker is not None:
+            g = torch.where(gate, walker, 0).long()
+            r = r[step, :, column][g]
         return ws.walk_hop_ref(pos, gate, r, offsets, targets, row_base)
-    if r.dtype == torch.int64:
-        r = (r & 0xFFFFFFFF).to(torch.int32)   # wraps to the bit pattern
-    return ws.walk_hop_fused(pos, gate, r.contiguous(), row_base, offsets,
-                             targets)
+    if walker is None:
+        raise ValueError(
+            "the hop kernel reads its words from the chunk's table: pass "
+            "the table with step=, column= and walker="
+        )
+    return ws.walk_hop_fused(pos, gate, r, step, column, walker.contiguous(),
+                             row_base, offsets, targets)
 
 
 def embedding_bag(

@@ -1,5 +1,5 @@
 """The walk kernels (``csrc/walk_steps_fused.cu``, ``csrc/walk_hop.cu``,
-``csrc/walk_step.cu``) and their plain twins.
+``csrc/walk_step.cu``, ``csrc/walk_bits.cu``) and their plain twins.
 
 Twin of ``repro/kernels/walk_step.py::walk_steps_fused``.  One launch runs
 ``chunk_steps`` supersteps for every walker and emits wide int32 event
@@ -7,24 +7,35 @@ lanes of shape ``(chunk_steps, w)``: slot (sentinel ``n_slots``), pin,
 optionally board (local id) and, in batch-native ``qid`` mode, query
 (sentinel ``n_queries``).  Invalid steps carry 0 in the value lanes.
 
-Random bits arrive as ``(chunk_steps, w, 4)`` int32 tensors holding the
-uint32 patterns of ``core/walk._chunk_rbits``: column 0 is the restart
-draw (``< alpha_u32`` restarts), 1 the bias draw (``< beta_u32`` uses the
-personalized subrange), 2 and 3 the board and pin picks.  Compares are
-unsigned and the picks are masked with ``0x7FFFFFFF`` before use, in the
-kernel and in the twin alike.
+The walk's random words are four uint32 per walker and step: column 0 is
+the restart draw (``< alpha_u32`` restarts), 1 the bias draw (``<
+beta_u32`` uses the personalized subrange), 2 and 3 the board and pin
+picks.  Compares are unsigned and the picks are masked with
+``0x7FFFFFFF`` before use, in the kernels and in the twins alike.  Step
+``s`` of walker element ``i`` under key ``k`` draws
+``bits(fold_in(k, step_base + s), (w, 4))[i]`` (jax.random's threefry2x32,
+partitionable): ``core/walk._chunk_rbits`` builds a chunk's
+``(chunk_steps, n, 4)`` table of them in torch, ``walk_bits`` on the card
+in one launch (``csrc/threefry.cuh``), and
+``walk_steps_fused`` draws them in registers from the keys: it takes the
+keys, never a table.  Keys are uint32 word pairs held as int32 bit
+patterns on the kernel side: one ``(2,)`` key for every walker, or ``(Q,
+2)`` per-query keys with the walkers laid out query-major (walker ``q * w
++ i`` draws element ``i`` under ``keys[q]``).
 
 ``walk_steps_fused`` launches the CUDA kernel and takes CUDA tensors only;
 ``walk_chunk_plain`` / ``walk_chunk_batched_plain`` are the plain PyTorch
 twins (ports of ``ref.walk_chunk_ref`` / ``ref.walk_chunk_batched_ref``)
-that the CPU runs and the card is checked against.
+that the CPU runs and the card is checked against, fed the table of
+``_chunk_rbits``.
 
 ``walk_hop_fused`` is the sharded engine's half step (twin of the
 reference's ``walk_hop_fused``): one CSR hop for the routed walkers of
 every co-located shard in ONE launch, the walker buffers stacked
 ``(n_shards, L)`` over ``(n_shards, rows + 1)`` / ``(n_shards, E_max)``
-CSR slices.  ``walk_hop_ref`` is its plain twin (port of
-``ref.walk_hop_ref``).
+CSR slices.  It reads each hopping lane's word from the chunk's table by
+the lane's walker id.  ``walk_hop_ref`` is its plain twin (port of
+``ref.walk_hop_ref``), which takes the words pre-gathered.
 
 ``walk_step`` is the legacy unbiased one-superstep walk (twin of the
 reference's ``walk_step``): for ``(w,)`` walkers and ``(w, 3)`` uint32
@@ -34,7 +45,7 @@ a dead end gives ``next = query``, ``visited = 0``, ``ok = False``.
 Unlike the reference, any walker count is accepted: its multiple-of-256
 rule was the TPU kernel's block size.
 
-All three kernels pick an edge with one piece of code
+All three walk kernels pick an edge with one piece of code
 (``csrc/pick_edge.cuh``).
 """
 
@@ -49,9 +60,11 @@ from repro_torch.kernels import _build
 
 RMASK = 0x7FFFFFFF
 _U32 = 0xFFFFFFFF
+_MAX_GRID_Y = 65535
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int]
+    [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_uint32, ctypes.c_int,
+                             ctypes.c_int]
     + [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 4 + [ctypes.c_uint32, ctypes.c_uint32]
     + [ctypes.c_void_p] * 6
@@ -83,11 +96,21 @@ def _hop_fn():
     fn = _build.library("walk_hop").walk_hop_fused_launch
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p,
+            [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int]
             + [ctypes.c_void_p] * 3
         )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bits_fn():
+    fn = _build.library("walk_bits").walk_bits_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -118,12 +141,55 @@ def u32_bits_as_int32(r: torch.Tensor) -> torch.Tensor:
     return r
 
 
+def _check_keys(keys: torch.Tensor, dev) -> int:
+    """A ``(2,)`` key or ``(Q, 2)`` per-query keys as int32 bit patterns,
+    8-byte aligned (read as one uint2); returns Q (1 for one key)."""
+    if keys.dim() not in (1, 2) or keys.shape[-1] != 2 or keys.numel() == 0:
+        raise ValueError(f"keys must be (2,) or (Q, 2), got {tuple(keys.shape)}")
+    _check_lane("keys", keys, keys.shape, dev)
+    if keys.data_ptr() % 8:
+        raise ValueError("keys must be 8-byte aligned (read as uint2)")
+    return 1 if keys.dim() == 1 else int(keys.shape[0])
+
+
+def walk_bits(
+    keys: torch.Tensor, step_base: int, chunk_steps: int, w: int
+) -> torch.Tensor:
+    """One chunk's word table in ONE kernel launch: ``core/walk._chunk_rbits``
+    on the card.
+
+    ``keys`` is one ``(2,)`` key -> ``(chunk_steps, w, 4)``, or ``(Q, 2)``
+    per-query keys -> ``(chunk_steps, Q * w, 4)`` laid out query-major; the
+    keys are contiguous int32 CUDA tensors holding the uint32 words' bit
+    patterns, and the table holds the words' bit patterns as int32.
+    """
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"walk_bits runs on CUDA tensors, got {dev}")
+    n_keys = _check_keys(keys, dev)
+    if not 0 <= chunk_steps <= _MAX_GRID_Y or w < 0:
+        raise ValueError(f"chunk_steps must lie in [0, {_MAX_GRID_Y}] and w >= 0")
+    n = n_keys * w
+    if 4 * n >= 2**31:
+        raise ValueError(f"{n} walkers overflow the kernel's int32 walker index")
+    out = torch.empty((chunk_steps, n, 4), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    err = _bits_fn()(
+        keys.data_ptr(), w, step_base & _U32, chunk_steps, n, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "walk_bits")
+    _build.launches["walk_bits"] += 1
+    return out
+
+
 def walk_steps_fused(
     curr: torch.Tensor,
     query: torch.Tensor,
     feat: torch.Tensor,
     slot: torch.Tensor,
-    rbits: torch.Tensor,
+    keys: torch.Tensor,
     p2b_offsets: torch.Tensor,
     p2b_targets: torch.Tensor,
     b2p_offsets: torch.Tensor,
@@ -132,6 +198,8 @@ def walk_steps_fused(
     b2p_feat_bounds: Optional[torch.Tensor] = None,
     qid: Optional[torch.Tensor] = None,
     *,
+    step_base: int,
+    chunk_steps: int,
     n_pins: int,
     n_slots: int,
     n_boards: int,
@@ -140,21 +208,29 @@ def walk_steps_fused(
     beta_u32: int,
     count_boards: bool = False,
 ):
-    """``chunk_steps`` fused walk supersteps in ONE kernel launch.
+    """``chunk_steps`` fused walk supersteps in ONE kernel launch, the
+    walk's words drawn in the kernel from ``keys`` at steps ``step_base +
+    s``: the lanes the twins give for ``core/walk._chunk_rbits(keys,
+    step_base, chunk_steps, w // Q)``.
 
-    Returns ``(next (w,), slot_events, pin_events, board_events | None)``,
-    or with ``qid`` (``n_queries > 0``) ``(next, query_events, slot_events,
-    pin_events, board_events | None)``, each event lane
-    ``(chunk_steps, w)`` int32.  Every tensor must be a contiguous int32
-    CUDA tensor on one device; feature ids must lie in ``[0, n_feats)``
-    when both bound tables are given and ``beta_u32 > 0``.
+    ``keys`` is one ``(2,)`` key for every walker (per-query mode) or ``(Q,
+    2)`` per-query keys over query-major walkers (``w`` a multiple of Q),
+    as int32 bit patterns.  Returns ``(next (w,), slot_events, pin_events,
+    board_events | None)``, or with ``qid`` (``n_queries > 0``) ``(next,
+    query_events, slot_events, pin_events, board_events | None)``, each
+    event lane ``(chunk_steps, w)`` int32.  Every tensor must be a
+    contiguous int32 CUDA tensor on one device; feature ids must lie in
+    ``[0, n_feats)`` when both bound tables are given and ``beta_u32 > 0``.
     """
     dev = curr.device
     if dev.type != "cuda":
         raise ValueError(f"walk_steps_fused runs on CUDA tensors, got {dev}")
-    if rbits.dim() != 3 or rbits.shape[2] != 4:
-        raise ValueError(f"rbits must be (chunk_steps, w, 4), got {tuple(rbits.shape)}")
-    chunk_steps, w = int(rbits.shape[0]), int(rbits.shape[1])
+    w = int(curr.shape[0])
+    n_keys = _check_keys(keys, dev)
+    if w % n_keys:
+        raise ValueError(f"{w} walkers do not split evenly over {n_keys} keys")
+    if chunk_steps < 0:
+        raise ValueError(f"chunk_steps must be >= 0, got {chunk_steps}")
     with_query = qid is not None
     if with_query and n_queries <= 0:
         raise ValueError("qid given but n_queries not set (> 0 required)")
@@ -163,9 +239,6 @@ def walk_steps_fused(
         walkers.append(("qid", qid))
     for name, t in walkers:
         _check_lane(name, t, (w,), dev)
-    _check_lane("rbits", rbits, (chunk_steps, w, 4), dev)
-    if rbits.data_ptr() % 16:
-        raise ValueError("rbits must be 16-byte aligned (read as uint4)")
     _check_lane("p2b_offsets", p2b_offsets, (n_pins + 1,), dev)
     _check_lane("b2p_offsets", b2p_offsets, (n_boards + 1,), dev)
     _check_lane("p2b_targets", p2b_targets, p2b_targets.shape, dev)
@@ -189,7 +262,8 @@ def walk_steps_fused(
     bev = lane() if count_boards else None
     err = _fn()(
         curr.data_ptr(), query.data_ptr(), feat.data_ptr(), slot.data_ptr(),
-        _ptr(qid), rbits.data_ptr(), chunk_steps, w,
+        _ptr(qid), keys.data_ptr(), w // n_keys, step_base & _U32,
+        chunk_steps, w,
         p2b_offsets.data_ptr(), p2b_targets.data_ptr(),
         b2p_offsets.data_ptr(), b2p_targets.data_ptr(),
         _ptr(p2b_feat_bounds if use_bias else None),
@@ -209,7 +283,10 @@ def walk_steps_fused(
 def walk_hop_fused(
     pos: torch.Tensor,
     gate: torch.Tensor,
-    r: torch.Tensor,
+    table: torch.Tensor,
+    step: int,
+    column: int,
+    walker: torch.Tensor,
     row_base: torch.Tensor,
     offsets: torch.Tensor,
     targets: torch.Tensor,
@@ -217,17 +294,20 @@ def walk_hop_fused(
     """ONE walk hop for every co-located shard in one kernel launch.
 
     ``pos`` (n_shards, L) int32 global node ids, ``gate`` (n_shards, L)
-    bool (lanes allowed to hop), ``r`` (n_shards, L) int32 holding the
-    uint32 bit patterns of the edge-pick words, ``row_base`` (n_shards,)
-    int32 first global id each slice owns, ``offsets`` (n_shards, rows +
-    1) and ``targets`` (n_shards, E_max) int32 shard-local CSR slices.
-    One shard may also come unstacked: ``pos``/``gate``/``r`` (L,),
-    ``offsets`` (rows + 1,), ``targets`` (E,), ``row_base`` (1,).
+    bool (lanes allowed to hop), ``walker`` (n_shards, L) int32 walker ids,
+    ``table`` the chunk's (chunk_steps, n, 4) int32 word table
+    (``walk_bits``): a gated lane's edge-pick word is ``table[step,
+    walker, column]``; ``row_base`` (n_shards,) int32 first global id each
+    slice owns, ``offsets`` (n_shards, rows + 1) and ``targets``
+    (n_shards, E_max) int32 shard-local CSR slices.  One shard may also
+    come unstacked: ``pos``/``gate``/``walker`` (L,), ``offsets`` (rows +
+    1,), ``targets`` (E,), ``row_base`` (1,).
 
     Returns ``(tgt, ok)`` shaped like ``pos``: the sampled neighbour where
     ``ok`` (= gate and the row has edges), 0 elsewhere.  Every tensor must
     be a contiguous CUDA tensor on one device; a gated lane's ``pos`` must
-    lie in ``[row_base, row_base + rows)``.
+    lie in ``[row_base, row_base + rows)`` and its walker id in ``[0, n)``;
+    a gated-off lane's may be anything.
     """
     dev = pos.device
     if dev.type != "cuda":
@@ -242,7 +322,13 @@ def walk_hop_fused(
     n_shards = shape[0] if pos.dim() == 2 else 1
     _check_lane("pos", pos, shape, dev)
     _check_lane("gate", gate, shape, dev, dtype=torch.bool)
-    _check_lane("r", r, shape, dev)
+    _check_lane("walker", walker, shape, dev)
+    if table.dim() != 3 or table.shape[2] != 4:
+        raise ValueError(f"table must be (chunk_steps, n, 4), got {tuple(table.shape)}")
+    _check_lane("table", table, None, dev)
+    if not (0 <= step < table.shape[0] and 0 <= column < 4):
+        raise ValueError(
+            f"step {step} / column {column} outside a {tuple(table.shape)} table")
     _check_lane("row_base", row_base, (n_shards,), dev)
     _check_lane("offsets", offsets, None, dev)
     _check_lane("targets", targets, None, dev)
@@ -254,11 +340,13 @@ def walk_hop_fused(
         )
     out = torch.empty(shape, dtype=torch.int32, device=dev)
     ok = torch.empty(shape, dtype=torch.bool, device=dev)
+    words = table[step, :, column]           # a view: its first word's address
     err = _hop_fn()(
-        pos.data_ptr(), gate.data_ptr(), r.data_ptr(), row_base.data_ptr(),
-        offsets.data_ptr(), offsets.shape[-1], targets.data_ptr(),
-        targets.shape[-1], n_shards, shape[-1], out.data_ptr(),
-        ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        pos.data_ptr(), gate.data_ptr(), words.data_ptr(), walker.data_ptr(),
+        row_base.data_ptr(), offsets.data_ptr(), offsets.shape[-1],
+        targets.data_ptr(), targets.shape[-1], n_shards, shape[-1],
+        out.data_ptr(), ok.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "walk_hop_fused")
     _build.launches["walk_hop_fused"] += 1

@@ -9,12 +9,18 @@ with
 
 Integer outputs must match exactly: the kernels and the twins do the same
 integer arithmetic on the same random bits, and every count increment is
-1, so the atomics' order cannot show.  The embedding bag must match its
+1, so the atomics' order cannot show.  The walk kernel draws its threefry
+words from the keys and the word-table kernel writes them: both must give
+``walk._chunk_rbits``'s words bit for bit (step bases past 2**16), and on
+the kernel path the dense, event and sharded walks call no torch
+threefry for their words.  The embedding bag must match its
 twin bit for bit too: both round every multiply, add and divide in the
 same order (the kernel with ``_rn`` intrinsics, so nothing becomes an
 FMA), and ranked serving through it must equal the plain path.  The
-sharded engine's hop kernel must equal its twin at every shape, gated-off
-lanes, degree-0 rows and a shard's last row included, and the sharded
+sharded engine's hop kernel, which reads each lane's word from the
+chunk's table by walker id, must equal its twin on the gathered words at
+every shape, gated-off lanes with garbage positions and walker ids,
+degree-0 rows and a shard's last row included, and the sharded
 walk's kernel path must equal its plain path.  The decode-attention
 kernel runs an online softmax where its twin runs two passes, so the two
 agree to float32 rounding: within 2e-6 absolute on the float32 output
@@ -72,7 +78,7 @@ def graph(sg):
     return sg.graph
 
 
-def _walkers(graph, n_queries, w, chunk_steps, seed):
+def _walkers(graph, n_queries, w, seed):
     dev = graph.device
     rng = np.random.default_rng(seed)
     n = n_queries * w
@@ -83,13 +89,14 @@ def _walkers(graph, n_queries, w, chunk_steps, seed):
     if dead.size:  # dead-end starts exercise the invalid-event path
         curr[:3] = dead[0]
     t = lambda a: torch.as_tensor(a, device=dev)
-    rbits = rng.integers(0, 2**32, (chunk_steps, n, 4), dtype=np.uint64)
+    query = rng.choice(live, n).astype(np.int32)
+    query[-2:] = curr[-2:]                 # walkers that start on their query
     return dict(
-        curr=t(curr), query=t(rng.choice(live, n).astype(np.int32)),
+        curr=t(curr), query=t(query),
         feat=t(rng.integers(0, 3, n).astype(np.int32)),
         slot=t(rng.integers(0, 3, n).astype(np.int32)),
         qid=t(np.repeat(np.arange(n_queries, dtype=np.int32), w)),
-        rbits=t(rbits.astype(np.uint32).view(np.int32)),
+        keys=prng.split(prng.key(seed, dev), n_queries),
     )
 
 
@@ -110,25 +117,87 @@ def _assert_lanes_equal(got, want):
 @pytest.mark.parametrize("count_boards", [False, True])
 @pytest.mark.parametrize("mode", ["per_query", "batched"])
 def test_walk_kernel_matches_twin(graph, mode, count_boards, bias):
+    """The kernel draws its words from the keys; the twins take the table
+    of walk._chunk_rbits for the same keys (dead-end starts, walkers on
+    their query pin, a step_base past 2**16)."""
     n_queries = 1 if mode == "per_query" else 5
-    x = _walkers(graph, n_queries, 300, 6, seed=8)
+    w, chunk, step_base = 300, 6, 70_000
+    x = _walkers(graph, n_queries, w, seed=8)
     kw = dict(n_pins=graph.n_pins, n_slots=3, n_boards=graph.n_boards,
               alpha_u32=ALPHA_U32, beta_u32=BETA_U32 if bias else 0,
               count_boards=count_boards)
     a = (x["curr"], x["query"], x["feat"], x["slot"])
+    keys = x["keys"][0] if mode == "per_query" else x["keys"]
+    kbits = ws.u32_bits_as_int32(keys).contiguous()
+    rbits = walk._chunk_rbits(keys, step_base, chunk, w)
+    steps = dict(step_base=step_base, chunk_steps=chunk)
+    _build.reset_launches()
     if mode == "per_query":
-        got = ws.walk_steps_fused(*a, x["rbits"], *_csr(graph), **kw)
-        want = ws.walk_chunk_plain(*a, x["rbits"], *_csr(graph), **kw)
+        got = ws.walk_steps_fused(*a, kbits, *_csr(graph), **steps, **kw)
+        want = ws.walk_chunk_plain(*a, rbits, *_csr(graph), **kw)
     else:
-        got = ws.walk_steps_fused(*a, x["rbits"], *_csr(graph), x["qid"],
-                                  n_queries=n_queries, **kw)
-        want = ws.walk_chunk_batched_plain(*a, x["qid"], x["rbits"],
+        got = ws.walk_steps_fused(*a, kbits, *_csr(graph), x["qid"],
+                                  n_queries=n_queries, **steps, **kw)
+        want = ws.walk_chunk_batched_plain(*a, x["qid"], rbits,
                                            *_csr(graph), n_queries=n_queries,
                                            **kw)
     torch.cuda.synchronize()
+    assert _build.launches["walk_steps_fused"] == 1
     _assert_lanes_equal(got, want)
     sev = got[-3]
     assert bool((sev == 3).any()) and bool((sev < 3).any())
+
+
+@pytest.mark.parametrize("n_keys,w,chunk,step_base", [
+    (1, 8192, 8, 0), (8, 1024, 8, 8), (3, 333, 5, 70_000),
+    (1, 1, 1, 2**32 - 2), (16, 512, 24, 1_000_000),
+])
+def test_walk_bits_kernel_matches_chunk_rbits(cuda_device, n_keys, w, chunk,
+                                              step_base):
+    keys = prng.split(prng.key(n_keys + w, cuda_device), n_keys)
+    if n_keys == 1:
+        keys = keys[0]
+    _build.reset_launches()
+    got = ops.walk_bits(keys, step_base, chunk, w, use_kernel=True)
+    torch.cuda.synchronize()
+    assert _build.launches["walk_bits"] == 1
+    want = walk._chunk_rbits(keys, step_base, chunk, w)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(ops.walk_bits(keys, step_base, chunk, w,
+                                     use_kernel=False), want)
+
+
+def test_walk_kernel_path_draws_no_threefry_in_torch(sg, monkeypatch):
+    """The dense, event and sharded walks on the kernel path call no torch
+    threefry for their words (prng.bits); the plain path does."""
+    graph = sg.graph
+    dev = graph.device
+    calls = []
+    real_bits = prng.bits
+    monkeypatch.setattr(prng, "bits", lambda *a, **k: calls.append(1) or real_bits(*a, **k))
+    cfg = walk.WalkConfig(n_steps=3000, n_walkers=256, chunk_steps=4,
+                          top_k=20, n_p=40, n_v=3, bias_beta=0.0)
+    qs = synthetic.top_degree_pins(sg, 8)
+    pins = torch.as_tensor(qs[:8].reshape(2, 4).astype(np.int32), device=dev)
+    weights = torch.ones((2, 4), device=dev)
+    feats = torch.zeros(2, dtype=torch.int32, device=dev)
+    keys = prng.split(prng.key(1, dev), 2)
+    shg = distributed.shard_graph(graph, 2)
+    fabric = distributed.LocalFabric(2, device=dev)
+    for backend, drawn in (("pallas", False), ("xla", True)):
+        c = dataclasses.replace(cfg, backend=backend)
+        for run in (
+            lambda: walk.pixie_random_walk_batched(graph, pins, weights, feats,
+                                                   keys, c),
+            lambda: walk.pixie_walk_events(graph, pins[0], weights[0], 0,
+                                           keys[0], c),
+            lambda: distributed.pixie_walk_sharded_batched(
+                shg, pins, weights, keys, c, fabric, slack=8.0),
+        ):
+            calls.clear()
+            run()
+            assert bool(calls) == drawn, backend
 
 
 def _events(dev, seed, m, n_queries, n_slots, n_dim):
@@ -239,15 +308,35 @@ def test_wrappers_count_launches_and_check_inputs(graph, cuda_device):
         vc.visit_counter_wide(z, z.long(), z, n_slots=1, n_dim=8)
     with pytest.raises(ValueError, match="bins"):
         vc.visit_counter_wide(z[:4], z, z, n_slots=1, n_dim=8)
-    x = _walkers(graph, 1, 16, 2, seed=1)
+    x = _walkers(graph, 1, 16, seed=1)
+    a = (x["curr"], x["query"], x["feat"], x["slot"])
+    kw = dict(step_base=0, chunk_steps=2, n_pins=graph.n_pins, n_slots=3,
+              n_boards=graph.n_boards, alpha_u32=ALPHA_U32, beta_u32=0)
+    kb = ws.u32_bits_as_int32(x["keys"]).contiguous()
     with pytest.raises(ValueError, match="aligned"):
-        rb = torch.empty(2 * 16 * 4 + 1, dtype=torch.int32, device=cuda_device)
-        ws.walk_steps_fused(x["curr"], x["query"], x["feat"], x["slot"],
-                            rb[1:].view(2, 16, 4), *_csr(graph)[:4],
-                            n_pins=graph.n_pins, n_slots=3,
-                            n_boards=graph.n_boards, alpha_u32=ALPHA_U32,
-                            beta_u32=0)
+        k = torch.empty(5, dtype=torch.int32, device=cuda_device)
+        ws.walk_steps_fused(*a, k[1:3], *_csr(graph)[:4], **kw)
+    with pytest.raises(TypeError, match="keys must be torch.int32"):
+        ws.walk_steps_fused(*a, x["keys"], *_csr(graph)[:4], **kw)
+    with pytest.raises(ValueError, match="split evenly"):
+        ws.walk_steps_fused(*a, torch.cat([kb, kb, kb]), *_csr(graph)[:4], **kw)
+    with pytest.raises(ValueError, match="keys must be"):
+        ws.walk_steps_fused(*a, kb.reshape(-1)[:1], *_csr(graph)[:4], **kw)
+    # the dispatch draws on the card from keys only, never from a table
+    with pytest.raises(ValueError, match="draws its own words"):
+        ops.walk_chunk_fused(*a, walk._chunk_rbits(x["keys"], 0, 2, 16),
+                             *_csr(graph)[:4], use_kernel=True,
+                             **{k: v for k, v in kw.items()
+                                if k not in ("step_base", "chunk_steps")})
     assert _build.launches["walk_steps_fused"] == 0
+    # no steps: the walkers stay where they are and no lane is written
+    got = ws.walk_steps_fused(*a, kb, *_csr(graph)[:4],
+                              **{**kw, "chunk_steps": 0})
+    assert torch.equal(got[0], x["curr"]) and got[1].shape == (0, 16)
+    assert _build.launches["walk_steps_fused"] == 1
+    with pytest.raises(ValueError, match="chunk_steps"):
+        ws.walk_bits(kb[0], 0, 70_000, 4)
+    assert _build.launches["walk_bits"] == 0
 
 
 @pytest.mark.parametrize("count_boards", [False, True])
@@ -380,10 +469,12 @@ def test_ranked_serve_batch_kernel_path_matches_plain_path(sg):
 # ---------------------------------------------------------------------------
 
 
-def _hop_lanes(dev, n_shards, l, rows, seed, gate_frac=0.7):
+def _hop_lanes(dev, n_shards, l, rows, seed, gate_frac=0.7, n_walkers=4096,
+               chunk=3):
     """Stacked CSR slices with degree-0 rows, lanes at random rows plus
-    each shard's last row and its degree-0 rows, gated-off lanes holding
-    garbage positions; row_base = 11 + shard * rows."""
+    each shard's last row and its degree-0 rows, a (chunk, n_walkers, 4)
+    word table and the lanes' walker ids; gated-off lanes hold garbage
+    positions and walker ids; row_base = 11 + shard * rows."""
     rng = np.random.default_rng(seed)
     deg = rng.integers(0, 6, (n_shards, rows))
     deg[:, rng.integers(0, rows, max(1, rows // 8))] = 0
@@ -399,10 +490,18 @@ def _hop_lanes(dev, n_shards, l, rows, seed, gate_frac=0.7):
     gate = rng.random((n_shards, l)) < gate_frac
     pos = np.where(gate, base[:, None] + local,
                    rng.integers(-5, 10**7, (n_shards, l))).astype(np.int32)
-    r = rng.integers(0, 2**32, (n_shards, l), dtype=np.uint64)
+    walker = np.where(gate, rng.integers(0, n_walkers, (n_shards, l)),
+                      rng.integers(-2**31, 2**31 - 1, (n_shards, l)))
+    walker[:, 0] = np.where(gate[:, 0], n_walkers - 1, walker[:, 0])
+    table = rng.integers(0, 2**32, (chunk, n_walkers, 4), dtype=np.uint64)
     t = lambda a: torch.as_tensor(a, device=dev)
-    return (t(pos), t(gate), t(r.astype(np.uint32).view(np.int32)),
-            t(base), t(off), t(tgt))
+    return (t(pos), t(gate), t(table.astype(np.uint32).view(np.int32)),
+            t(walker.astype(np.int32)), t(base), t(off), t(tgt))
+
+
+def _gathered(table, step, column, gate, walker):
+    """The words the hop's plain route gathers from the table."""
+    return table[step, :, column][torch.where(gate, walker, 0).long()]
 
 
 @pytest.mark.parametrize("n_shards,l,rows,gate_frac", [
@@ -411,48 +510,66 @@ def _hop_lanes(dev, n_shards, l, rows, seed, gate_frac=0.7):
 ])
 def test_walk_hop_kernel_matches_twin(cuda_device, n_shards, l, rows,
                                       gate_frac):
-    pos, gate, r, base, off, tgt = _hop_lanes(cuda_device, n_shards, l, rows,
-                                              seed=n_shards * 7 + l,
-                                              gate_frac=gate_frac)
-    _build.reset_launches()
-    got = ws.walk_hop_fused(pos, gate, r, base, off, tgt)
-    torch.cuda.synchronize()
-    assert _build.launches["walk_hop_fused"] == 1
-    want = ws.walk_hop_ref(pos, gate, r, off, tgt, base)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert bool(got[1].any()) == (gate_frac > 0)
-    # one shard unstacked, at a row_base past 0
-    one = ws.walk_hop_fused(pos[-1], gate[-1], r[-1], base[-1:], off[-1],
-                            tgt[-1])
-    assert torch.equal(one[0], want[0][-1]) and torch.equal(one[1], want[1][-1])
+    """The kernel reads each gated lane's word from the table by its walker
+    id; the twin takes the words gathered (garbage walker ids and
+    positions on gated-off lanes)."""
+    pos, gate, table, walker, base, off, tgt = _hop_lanes(
+        cuda_device, n_shards, l, rows, seed=n_shards * 7 + l,
+        gate_frac=gate_frac)
+    for step, column in ((0, 2), (2, 3)):
+        _build.reset_launches()
+        got = ws.walk_hop_fused(pos, gate, table, step, column, walker, base,
+                                off, tgt)
+        torch.cuda.synchronize()
+        assert _build.launches["walk_hop_fused"] == 1
+        r = _gathered(table, step, column, gate, walker)
+        want = ws.walk_hop_ref(pos, gate, r, off, tgt, base)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(got[1].any()) == (gate_frac > 0)
+        via_ops = ops.walk_hop(pos, gate, table, off, tgt, base, step=step,
+                               column=column, walker=walker, use_kernel=True)
+        assert torch.equal(via_ops[0], want[0]) and torch.equal(via_ops[1], want[1])
+        # one shard unstacked, at a row_base past 0
+        one = ws.walk_hop_fused(pos[-1], gate[-1], table, step, column,
+                                walker[-1], base[-1:], off[-1], tgt[-1])
+        assert torch.equal(one[0], want[0][-1]) and torch.equal(one[1], want[1][-1])
 
 
 def test_walk_hop_wrapper_refuses_bad_inputs(cuda_device):
-    pos, gate, r, base, off, tgt = _hop_lanes(cuda_device, 2, 32, 10, seed=3)
+    pos, gate, table, walker, base, off, tgt = _hop_lanes(cuda_device, 2, 32,
+                                                          10, seed=3)
+    hop = ws.walk_hop_fused
     with pytest.raises(ValueError, match="CUDA"):
-        ws.walk_hop_fused(pos.cpu(), gate.cpu(), r.cpu(), base.cpu(),
-                          off.cpu(), tgt.cpu())
+        hop(pos.cpu(), gate.cpu(), table.cpu(), 0, 2, walker.cpu(),
+            base.cpu(), off.cpu(), tgt.cpu())
     with pytest.raises(ValueError, match="is on cpu"):
-        ws.walk_hop_fused(pos, gate, r, base.cpu(), off, tgt)
+        hop(pos, gate, table, 0, 2, walker, base.cpu(), off, tgt)
     with pytest.raises(TypeError, match="gate must be torch.bool"):
-        ws.walk_hop_fused(pos, gate.int(), r, base, off, tgt)
-    with pytest.raises(TypeError, match="r must be torch.int32"):
-        ws.walk_hop_fused(pos, gate, r.long(), base, off, tgt)
+        hop(pos, gate.int(), table, 0, 2, walker, base, off, tgt)
+    with pytest.raises(TypeError, match="walker must be torch.int32"):
+        hop(pos, gate, table, 0, 2, walker.long(), base, off, tgt)
+    with pytest.raises(TypeError, match="table must be torch.int32"):
+        hop(pos, gate, table.long(), 0, 2, walker, base, off, tgt)
+    with pytest.raises(ValueError, match="table must be"):
+        hop(pos, gate, table[..., :3], 0, 2, walker, base, off, tgt)
+    with pytest.raises(ValueError, match="outside"):
+        hop(pos, gate, table, table.shape[0], 2, walker, base, off, tgt)
+    with pytest.raises(ValueError, match="outside"):
+        hop(pos, gate, table, 0, 4, walker, base, off, tgt)
     with pytest.raises(TypeError, match="targets must be torch.int32"):
-        ws.walk_hop_fused(pos, gate, r, base, off, tgt.long())
+        hop(pos, gate, table, 0, 2, walker, base, off, tgt.long())
     with pytest.raises(ValueError, match="row_base has shape"):
-        ws.walk_hop_fused(pos, gate, r, base[:1], off, tgt)
+        hop(pos, gate, table, 0, 2, walker, base[:1], off, tgt)
     with pytest.raises(ValueError, match="stack 2 shard slices"):
-        ws.walk_hop_fused(pos, gate, r, base, off[:1], tgt[:1])
+        hop(pos, gate, table, 0, 2, walker, base, off[:1], tgt[:1])
     with pytest.raises(ValueError, match="contiguous"):
-        ws.walk_hop_fused(pos.t().contiguous().t(), gate, r, base, off, tgt)
-    # the dispatch hands int64 words to the kernel as their low 32 bits
-    _build.reset_launches()
-    a = ops.walk_hop(pos, gate, r.long() & 0xFFFFFFFF, off, tgt,
-                                 base, use_kernel=True)
-    b = ws.walk_hop_fused(pos, gate, r, base, off, tgt)
-    assert _build.launches["walk_hop_fused"] == 2
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        hop(pos.t().contiguous().t(), gate, table, 0, 2, walker, base, off,
+            tgt)
+    # on the card the dispatch reads the table: pre-gathered words are the
+    # plain route's contract only
+    with pytest.raises(ValueError, match="reads its words from the chunk's table"):
+        ops.walk_hop(pos, gate, _gathered(table, 0, 2, gate, walker), off,
+                     tgt, base, use_kernel=True)
 
 
 @pytest.mark.parametrize("slack,dead", [(8.0, None), (0.05, [2**31 - 1, 3, 2**31 - 1, 5])])

@@ -51,7 +51,8 @@ def test_port_files_exist():
                  "configs/smollm_360m.py", "configs/minitron_4b.py"):
         assert twin in names
     for src in ("walk_steps_fused.cu", "visit_counter.cu", "embedding_bag.cu",
-                "walk_hop.cu", "decode_attention.cu", "walk_step.cu"):
+                "walk_hop.cu", "decode_attention.cu", "walk_step.cu",
+                "walk_bits.cu", "threefry.cuh"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -124,13 +125,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         eb.embedding_bag(table, torch.zeros((2, 3), dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         eb.embedding_bag_batched(table, torch.zeros((1, 2, 3), dtype=torch.int32))
-    rb = torch.zeros((1, 4, 4), dtype=torch.int32)
+    key = torch.zeros(2, dtype=torch.int32)
     off = torch.zeros(5, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        ws.walk_steps_fused(z, z, z, z, rb, off, z, off, z, n_pins=4,
-                            n_slots=1, n_boards=4, alpha_u32=0, beta_u32=0)
+        ws.walk_steps_fused(z, z, z, z, key, off, z, off, z, step_base=0,
+                            chunk_steps=1, n_pins=4, n_slots=1, n_boards=4,
+                            alpha_u32=0, beta_u32=0)
     with pytest.raises(ValueError, match="CUDA"):
-        ws.walk_hop_fused(z, z.bool(), z, z[:1], off, z)
+        ws.walk_bits(key, 0, 1, 4)
+    table = torch.zeros((1, 4, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ws.walk_hop_fused(z, z.bool(), table, 0, 2, z, z[:1], off, z)
     with pytest.raises(ValueError, match="CUDA"):
         vc.visit_counter(z, 4)
     with pytest.raises(ValueError, match="CUDA"):
@@ -171,17 +176,18 @@ def test_launch_counters_name_the_three_kernels_and_reset():
     """Name kept from the first slice; the embedding bag is the fourth
     counter, the sharded engine's hop the fifth, the LM decode step's
     attention the sixth, and the legacy flat histogram and one-superstep
-    walk the seventh and eighth: one counter per TPU kernel of the repo."""
+    walk the seventh and eighth: one counter per TPU kernel of the repo,
+    plus the walk's word table drawn on the card (``walk_bits``)."""
     from repro_torch.kernels import _build
 
     assert set(_build.launches) == {
         "walk_steps_fused", "visit_counter_update_high", "visit_counter_wide",
         "embedding_bag", "walk_hop_fused", "decode_attention",
-        "visit_counter", "walk_step",
+        "visit_counter", "walk_step", "walk_bits",
     }
     assert set(_build.SOURCES) == {
         "walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
-        "decode_attention", "walk_step",
+        "decode_attention", "walk_step", "walk_bits",
     }
     _build.launches["visit_counter_wide"] += 3
     _build.reset_launches()
@@ -208,6 +214,13 @@ def test_cuda_sources_name_the_kernel_they_replace():
     assert "src/repro/kernels/embedding_bag.py" in bag
     assert "_embedding_bag_kernel" in bag and "__fmul_rn" in bag
     assert "src/repro/kernels/walk_step.py" in walk
+    # the walk's words come from the one device threefry, in the walk
+    # kernel and in the table kernel alike
+    bits = (csrc / "walk_bits.cu").read_text()
+    for src in (walk, bits):
+        assert '#include "threefry.cuh"' in src
+        assert "uint2 threefry2x32(" not in src
+    assert "uint2 threefry2x32(" in (csrc / "threefry.cuh").read_text()
     assert "walk_steps_fused" in walk
     assert "visit_counter_update_high" in counter
     assert "visit_counter_wide" in counter
