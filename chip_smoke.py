@@ -42,7 +42,16 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              visit_counter_update_high timed as the path calls it (the
              crossings added into a running tally in place, one launch),
              its old three-launch sequence (zeroed delta, kernel, add)
-             logged beside it.
+             logged beside it.  5b: visit_counter_wide at the board-rec
+             bucket (16 x 4 x 2000 bins, 1,048,576 events, where a tile's
+             bins fit the block's shared window) and at edge cases (no
+             events, sentinel and negative lanes, one bin, no query lane,
+             windows too big to share).  5c: a full-width board-rec
+             request (count_boards on the FULL walk, 8 x 60M board bins)
+             through serve_batch on the kernel and the plain path, bit for
+             bit, its board counts from the kernel engine equal to the
+             plain per-query engine's, and visit_counter_wide timed on its
+             first chunk's board lanes (no shared window holds 480M bins).
              Each bound counts the distinct 32-byte sectors the run's own
              inputs touch (repeat reads of a row are L2 hits), plus the
              lanes and walker state read or written once.
@@ -63,11 +72,17 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              rejections.
  8. bag      the embedding-bag kernel against its twin, bit for bit, at the
              ranked path's shapes (a (1, 64, 8) neighbor bag and a (1, 1,
-             64) query bag over the 140M x 32 table) and at edge shapes
-             (bf16, d = 48, bag size 1, an all-padding bag, 37 bags, sum
-             and mean); device ms beside the twin, the byte bound and
-             torch's F.embedding_bag(mode="sum") on the same bags (which
-             omits the mean's division).
+             64) query bag over the 140M x 32 table: each alone, and both
+             in the ONE pair launch the path makes, against two twin
+             calls) and at edge shapes and lengths (bf16, d = 33 and 48,
+             bag lengths 1, 31, 32, 33, 64, 65 and 300, past the staging of
+             256 rows, all-padding bags, sum and mean, the pair at edge
+             lengths); the pair's device ms back to back, single launches
+             with a warm and an evicted L2, the twin's ms, the byte bound,
+             the chain floor (an id, then its row: two dependent reads at
+             the probe's L2 and DRAM latencies) and torch's
+             F.embedding_bag(mode="sum") over both sets in one call
+             (which omits the mean's division).
  9. users    on the 20k graph: ranked buckets (16, 4) and (8, 8) with
              mixed scenarios, both walk backends identical and equal to
              the single-bucket flush oracle; submit_user users equal to
@@ -181,9 +196,11 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              call).
 
 Launch counts are reset just before and read just after each path that
-is driven (phases 2, 4, 6, 7, 9, 10, 12, 13, 14, 18, 19 and 19b, 20, 21,
-22, 23); the kernels line sums them, and every one of its nine kernels
-(the eight TPU kernels' and walk_bits) must have launched.  The profiled
+is driven (phases 2, 4, 5c, 6, 7, 9, 10, 12, 13, 14, 18, 19 and 19b, 20,
+21, 22, 23); the kernels line sums them, and every one of its nine kernels
+(the eight TPU kernels' and walk_bits) must have launched.  The build
+fails on a register spill of the walk, hop, word-table, bag or counter
+kernels (ptxas -v).  The profiled
 dense, event-mode and sharded requests (phases 2, 21, 14) must draw no
 torch threefry words (no prng.bits call); a "request_ops" line gives
 their device operations and chunks beside the card's operations of one
@@ -792,7 +809,8 @@ def chase_latency(dev) -> dict:
     return dict(dram_ns=ns[CHASE_INTS], l2_ns=ns[CHASE_L2_INTS])
 
 
-def check_counter_kernel(name, kernel, plain, n_bins, lanes, kw, replaces):
+def check_counter_kernel(name, kernel, plain, n_bins, lanes, kw, replaces,
+                         label=None):
     """A counter kernel against its twin on a warm buffer, then timed.
     ``visit_counter_update_high`` runs as the main path calls it: the
     crossings added into a running tally in place, one launch; its old
@@ -847,7 +865,8 @@ def check_counter_kernel(name, kernel, plain, n_bins, lanes, kw, replaces):
     nbytes = 4 * 3 * m + 2 * SECTOR * sectors
     if high:
         nbytes += 2 * 4 * n_rows          # the tally read and written
-    log("kernel", name=name, device_ms=ms, call_ms=call_ms, events=m,
+    log("kernel", name=name, shape=label, device_ms=ms, call_ms=call_ms,
+        events=m,
         valid_events=int(bins.shape[0]), bins=n_bins,
         distinct_bins=int(torch.unique(bins).numel()),
         distinct_sectors=sectors, bound_bytes=nbytes,
@@ -862,6 +881,126 @@ def check_counter_kernel(name, kernel, plain, n_bins, lanes, kw, replaces):
         plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=library_ms,
     )
+
+
+def wide_edge_cases(dev) -> int:
+    """``visit_counter_wide`` against its twin on a prefilled buffer: no
+    events (no launch), negative and sentinel lanes, every event in one
+    bin, no query lane, and tiles whose bins do not fit the block's shared
+    window (a query window of 12M bins) beside ones that do."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import visit_counter as vc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    n = 0
+    for case in ("no_events", "sentinels", "one_bin", "no_query_lane",
+                 "window_misses"):
+        n_queries, w, steps, n_slots, n_dim = 16, 8192, 8, 4, 2000
+        if case == "window_misses":
+            n_queries, n_dim = 2, 3_000_000
+        m = n_queries * w * steps
+        q = torch.arange(n_queries, dtype=torch.int32, device=dev)
+        q = q.repeat_interleave(w).repeat(steps)          # query-major walkers
+        s = torch.randint(0, n_slots, (m,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        i = torch.randint(0, n_dim, (m,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        i[::3] = i[::3] % 4                                 # hot bins
+        if case == "sentinels":
+            q[::7] = n_queries
+            s[1::11] = n_slots
+            s[2::13] = -1
+            i[3::17] = n_dim
+            i[4::19] = -5
+        if case == "one_bin":
+            q.fill_(3), s.fill_(1), i.fill_(17)
+        if case == "no_events":
+            q, s, i = q[:0], s[:0], i[:0]
+        qe, nq = (None, 0) if case == "no_query_lane" else (q, n_queries)
+        n_rows = n_queries * n_slots if qe is not None else n_slots
+        prior = torch.randint(0, 3, (n_rows * n_dim,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        ck, cp = prior.clone(), prior.clone()
+        kw = dict(n_slots=n_slots, n_dim=n_dim, n_queries=nq)
+        before = _build.launches["visit_counter_wide"]
+        vc.visit_counter_wide(ck, s, i, qe, **kw)
+        torch.cuda.synchronize()
+        launched = _build.launches["visit_counter_wide"] - before
+        vc.visit_counter_wide_plain(cp, s, i, qe, **kw)
+        if not torch.equal(ck, cp):
+            raise AssertionError(f"visit_counter_wide {case}: differs from its twin")
+        if launched != (0 if case == "no_events" else 1):
+            raise AssertionError(f"visit_counter_wide {case}: {launched} launches")
+        if case == "one_bin" and int((ck.long() - prior.long()).sum()) != m:
+            raise AssertionError("visit_counter_wide one_bin: events lost")
+        n += 1
+    return n
+
+
+def board_rec_full(graph, reqs, shape, cfg, dev) -> tuple:
+    """A full-width board-rec request (``count_boards`` on the FULL walk:
+    8 slots x 60M boards = 480M board bins, 1.92 GB) through serve_batch
+    on the kernel path and the plain path, bit for bit; the board counts
+    themselves from the batch-native kernel engine against the per-query
+    plain engine; then ``visit_counter_wide`` on that request's first chunk
+    of board lanes, whose one-query window (480M bins) no shared window
+    holds.  Returns the kernel path's launches and the kernel's row."""
+    import torch
+    from repro_torch.core import prng, service, walk
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import visit_counter as vc
+
+    bcfg = service.board_rec_config(cfg)
+    batch = padded_batch(reqs[:1], shape.n_slots, dev)
+    keys = prng.fold_in(prng.key(SEED, dev), 0)[None, :]
+    service.serve_batch(graph, *batch, keys, bcfg)                # warm-up
+    torch.cuda.synchronize()
+    out = {}
+    _build.reset_launches()
+    kern_ms = wall_ms(lambda: out.setdefault("k", service.serve_batch(
+        graph, *batch, keys, bcfg, backend="pallas", with_stats=True)))
+    launches = dict(_build.launches)
+    if launches["visit_counter_wide"] == 0:
+        raise AssertionError("the full-width board-rec request never launched visit_counter_wide")
+    plain_ms = wall_ms(lambda: out.setdefault("p", service.serve_batch(
+        graph, *batch, keys, bcfg, backend="xla", with_stats=True)))
+    kern, plain = out["k"], out["p"]
+    assert_same(kern, plain, "full-width board-rec request")
+    check_result(kern[0][0], kern[1][0], bcfg.top_k, graph.n_pins,
+                 "full-width board-rec request")
+    bk = walk.pixie_random_walk_batched(
+        graph, *batch, keys, dataclasses.replace(bcfg, backend="pallas"))
+    boards_k = bk.board_counts[0].clone()
+    del bk
+    bp = walk.pixie_random_walk(
+        graph, batch[0][0], batch[1][0], batch[2][0], keys[0],
+        dataclasses.replace(bcfg, backend="xla"))
+    if not torch.equal(boards_k, bp.board_counts):
+        raise AssertionError("full-width board counts: kernel and plain engines differ")
+    visited = int((boards_k > 0).sum())
+    total = int(boards_k.sum(dtype=torch.int64))
+    del bp, boards_k
+    torch.cuda.empty_cache()
+    winp = walk_inputs(graph, reqs[:1], shape.n_slots, bcfg)
+    _, qev, sev, _, bev = run_walk_kernel(winp)
+    row = check_counter_kernel(
+        "visit_counter_wide", vc.visit_counter_wide, vc.visit_counter_wide_plain,
+        shape.n_slots * graph.n_boards,
+        (qev.reshape(-1), sev.reshape(-1), bev.reshape(-1)),
+        dict(n_slots=shape.n_slots, n_dim=graph.n_boards, n_queries=1),
+        "src/repro/kernels/visit_counter.py:196",
+        label="full-width board-rec chunk (8 x 60M bins)")
+    log("board_rec_full", pins=len(reqs[0][0]),
+        board_bins=shape.n_slots * graph.n_boards,
+        board_gb=shape.n_slots * graph.n_boards * 4 / 1e9,
+        kernel_path_ms=kern_ms, plain_path_ms=plain_ms, identical=True,
+        boards_identical=True, boards_visited=visited, board_visits=total,
+        steps_taken=int(kern[2].sum()), launches=launches,
+        wide_chunk_ms=row["ms"], wide_chunk_bound_ms=row["bound_ms"])
+    del winp, qev, sev, bev
+    torch.cuda.empty_cache()
+    return launches, row
 
 
 # ---------------------------------------------------------------------------
@@ -887,7 +1026,7 @@ def ranked_plain(graph, rank, pins, weights, feats, keys, cfg, scen):
 def ranked_split_ms(graph, rank, pins, weights, feats, keys, cfg, scen):
     """One ranked request's phases, each timed alone with a synchronise:
     retrieval (the walk with top_k = n_candidates), the 2-hop
-    neighborhoods, the bags (both bag launches and the self-row gather),
+    neighborhoods, the bags (the pair launch and the self-row gather),
     the scenario heads and the final top-k."""
     import torch
     from repro_torch.core import counter as counter_lib
@@ -909,10 +1048,11 @@ def ranked_split_ms(graph, rank, pins, weights, feats, keys, cfg, scen):
     def bags():
         nbr_ids, nbr_w = out["nbr"]
         q_ids, q_w = ranker.query_bag(i, s)
+        neigh, query = ops.embedding_bag_pair(table, nbr_ids, nbr_w, q_ids,
+                                              q_w, mode="mean")
         out["emb"] = (
             table[torch.where(valid, i, 0).long()] * valid[..., None].to(table.dtype),
-            ops.embedding_bag_batched(table, nbr_ids, nbr_w, mode="mean"),
-            ops.embedding_bag_batched(table, q_ids, q_w, mode="mean")[:, 0],
+            neigh, query[:, 0],
         )
 
     ms["bags"] = wall_ms(bags)
@@ -1017,27 +1157,111 @@ EDGE_BAGS = [  # (table dtype, d, ids shape): beside the main path's shapes
     ("float32", 32, (37, 1)),
     ("bfloat16", 48, (13, 3)),
 ]
+# bag lengths at the kernel's edges (one warp a bag up to 16 elements, two
+# up to 48, eight beyond; 32 rows staged a warp, so 300 runs in two tiles
+# of an eight-warp team's 256) over these tables (bf16 rows of odd width
+# are not 4-byte aligned and are staged through registers)
+EDGE_LENGTHS = (1, 31, 32, 33, 64, 65, 300)
+EDGE_TABLES = (("float32", 32), ("bfloat16", 32), ("float32", 48),
+               ("bfloat16", 33))
+
+
+def check_pair(table, a, b, mode: str, what: str):
+    """The pair launch (``embedding_bag_pair``) against two twin calls, bit
+    for bit; ``a`` and ``b`` are ``(ids, weights)`` of (b, k, l) bags."""
+    import torch
+    from repro_torch.kernels import embedding_bag as eb
+
+    got = eb.embedding_bag_pair(table, *a, *b, mode=mode)
+    want = eb.embedding_bag_pair_plain(table, *a, *b, mode=mode)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            err = float((g.float() - w.float()).abs().max())
+            raise AssertionError(
+                f"embedding_bag_pair {what}: differs from two twin calls, max err {err}")
+    return got
+
+
+def time_pair(table, a, b, mode: str, lat: dict) -> dict:
+    """The ranked request's two bags in one launch: device ms back to back,
+    single launches with a warm and a cold L2 (serving rows start cold),
+    the same bags as two single-set launches, the twin's ms, torch's
+    F.embedding_bag(mode="sum") over both sets in ONE call (offsets mark
+    the bags; no mean division), the byte bound (ids, weights and outputs
+    once plus the distinct table sectors) and the chain floor: two
+    dependent reads, an id and then its row, at the probe's L2 latency
+    (and, logged, at its DRAM latency)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import embedding_bag as eb
+
+    outs = check_pair(table, a, b, mode, "ranked shapes")
+    dev = table.device
+    v = table.shape[0]
+    flat_ids, flat_w, offsets, start = [], [], [], 0
+    for ids, w in (a, b):
+        l = ids.shape[-1]
+        valid = (ids >= 0) & (ids < v)
+        flat_ids.append(torch.where(valid, ids, 0).reshape(-1).long())
+        flat_w.append((w * valid).reshape(-1))
+        offsets.append(start + l * torch.arange(ids.numel() // l, device=dev))
+        start += ids.numel()
+    lib = (torch.cat(flat_ids), torch.cat(offsets), torch.cat(flat_w))
+    all_ids = torch.cat([a[0].reshape(-1), b[0].reshape(-1)])
+    nbytes = (8 * all_ids.numel()
+              + sum(o.numel() * o.element_size() for o in outs)
+              + bag_sector_bytes(table, all_ids))
+    run = lambda: eb.embedding_bag_pair(table, *a, *b, mode=mode)
+    row = dict(
+        ms=device_ms(run, 50),
+        plain_ms=cuda_ms(lambda: eb.embedding_bag_pair_plain(table, *a, *b, mode=mode), 5),
+        library_ms=device_ms(lambda: F.embedding_bag(
+            lib[0], table, lib[1], per_sample_weights=lib[2], mode="sum"), 50),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        chain_floor_ms=2 * lat["l2_ns"] * 1e-6,
+    )
+    two_ms = device_ms(lambda: (eb.embedding_bag_batched(table, *a, mode=mode),
+                                eb.embedding_bag_batched(table, *b, mode=mode)), 50)
+    single = cold_l2_ms(run, dev)
+    log("bag_pair", shapes=[list(a[0].shape), list(b[0].shape)],
+        table=list(table.shape), mode=mode, bound_bytes=nbytes, **row,
+        chain_dram_ms=2 * lat["dram_ns"] * 1e-6, **single,
+        two_launches_ms=two_ms,
+        library_is="F.embedding_bag(mode='sum') over both sets in one call")
+    return row
 
 
 def check_edge_bags(dev) -> int:
-    """The kernel against its twin at the edge shapes, in sum and mean
-    mode, with weights and without, each with an all-padding bag."""
+    """The kernel against its twin at the edge shapes and lengths, in sum
+    and mean mode, with weights and without, each with an all-padding bag;
+    the pair at edge lengths against two twin calls."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    n = 0
-    for dtype, d, shape in EDGE_BAGS:
-        table = torch.randn((1000, d), generator=gen, device=dev).to(
-            getattr(torch, dtype))
+
+    def bags(shape):
         ids = torch.randint(-1, 1000, shape, generator=gen, device=dev,
                             dtype=torch.int32)
         ids.reshape(-1, shape[-1])[0] = -1
-        w = torch.rand(shape, generator=gen, device=dev) * 2
+        return ids, torch.rand(shape, generator=gen, device=dev) * 2
+
+    cases = list(EDGE_BAGS) + [(dtype, d, (3, 5, l)) for dtype, d in EDGE_TABLES
+                               for l in EDGE_LENGTHS]
+    n = 0
+    for k, (dtype, d, shape) in enumerate(cases):
+        table = torch.randn((1000, d), generator=gen, device=dev).to(
+            getattr(torch, dtype))
+        ids, w = bags(shape)
+        other = bags((2, 1, EDGE_LENGTHS[k % len(EDGE_LENGTHS)]))
         for mode in ("sum", "mean"):
             for weights in (w, None):
                 got = check_bag(table, ids, weights, mode, f"{dtype} d={d} {shape}")
                 if got.reshape(-1, d)[0].any():
                     raise AssertionError("an all-padding bag pooled to non-zero")
+                n += 1
+            if len(shape) == 3:
+                check_pair(table, (ids, w), other, mode, f"{dtype} d={d} {shape}")
                 n += 1
     return n
 
@@ -2414,7 +2638,8 @@ def main() -> int:
     built = _build.build([*_build.SOURCES, "pointer_chase"])
     log("build", seconds=time.perf_counter() - t, built=built,
         ptxas=_build.ptxas_reports)
-    for name in ("walk_steps_fused", "walk_hop", "walk_bits"):
+    for name in ("walk_steps_fused", "walk_hop", "walk_bits", "embedding_bag",
+                 "visit_counter"):
         # (a library built by an earlier run in this checkout has no report)
         spills = [r for r in _build.ptxas_reports.get(name, [])
                   if "spill" in r and "0 bytes spill stores, 0 bytes spill loads" not in r]
@@ -2499,6 +2724,9 @@ def main() -> int:
     )
     del winp, lanes, qev, sev, pev, kern, plain, server, results
     torch.cuda.empty_cache()
+
+    # 5c. a full-width board-rec request, and the wide counter at its shape
+    board_launches, _ = board_rec_full(graph, reqs, shape, cfg, dev)
 
     # 21-23. event-mode serving and the legacy kernels on the same graph ---------
     event_rows, event_paths, event_ops = event_phases(graph, reqs, shape, dev)
@@ -2598,20 +2826,22 @@ def main() -> int:
     nbr_ids, nbr_w = ranker.candidate_neighborhoods(graph, i0, s0 > 0,
                                                     rcfg.n_neighbors)
     q_ids, q_w = ranker.query_bag(i0, s0)
-    nbr = time_bag(table, nbr_ids, nbr_w, "mean", "neighbor bag")
-    qry = time_bag(table, q_ids, q_w, "mean", "query bag")
+    # each set alone (one launch each), then the pair as the path runs it
+    time_bag(table, nbr_ids, nbr_w, "mean", "neighbor bag")
+    time_bag(table, q_ids, q_w, "mean", "query bag")
+    pair = time_pair(table, (nbr_ids, nbr_w), (q_ids, q_w), "mean", read_ns)
     n_edge = check_edge_bags(dev)
     bag_row = dict(
         name="embedding_bag", route="cuda",
         source="src/repro_torch/kernels/csrc/embedding_bag.cu",
         replaces="src/repro/kernels/embedding_bag.py:108",
         launches=None, max_abs_err=0.0,
-        **{k: nbr[k] + qry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        bound_by="bytes",
+        **{k: pair[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bound_by="bytes", chain_floor_ms=pair["chain_floor_ms"],
     )
     log("bag_kernel", main_shapes=[list(nbr_ids.shape), list(q_ids.shape)],
         identical=True, edge_cases_identical=n_edge,
-        row_is="the sum of the two launches of one ranked request")
+        row_is="one ranked request's pair launch (both bag sets)")
     del rank, table, rserver, oserver, report, ranked, kern
     del s0, i0, nbr_ids, nbr_w, q_ids, q_w
     torch.cuda.empty_cache()
@@ -2705,7 +2935,9 @@ def main() -> int:
         (bq.reshape(-1), bs.reshape(-1), bb.reshape(-1)),
         dict(n_slots=4, n_dim=sg.graph.n_boards, n_queries=len(small)),
         "src/repro/kernels/visit_counter.py:196",
+        label="board-rec bucket (16 x 4 x 2000 bins)",
     )
+    log("wide_kernel", edge_cases_identical=wide_edge_cases(dev))
 
     # 9. batched ranked serving and multi-interest users -----------------------------
     rcfg20 = ranker.RankerConfig(n_items=sg.graph.n_pins)
@@ -2750,7 +2982,7 @@ def main() -> int:
     attn_row, lm_paths = lm_phases(dev, qwen2_5_3b.FULL, smollm_360m.FULL)
 
     # the kernels line ---------------------------------------------------------------
-    paths = [serve_launches, batch_launches["pallas"], ranked_launches,
+    paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *sharded_paths, *lm_paths, *event_paths]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
@@ -2763,7 +2995,8 @@ def main() -> int:
         raise AssertionError("a sharded path never launched walk_hop_fused or walk_bits")
     if any(row["launches"] == 0 for row in rows):
         raise AssertionError(f"a kernel never launched: {[r['name'] for r in rows if not r['launches']]}")
-    log("launches", retrieval=serve_launches, batched=batch_launches["pallas"],
+    log("launches", retrieval=serve_launches, board_rec_full=board_launches,
+        batched=batch_launches["pallas"],
         ranked=ranked_launches, open_loop=open_launches,
         batched_ranked=rlaunches["pallas"], users=user_launches,
         chaos=chaos_launches, sharded_parity=sharded_paths[0],

@@ -40,13 +40,33 @@
 // non-zero rows straight into the caller's tally, in place, so no zeroed
 // delta buffer and no add on the host side are needed.
 //
-// visit_counter_wide and the flat histogram (visit_counter) keep the first
-// design: one thread per event and one atomicAdd on the running buffer,
-// which never leaves device memory and is never copied.  The TPU kernels'
-// tile and chunk sizes shaped their one-hot scans and have no counterpart
-// here.
+// visit_counter_wide runs once per chunk on the board-rec path, on ~10^6
+// events whose (query, slot, board) bins repeat heavily (the board-rec
+// bucket: 1,048,576 events into 128,000 bins).  Design (wide_kernel): a
+// grid sized to the card (at most 4 blocks of 512 per SM); each block takes
+// tiles of up to 4,096 consecutive events, 8 a thread, loads every lane of
+// the tile before its first atomic, and finds the tile's bin range.  The
+// walk's lanes are query-major, so a tile of one step's walkers falls in
+// one query's n_slots * n_dim window; where the range fits the block's
+// 48 KB shared window (and costs at most 4 window bins an event), the block
+// counts into the window (one shared atomic an event) and then adds each
+// non-zero bin to counts with one global atomic.  Elsewhere (a full-width
+// window of 8 x 60M bins) it adds to counts directly, same-bin events of a
+// warp combined with __match_any_sync first: one global atomic per
+// distinct bin per warp.  On the card the match costs more than it saves
+// before shared atomics and saves more than it costs before global ones
+// (kernel_sweep.py, PERF.md section 6).  Integer adds commute, so any order of atomics gives the twin's bits.
+// The tile is a power of two, so it aligns with power-of-two walker
+// blocks.
+//
+// The flat histogram (visit_counter) keeps the first design: one thread
+// per event and one atomicAdd on the count buffer, which never leaves
+// device memory and is never copied (87% of its byte bound).  The TPU
+// kernels' tile and chunk sizes shaped their one-hot scans and have no
+// counterpart here.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -94,39 +114,104 @@ __global__ void __launch_bounds__(kHighBlock) update_high_kernel(
   }
 }
 
-__global__ void visit_counter_kernel(
+constexpr int kWideBlock = 512;
+constexpr int kWidePer = 8;         // events a thread holds, at most
+constexpr int kWindow = 12256;      // the block's shared bins: 48 KB with the
+                                    // range words
+constexpr int kWindowPerEvent = 4;  // window bins a tile event may cost
+
+// One tile = kWideBlock * per consecutive events, `per` a power of two
+// (<= kWidePer) chosen by the launcher; a block strides over tiles.
+__global__ void __launch_bounds__(kWideBlock) wide_kernel(
     const int* __restrict__ qev, const int* __restrict__ sev,
     const int* __restrict__ iev, long long m, int n_slots, int n_dim,
-    int n_queries, int* __restrict__ counts) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       e < m; e += stride) {
-    const int s = sev[e];
-    const int id = iev[e];
-    bool valid = s >= 0 && s < n_slots && id >= 0 && id < n_dim;
-    int row = s;
-    if (qev != nullptr) {
-      const int q = qev[e];
-      valid = valid && q >= 0 && q < n_queries;
-      row = q * n_slots + s;
+    int n_queries, int per, int* __restrict__ counts) {
+  __shared__ int window[kWindow];
+  __shared__ int warp_lo[kWideBlock / 32], warp_hi[kWideBlock / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long tile = static_cast<long long>(kWideBlock) * per;
+  for (long long base = blockIdx.x * tile; base < m;
+       base += static_cast<long long>(gridDim.x) * tile) {
+    // the tile's lanes, read coalesced, all loads issued before any atomic
+    int bins[kWidePer];
+    int lo = INT_MAX, hi = -1;
+#pragma unroll
+    for (int j = 0; j < kWidePer; ++j) {
+      bins[j] = -1;
+      const long long e = base + static_cast<long long>(j) * kWideBlock +
+                          threadIdx.x;
+      if (j < per && e < m) {
+        const int s = sev[e];
+        const int id = iev[e];
+        bool valid = s >= 0 && s < n_slots && id >= 0 && id < n_dim;
+        int row = s;
+        if (qev != nullptr) {
+          const int q = qev[e];
+          valid = valid && q >= 0 && q < n_queries;
+          row = q * n_slots + s;
+        }
+        if (valid) {
+          bins[j] = row * n_dim + id;
+          lo = min(lo, bins[j]);
+          hi = max(hi, bins[j]);
+        }
+      }
     }
-    if (!valid) continue;
-    atomicAdd(&counts[row * n_dim + id], 1);
+    // the tile's bin range, and whether it fits the block's window
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      warp_lo[warp] = lo;
+      warp_hi[warp] = hi;
+    }
+    __syncthreads();
+    lo = INT_MAX;
+    hi = -1;
+    for (int w = 0; w < kWideBlock / 32; ++w) {
+      lo = min(lo, warp_lo[w]);
+      hi = max(hi, warp_hi[w]);
+    }
+    const long long span = hi >= 0 ? static_cast<long long>(hi) - lo + 1 : 0;
+    const bool windowed =
+        span > 0 && span <= kWindow && span <= kWindowPerEvent * tile;
+    if (windowed)
+      for (int i = threadIdx.x; i < span; i += kWideBlock) window[i] = 0;
+    __syncthreads();
+    // into the window, one shared atomic an event; to counts, same-bin
+    // events of a warp combined first: one global atomic per distinct bin
+#pragma unroll
+    for (int j = 0; j < kWidePer; ++j) {
+      if (j >= per) break;  // block-uniform: every lane reaches the match
+      const int bin = bins[j];
+      if (windowed) {
+        if (bin >= 0) atomicAdd(&window[bin - lo], 1);
+      } else {
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        if (bin >= 0 && lane == __ffs(peers) - 1)
+          atomicAdd(&counts[bin], __popc(peers));
+      }
+    }
+    if (windowed) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < span; i += kWideBlock) {
+        const int c = window[i];
+        if (c) atomicAdd(&counts[lo + i], c);
+      }
+    }
+    __syncthreads();  // the window and the range words are free again
   }
 }
 
-int launch(const int* qev, const int* sev, const int* iev, long long m,
-           int n_slots, int n_dim, int n_queries, int* counts, void* stream) {
-  constexpr int kBlock = 256;
-  if (m > 0) {
-    long long blocks = (m + kBlock - 1) / kBlock;
-    const int grid = static_cast<int>(blocks < 65535 ? blocks : 65535);
-    visit_counter_kernel<<<grid, kBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        qev, sev, iev, m, n_slots, n_dim, n_queries, counts);
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
   }
-  return static_cast<int>(cudaGetLastError());
+  return sms;
 }
 
 __global__ void histogram_kernel(const int* __restrict__ ev, long long m,
@@ -164,11 +249,24 @@ extern "C" int visit_counter_update_high_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// counts (n_rows * n_dim,) += histogram of the lanes, in place.
+// counts (n_rows * n_dim,) += histogram of the lanes, in place (qev may be
+// null: no query lane).  One launch, of at most 4 blocks per SM; none when
+// m is 0.  Returns cudaGetLastError().
 extern "C" int visit_counter_wide_launch(
     const int* qev, const int* sev, const int* iev, long long m, int n_slots,
     int n_dim, int n_queries, int* counts, void* stream) {
-  return launch(qev, sev, iev, m, n_slots, n_dim, n_queries, counts, stream);
+  if (m > 0) {
+    const long long sms = sm_count();
+    // events a thread: enough for 2 tiles per SM, a power of two <= 8
+    int per = 1;
+    while (per < kWidePer && m > 2 * sms * kWideBlock * per) per *= 2;
+    const long long tile = static_cast<long long>(kWideBlock) * per;
+    const long long tiles = (m + tile - 1) / tile;
+    const int grid = static_cast<int>(tiles < 4 * sms ? tiles : 4 * sms);
+    wide_kernel<<<grid, kWideBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        qev, sev, iev, m, n_slots, n_dim, n_queries, per, counts);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // counts (n_bins,) must be zeroed by the caller and receives the histogram

@@ -5,6 +5,10 @@ bags -> (n, d)) and ``embedding_bag_batched`` ((b, k, l) bags ->
 (b, k, d)).  As in the reference, both entry points flatten their bags to
 ``(rows, l)`` and share one body: ``_bag_launch`` for the kernel,
 ``_bag_plain`` for the twin, so the two shapes agree by construction.
+``embedding_bag_pair`` (port-internal) pools two query-batched bag sets
+over one table and mode in one launch: the ranked request's neighbor and
+query bags, which the reference pools with two calls; its twin
+``embedding_bag_pair_plain`` is two twin calls.
 
 Per bag, in ascending element order: ``w = weight * valid``, ``acc += row *
 w``, ``wsum += w``; mean mode divides by ``max(wsum, 1)``; the output is
@@ -23,7 +27,7 @@ The kernel wrappers take CUDA tensors only.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -33,9 +37,10 @@ DEFAULT_BLOCK_B = 64
 MODES = ("sum", "mean")
 DTYPES = (torch.float32, torch.bfloat16)
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+_SET = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int]
+_ARGTYPES = _SET * 2 + [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 ]
 
 
@@ -81,32 +86,41 @@ def _flat_args(
     return ids2, w2
 
 
-def _bag_launch(ids2, w2, table, mode: str) -> torch.Tensor:
-    """One launch of the CUDA kernel over ``(rows, l)`` bags."""
+def _bag_launch(table, mode: str, *sets) -> List[torch.Tensor]:
+    """ONE launch of the CUDA kernel over one or two ``(ids2, w2)`` sets of
+    ``(rows, l)`` bags on the same table; returns each set's ``(rows, d)``
+    output."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"embedding_bag runs on CUDA tensors, got {dev}")
-    for name, t in (("ids", ids2), ("weights", w2)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    ids2 = ids2.contiguous()
-    w2 = w2.contiguous()
     table = table.contiguous()
-    n, l = ids2.shape
     v, d = table.shape
-    out = torch.empty((n, d), dtype=table.dtype, device=dev)
+    args, outs = [], []
+    for ids2, w2 in sets:
+        for name, t in (("ids", ids2), ("weights", w2)):
+            if t.device != dev:
+                raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        ids2, w2 = ids2.contiguous(), w2.contiguous()
+        n, l = ids2.shape
+        out = torch.empty((n, d), dtype=table.dtype, device=dev)
+        args += [ids2.data_ptr(), w2.data_ptr(), out.data_ptr(), n, l]
+        outs.append(out)
+    if len(sets) == 1:
+        args += [None, None, None, 0, 0]
+    if d == 0 or not any(o.shape[0] for o in outs):
+        return outs                       # nothing to pool: no launch
     fn = _build.library("embedding_bag").embedding_bag_launch
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     err = fn(
-        ids2.data_ptr(), w2.data_ptr(), table.data_ptr(), out.data_ptr(),
-        n, l, v, d, int(mode == "mean"), int(table.dtype == torch.bfloat16),
+        *args, table.data_ptr(), v, d, int(mode == "mean"),
+        int(table.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "embedding_bag")
     _build.launches["embedding_bag"] += 1
-    return out
+    return outs
 
 
 def _bag_plain(ids2, w2, table, mode: str) -> torch.Tensor:
@@ -136,8 +150,8 @@ def embedding_bag(
     block_b: int = DEFAULT_BLOCK_B,
 ) -> torch.Tensor:
     """Pooled lookup on the card: ``(n, l)`` bags -> ``(n, d)``."""
-    ids2, w2 = _flat_args(table, ids, weights, mode, block_b, 2)
-    return _bag_launch(ids2, w2, table, mode)
+    return _bag_launch(table, mode, _flat_args(table, ids, weights, mode,
+                                               block_b, 2))[0]
 
 
 def embedding_bag_batched(
@@ -150,9 +164,32 @@ def embedding_bag_batched(
 ) -> torch.Tensor:
     """Query-batched pooled lookup on the card: ``(b, k, l)`` bags ->
     ``(b, k, d)``, one launch for the whole batch."""
-    ids2, w2 = _flat_args(table, ids, weights, mode, block_b, 3)
     b, k, _ = ids.shape
-    return _bag_launch(ids2, w2, table, mode).reshape(b, k, table.shape[1])
+    out = _bag_launch(table, mode, _flat_args(table, ids, weights, mode,
+                                              block_b, 3))[0]
+    return out.reshape(b, k, table.shape[1])
+
+
+def embedding_bag_pair(
+    table: torch.Tensor,
+    ids_a: torch.Tensor,
+    weights_a: Optional[torch.Tensor],
+    ids_b: torch.Tensor,
+    weights_b: Optional[torch.Tensor],
+    *,
+    mode: str = "sum",
+    block_b: int = DEFAULT_BLOCK_B,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two query-batched bag sets over one table and mode, pooled by ONE
+    launch: ``(b, k, l)`` and ``(b', k', l')`` bags -> ``(b, k, d)`` and
+    ``(b', k', d)``, bit-identical to two ``embedding_bag_batched`` calls
+    (the ranked request's neighbor and query bags; port-internal: the
+    reference makes two calls)."""
+    sets = [_flat_args(table, i, w, mode, block_b, 3)
+            for i, w in ((ids_a, weights_a), (ids_b, weights_b))]
+    outs = _bag_launch(table, mode, *sets)
+    return tuple(o.reshape(*i.shape[:2], table.shape[1])
+                 for o, i in zip(outs, (ids_a, ids_b)))
 
 
 def embedding_bag_plain(
@@ -180,3 +217,19 @@ def embedding_bag_batched_plain(
     ids2, w2 = _flat_args(table, ids, weights, mode, block_b, 3)
     b, k, _ = ids.shape
     return _bag_plain(ids2, w2, table, mode).reshape(b, k, table.shape[1])
+
+
+def embedding_bag_pair_plain(
+    table: torch.Tensor,
+    ids_a: torch.Tensor,
+    weights_a: Optional[torch.Tensor],
+    ids_b: torch.Tensor,
+    weights_b: Optional[torch.Tensor],
+    *,
+    mode: str = "sum",
+    block_b: int = DEFAULT_BLOCK_B,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``embedding_bag_pair``: two twin calls."""
+    return tuple(
+        embedding_bag_batched_plain(table, i, w, mode=mode, block_b=block_b)
+        for i, w in ((ids_a, weights_a), (ids_b, weights_b)))

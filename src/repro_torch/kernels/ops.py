@@ -21,6 +21,13 @@ walk backend, so both walk backends share one stage 2 on a device and
 ranked serving keeps the walk's bit parity (the reference's rule,
 ``repro/kernels/ops.py:334``).
 
+The walk dispatchers take the walk's key(s) (``walk_chunk_fused[_batched]``,
+with ``step_base`` and ``chunk_steps``) or the chunk's word table with
+each lane's walker id (``walk_hop``) on both routes: one signature each.
+The reference's words-in forms (a word table given to the chunk, gathered
+words given to the hop) live apart, in the ``*_words*_plain`` helpers,
+which run the plain twins and never launch a kernel.
+
 The reference's ``block_w`` and ``gather_mode`` are TPU knobs (walkers per
 grid cell; blocking scalar loads vs. the double-buffered DMA pipeline).
 The CUDA walk kernel has one design for every value of both, so they are
@@ -135,27 +142,34 @@ def _chunk_rbits(keys, step_base, chunk_steps, w):
     return walk._chunk_rbits(keys, step_base, chunk_steps, w)
 
 
-def _chunk_words(bits, step_base, chunk_steps, n):
-    """The plain route's word table for ``n`` walkers: ``bits`` itself when
-    it is the table (``step_base`` None), else drawn from the key(s)
-    ``bits`` (one key, or per-query keys over query-major walkers)."""
-    if step_base is None:
-        return bits
-    if chunk_steps is None:
-        raise ValueError("keys given with step_base but no chunk_steps")
-    w = n if bits.dim() == 1 else n // bits.shape[0]
-    return _chunk_rbits(bits, step_base, chunk_steps, w)
-
-
-def _kernel_keys(bits, step_base, chunk_steps):
-    """The keys for the walk kernel, which draws its own words: a word
-    table is refused on the card."""
-    if step_base is None or chunk_steps is None:
+def _keys(keys: torch.Tensor) -> torch.Tensor:
+    """The walk's key(s): one ``(2,)`` key or ``(Q, 2)`` per-query keys.
+    A word table is the words-in helpers' contract, refused here."""
+    if keys.dim() not in (1, 2) or keys.shape[-1] != 2:
         raise ValueError(
-            "the walk kernel draws its own words: pass the key(s) with "
-            "step_base= and chunk_steps=, not a word table"
+            "the walk draws its own words from the key(s): pass a (2,) key "
+            f"or (Q, 2) keys, got shape {tuple(keys.shape)}; a word table "
+            "goes to walk_chunk_words_plain / walk_chunk_words_batched_plain"
         )
-    return ws.u32_bits_as_int32(bits).contiguous()
+    return keys
+
+
+def _plain_words(keys, step_base: int, chunk_steps: int, n: int):
+    """The plain route's word table for ``n`` walkers, drawn from one key
+    or per-query keys over query-major walkers."""
+    w = n if keys.dim() == 1 else n // keys.shape[0]
+    return _chunk_rbits(keys, step_base, chunk_steps, w)
+
+
+def _words(rbits: torch.Tensor) -> torch.Tensor:
+    """A chunk's ``(chunk_steps, n, 4)`` word table; keys are refused."""
+    if rbits.dim() != 3 or rbits.shape[-1] != 4:
+        raise ValueError(
+            "expected a chunk's (chunk_steps, n, 4) word table, got shape "
+            f"{tuple(rbits.shape)}; keys go to walk_chunk_fused[_batched], "
+            "gathered words to walk_hop_words_plain"
+        )
+    return rbits
 
 
 def walk_bits(keys, step_base: int, chunk_steps: int, w: int, *,
@@ -170,57 +184,55 @@ def walk_bits(keys, step_base: int, chunk_steps: int, w: int, *,
 
 
 def walk_chunk_fused(
-    curr, query, feat, slot, bits,
+    curr, query, feat, slot, keys,
     p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
     p2b_feat_bounds=None, b2p_feat_bounds=None,
-    *, step_base: Optional[int] = None, chunk_steps: Optional[int] = None,
+    *, step_base: int, chunk_steps: int,
     n_pins: int, n_slots: int, n_boards: int, alpha_u32: int,
     beta_u32: int, count_boards: bool = False, use_kernel: bool,
 ):
-    """Per-query chunk: ``(next, slot_events, pin_events, board_events |
-    None)``.  ``bits`` is the walk's ``(2,)`` key with ``step_base`` and
-    ``chunk_steps`` given (the kernel draws the words; the plain route
-    draws their table with ``core/walk._chunk_rbits``), or, on the plain route
-    only, the chunk's ``(chunk_steps, w, 4)`` word table itself."""
+    """Per-query chunk from the walk's ``(2,)`` key: ``(next, slot_events,
+    pin_events, board_events | None)``.  The kernel draws the chunk's words
+    itself; the plain route draws their table with
+    ``core/walk._chunk_rbits``."""
     kw = dict(n_pins=n_pins, n_slots=n_slots, n_boards=n_boards,
               alpha_u32=alpha_u32, beta_u32=beta_u32,
               count_boards=count_boards)
     csr = (p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
            p2b_feat_bounds, b2p_feat_bounds)
+    keys = _keys(keys)
     if _kernel_for(use_kernel, curr):
         return ws.walk_steps_fused(
-            curr, query, feat, slot,
-            _kernel_keys(bits, step_base, chunk_steps), *csr,
-            step_base=step_base, chunk_steps=chunk_steps, **kw)
-    rbits = _chunk_words(bits, step_base, chunk_steps, curr.shape[0])
+            curr, query, feat, slot, ws.u32_bits_as_int32(keys).contiguous(),
+            *csr, step_base=step_base, chunk_steps=chunk_steps, **kw)
+    rbits = _plain_words(keys, step_base, chunk_steps, curr.shape[0])
     return ws.walk_chunk_plain(curr, query, feat, slot, rbits, *csr, **kw)
 
 
 def walk_chunk_fused_batched(
-    curr, query, feat, slot, qid, bits,
+    curr, query, feat, slot, qid, keys,
     p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
     p2b_feat_bounds=None, b2p_feat_bounds=None,
-    *, step_base: Optional[int] = None, chunk_steps: Optional[int] = None,
+    *, step_base: int, chunk_steps: int,
     n_pins: int, n_slots: int, n_queries: int, n_boards: int,
     alpha_u32: int, beta_u32: int, count_boards: bool = False,
     use_kernel: bool,
 ):
-    """Batch-native chunk: ``(next, query_events, slot_events, pin_events,
-    board_events | None)`` for the whole serving batch in one call.
-    ``bits`` is the ``(n_queries, 2)`` per-query keys with ``step_base``
-    and ``chunk_steps`` given, or, on the plain route only, the chunk's
-    ``(chunk_steps, w, 4)`` word table (as in ``walk_chunk_fused``)."""
+    """Batch-native chunk from the ``(n_queries, 2)`` per-query keys:
+    ``(next, query_events, slot_events, pin_events, board_events | None)``
+    for the whole serving batch in one call (the words drawn as in
+    ``walk_chunk_fused``, walkers query-major)."""
     kw = dict(n_pins=n_pins, n_slots=n_slots, n_boards=n_boards,
               alpha_u32=alpha_u32, beta_u32=beta_u32,
               count_boards=count_boards, n_queries=n_queries)
     csr = (p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
            p2b_feat_bounds, b2p_feat_bounds)
+    keys = _keys(keys)
     if _kernel_for(use_kernel, curr):
         return ws.walk_steps_fused(
-            curr, query, feat, slot,
-            _kernel_keys(bits, step_base, chunk_steps), *csr, qid,
-            step_base=step_base, chunk_steps=chunk_steps, **kw)
-    rbits = _chunk_words(bits, step_base, chunk_steps, curr.shape[0])
+            curr, query, feat, slot, ws.u32_bits_as_int32(keys).contiguous(),
+            *csr, qid, step_base=step_base, chunk_steps=chunk_steps, **kw)
+    rbits = _plain_words(keys, step_base, chunk_steps, curr.shape[0])
     return ws.walk_chunk_batched_plain(curr, query, feat, slot, qid, rbits,
                                        *csr, **kw)
 
@@ -228,38 +240,64 @@ def walk_chunk_fused_batched(
 def walk_hop(
     pos: torch.Tensor,
     gate: torch.Tensor,
-    r: torch.Tensor,
+    table: torch.Tensor,
     offsets: torch.Tensor,
     targets: torch.Tensor,
     row_base: torch.Tensor,
     *,
-    step: Optional[int] = None,
-    column: Optional[int] = None,
-    walker: Optional[torch.Tensor] = None,
+    step: int,
+    column: int,
+    walker: torch.Tensor,
     use_kernel: bool,
 ):
     """ONE walk hop on shard-local CSR slices -> ``(tgt, ok)``: the
     sharded superstep's half step, one launch for every co-located shard.
-
-    With ``walker`` (the lanes' walker ids), ``r`` is the chunk's
-    ``(chunk_steps, n, 4)`` word table (``walk_bits``) and a gated lane's
-    word is ``r[step, walker, column]``: the kernel reads it itself, the
-    plain route gathers it (gated-off lanes may hold any walker id).
-    Without, ``r`` holds each lane's word already gathered, as uint32
-    values in int32 bit patterns or int64 (the reference's contract; the
-    plain route only: on the card the kernel reads the table)."""
+    ``table`` is the chunk's ``(chunk_steps, n, 4)`` word table
+    (``walk_bits``) and a gated lane's word is ``table[step, walker,
+    column]``: the kernel reads it itself, the plain route gathers it
+    (gated-off lanes may hold any walker id)."""
     if not _kernel_for(use_kernel, pos):
-        if walker is not None:
-            g = torch.where(gate, walker, 0).long()
-            r = r[step, :, column][g]
+        g = torch.where(gate, walker, 0).long()
+        r = _words(table)[step, :, column][g]
         return ws.walk_hop_ref(pos, gate, r, offsets, targets, row_base)
-    if walker is None:
-        raise ValueError(
-            "the hop kernel reads its words from the chunk's table: pass "
-            "the table with step=, column= and walker="
-        )
-    return ws.walk_hop_fused(pos, gate, r, step, column, walker.contiguous(),
-                             row_base, offsets, targets)
+    return ws.walk_hop_fused(pos, gate, _words(table), step, column,
+                             walker.contiguous(), row_base, offsets, targets)
+
+
+# ---------------------------------------------------------------------------
+# The reference's words-in forms: plain route only, never a kernel
+# ---------------------------------------------------------------------------
+
+
+def walk_chunk_words_plain(
+    curr, query, feat, slot, rbits,
+    p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
+    p2b_feat_bounds=None, b2p_feat_bounds=None, **kw,
+):
+    """The reference's ``walk_chunk_fused`` contract: the chunk's
+    ``(chunk_steps, w, 4)`` word table given, walked by the plain twin."""
+    return ws.walk_chunk_plain(
+        curr, query, feat, slot, _words(rbits), p2b_offsets, p2b_targets,
+        b2p_offsets, b2p_targets, p2b_feat_bounds, b2p_feat_bounds, **kw)
+
+
+def walk_chunk_words_batched_plain(
+    curr, query, feat, slot, qid, rbits,
+    p2b_offsets, p2b_targets, b2p_offsets, b2p_targets,
+    p2b_feat_bounds=None, b2p_feat_bounds=None, **kw,
+):
+    """The reference's ``walk_chunk_fused_batched`` contract: the chunk's
+    ``(chunk_steps, n, 4)`` word table given, walked by the plain twin."""
+    return ws.walk_chunk_batched_plain(
+        curr, query, feat, slot, qid, _words(rbits), p2b_offsets, p2b_targets,
+        b2p_offsets, b2p_targets, p2b_feat_bounds, b2p_feat_bounds, **kw)
+
+
+def walk_hop_words_plain(pos, gate, r, offsets, targets, row_base):
+    """The reference's ``walk_hop`` contract: each lane's word already
+    gathered (uint32 values as int32 bit patterns or int64), hopped by the
+    plain twin."""
+    return ws.walk_hop_ref(pos, gate, r, offsets, targets, row_base)
 
 
 def embedding_bag(
@@ -291,6 +329,25 @@ def embedding_bag_batched(
         eb.embedding_bag_batched_plain
     )
     return fn(table, ids, weights, mode=mode)
+
+
+def embedding_bag_pair(
+    table: torch.Tensor,
+    ids_a: torch.Tensor,
+    weights_a: Optional[torch.Tensor],
+    ids_b: torch.Tensor,
+    weights_b: Optional[torch.Tensor],
+    *,
+    mode: str = "sum",
+    use_kernel: bool = True,
+):
+    """Two query-batched bag sets over one table and mode -> their two
+    outputs: ONE kernel launch on the card, two twin calls on the plain
+    route (the ranked request's neighbor and query bags)."""
+    fn = eb.embedding_bag_pair if _kernel_for(use_kernel, table) else (
+        eb.embedding_bag_pair_plain
+    )
+    return fn(table, ids_a, weights_a, ids_b, weights_b, mode=mode)
 
 
 def decode_attention(

@@ -159,12 +159,17 @@ def visit_counter_wide(
     n_dim: int,
     n_queries: int = 0,
 ) -> torch.Tensor:
-    """``counts += hist(events)`` in place on the card; returns ``counts``."""
+    """``counts += hist(events)`` in place on the card, one launch (none
+    for no events); returns ``counts``.  The kernel counts a tile of events
+    into a shared-memory window where the tile's bins fit one, else with
+    warp-combined global atomics (``csrc/visit_counter.cu``)."""
     n_rows = _n_rows(n_slots, n_queries, query_events)
     require_dense_bins(n_rows * n_dim)
     lanes = [("query_events", query_events), ("slot_events", slot_events),
              ("id_events", id_events)]
     dev = _check(counts, lanes, n_rows * n_dim, "visit_counter_wide")
+    if slot_events.shape[0] == 0:
+        return counts                     # no events: no launch
     fn = _fn(
         "visit_counter_wide_launch",
         _LANES + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,

@@ -8,8 +8,9 @@ stage 2 needs no second sampling pass:
     weighted by ``sqrt(walk score)`` (undoing the Eq. 3 boost);
   * each candidate embedding pools a deterministic 2-hop fan gathered
     from the walk's own CSR (``candidate_neighborhoods``);
-  * both pools are one ``embedding_bag_batched`` call each for the whole
-    batch: the hand-written kernel on the card, its twin on the CPU;
+  * both pools are one ``embedding_bag_pair`` call for the whole batch:
+    one launch of the hand-written kernel on the card (the reference's two
+    ``embedding_bag_batched`` calls), two twin calls on the CPU;
   * a per-scenario head (related pins vs homefeed) scores candidates
     against the query, and an exact top-k with ``lax.top_k``'s tie rule
     keeps ``final_k``.
@@ -267,18 +268,17 @@ def rank_candidates(
     nbr_ids, nbr_w = candidate_neighborhoods(
         graph, cand_ids, valid, cfg.n_neighbors
     )
-    neigh_emb = ops.embedding_bag_batched(
-        table, nbr_ids, nbr_w, mode="mean", use_kernel=use_kernel
-    )                                                        # (b, k, d)
+    # query side: the retrieved set itself, pooled by sqrt(walk score)
+    q_ids, q_w = query_bag(cand_ids, cand_scores)
+    # both bags in one launch on the card (two twin calls on the plain path)
+    neigh_emb, query_emb = ops.embedding_bag_pair(
+        table, nbr_ids, nbr_w, q_ids, q_w, mode="mean", use_kernel=use_kernel
+    )                                                 # (b, k, d), (b, 1, d)
+    query_emb = query_emb[:, 0]                                # (b, d)
     self_emb = (
         table[torch.where(valid, cand_ids, 0).long()]
         * valid[..., None].to(table.dtype)
     )                                                        # (b, k, d)
-    # query side: the retrieved set itself, pooled by sqrt(walk score)
-    q_ids, q_w = query_bag(cand_ids, cand_scores)
-    query_emb = ops.embedding_bag_batched(
-        table, q_ids, q_w, mode="mean", use_kernel=use_kernel
-    )[:, 0]                                                  # (b, d)
 
     raw = score_heads(params["heads"], scenario, self_emb, neigh_emb,
                       query_emb)

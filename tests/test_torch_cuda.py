@@ -29,6 +29,11 @@ float32 and bf16 caches); the LM decode step's kernel path must give the
 plain path's greedy tokens.  The kernel splits the sequence across CTAs:
 rows that end at, just before or just after a split's edge, or leave
 splits empty, agree with the twin too, and two runs give the same bits.
+The wide counter must equal its twin where a tile's bins fit the block's
+shared window and where they do not (hot bins, sentinels, no events, no
+query lane); the embedding bag at the edge lengths of its staging (1 to
+300 elements, bf16 rows of odd width) and the ranked request's pair of
+bag sets, one launch, equal to two calls.
 The counter adds its crossing tally into the caller's tally in place, one
 launch, equal to the twin's prior tally plus its delta (one bin hit by
 every event, n_v 1, many rows, the row cap).  The legacy flat histogram
@@ -238,6 +243,75 @@ def test_counter_kernels_match_twins(cuda_device, with_query):
     assert torch.equal(wk, wp)
 
 
+def _query_major_lanes(dev, seed, n_queries, w, steps, n_slots, n_dim):
+    """Wide lanes laid out as the walk writes them: (steps, n_queries * w),
+    walkers query-major, so a tile of one step's walkers lies in one
+    query's n_slots * n_dim window; sentinels and out-of-range ids mixed in,
+    and a few hot bins."""
+    rng = np.random.default_rng(seed)
+    q = np.repeat(np.arange(n_queries, dtype=np.int32), w)[None].repeat(steps, 0)
+    s = rng.integers(0, n_slots, q.shape).astype(np.int32)
+    i = rng.integers(0, n_dim, q.shape).astype(np.int32)
+    hot = rng.random(q.shape) < 0.3
+    i[hot] = rng.integers(0, 4, int(hot.sum()))
+    q[0, :7] = n_queries                      # query sentinel
+    s[1, :7] = n_slots                        # slot sentinel
+    s[2, :3] = -1
+    i[3, :3] = n_dim
+    i[4, 5:9] = -5
+    t = lambda a: torch.as_tensor(a.reshape(-1).copy(), device=dev)
+    return t(q), t(s), t(i)
+
+
+@pytest.mark.parametrize("case", [
+    "window", "window_small_m", "global", "global_small_m", "one_bin",
+    "no_query_lane", "no_query_lane_global", "no_events", "all_invalid"])
+def test_wide_kernel_matches_twin(cuda_device, case):
+    """The wide counter's two paths inside one kernel: tiles whose bins fit
+    the block's shared window (the board-rec bucket's layout) and tiles
+    that do not (one query's window of millions of bins); hot bins,
+    sentinels, no events and no query lane.  Bit-identical to the twin,
+    on a prefilled buffer, one launch (none for no events)."""
+    n_queries, w, steps, n_slots, n_dim = 16, 8192, 8, 4, 2000
+    if case in ("global", "global_small_m", "no_query_lane_global"):
+        n_queries, n_dim = 2, 3_000_000
+    if case.endswith("small_m"):
+        # a few thousand events: 512-event tiles, which span two queries'
+        # windows (800 bins at n_dim 100, inside the 4-bins-an-event cap)
+        w, steps = 256, 5
+        n_dim = 100 if case == "window_small_m" else n_dim
+    q, s, i = _query_major_lanes(cuda_device, len(case), n_queries, w, steps,
+                                 n_slots, n_dim)
+    if case == "one_bin":
+        q.fill_(3), s.fill_(1), i.fill_(17)
+    if case == "no_events":
+        q, s, i = q[:0], s[:0], i[:0]
+    if case == "all_invalid":
+        s.fill_(n_slots)
+    with_query = not case.startswith("no_query_lane")
+    qe, nq = (q, n_queries) if with_query else (None, 0)
+    n_rows = n_queries * n_slots if with_query else n_slots
+    rng = np.random.default_rng(8)
+    prior = torch.as_tensor(rng.integers(0, 3, n_rows * n_dim).astype(np.int32),
+                            device=cuda_device)
+    ck, cp = prior.clone(), prior.clone()
+    kw = dict(n_slots=n_slots, n_dim=n_dim, n_queries=nq)
+    _build.reset_launches()
+    out = vc.visit_counter_wide(ck, s, i, qe, **kw)
+    torch.cuda.synchronize()
+    assert out is ck
+    assert _build.launches["visit_counter_wide"] == (0 if case == "no_events" else 1)
+    vc.visit_counter_wide_plain(cp, s, i, qe, **kw)
+    assert torch.equal(ck, cp)
+    added = int((ck.long() - prior.long()).sum())
+    if case in ("no_events", "all_invalid"):
+        assert added == 0
+    else:
+        assert added > 0
+    if case == "one_bin":
+        assert added == s.shape[0]
+
+
 @pytest.mark.parametrize("with_query", [False, True])
 def test_update_high_adds_into_a_prefilled_tally(cuda_device, with_query):
     """One launch: the crossings land in the caller's tally, added to what
@@ -325,9 +399,7 @@ def test_wrappers_count_launches_and_check_inputs(graph, cuda_device):
     # the dispatch draws on the card from keys only, never from a table
     with pytest.raises(ValueError, match="draws its own words"):
         ops.walk_chunk_fused(*a, walk._chunk_rbits(x["keys"], 0, 2, 16),
-                             *_csr(graph)[:4], use_kernel=True,
-                             **{k: v for k, v in kw.items()
-                                if k not in ("step_base", "chunk_steps")})
+                             *_csr(graph)[:4], use_kernel=True, **kw)
     assert _build.launches["walk_steps_fused"] == 0
     # no steps: the walkers stay where they are and no lane is written
     got = ws.walk_steps_fused(*a, kb, *_csr(graph)[:4],
@@ -383,6 +455,13 @@ BAG_CASES = [
     ("float32", 32, (37, 1)),
     ("bfloat16", 48, (13, 3)),
 ]
+# bag lengths at the kernel's edges: one warp a bag up to 16 elements, two
+# up to 48, eight beyond; 32 rows staged a warp, so an eight-warp bag
+# longer than 256 runs in tiles; bf16 rows of odd width are not 4-byte
+# aligned
+BAG_EDGE_LENGTHS = [1, 31, 32, 33, 64, 65, 300]
+BAG_EDGE_TABLES = [("float32", 32), ("bfloat16", 32), ("float32", 48),
+                   ("bfloat16", 33)]
 
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])
@@ -408,6 +487,62 @@ def test_embedding_bag_kernel_matches_twin(cuda_device, dtype, d, shape, mode):
         assert got.dtype == table.dtype and got.shape == want.shape
         assert torch.equal(got, want)
         assert not got.reshape(-1, d)[0].any()
+
+
+def _bag_table(dev, dtype, d, seed, v=1000):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal((v, d)).astype(np.float32),
+                           device=dev).to(getattr(torch, dtype))
+
+
+def _bag_ids(dev, shape, seed, v=1000):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-1, v, shape).astype(np.int32)
+    ids.reshape(-1, shape[-1])[0] = -1                # an all-padding bag
+    w = rng.uniform(0.0, 2.0, shape).astype(np.float32)
+    return (torch.as_tensor(ids, device=dev), torch.as_tensor(w, device=dev))
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype,d", BAG_EDGE_TABLES)
+@pytest.mark.parametrize("l", BAG_EDGE_LENGTHS)
+def test_embedding_bag_kernel_at_edge_lengths(cuda_device, l, dtype, d, mode):
+    table = _bag_table(cuda_device, dtype, d, seed=l + d)
+    ids, w = _bag_ids(cuda_device, (3, 5, l), seed=l)
+    for weights in (w, None):
+        got = eb.embedding_bag_batched(table, ids, weights, mode=mode)
+        want = eb.embedding_bag_batched_plain(table, ids, weights, mode=mode)
+        torch.cuda.synchronize()
+        assert got.dtype == table.dtype and torch.equal(got, want)
+        assert not got.reshape(-1, d)[0].any()
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("dtype,d", BAG_EDGE_TABLES)
+@pytest.mark.parametrize("l_a,l_b", [(8, 64), (1, 300), (33, 65), (64, 31),
+                                     (32, 0)])
+def test_embedding_bag_pair_is_one_launch_equal_to_two_calls(
+        cuda_device, l_a, l_b, dtype, d, mode):
+    """The ranked request's pair: ONE launch, each output bit-identical to
+    its own embedding_bag_batched call and to the twin."""
+    table = _bag_table(cuda_device, dtype, d, seed=d)
+    ia, wa = _bag_ids(cuda_device, (2, 64, l_a), seed=l_a)
+    ib, wb = _bag_ids(cuda_device, (2, 1, l_b), seed=l_b + 1) if l_b else (
+        torch.zeros((0, 1, 4), dtype=torch.int32, device=cuda_device), None)
+    _build.reset_launches()
+    got = eb.embedding_bag_pair(table, ia, wa, ib, wb, mode=mode)
+    torch.cuda.synchronize()
+    assert _build.launches["embedding_bag"] == 1
+    singles = (eb.embedding_bag_batched(table, ia, wa, mode=mode),
+               eb.embedding_bag_batched(table, ib, wb, mode=mode))
+    twins = eb.embedding_bag_pair_plain(table, ia, wa, ib, wb, mode=mode)
+    for g, one, twin in zip(got, singles, twins):
+        assert g.dtype == table.dtype and g.shape == twin.shape
+        assert torch.equal(g, one) and torch.equal(g, twin)
+    _build.reset_launches()
+    via_ops = ops.embedding_bag_pair(table, ia, wa, ib, wb, mode=mode)
+    assert _build.launches["embedding_bag"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(via_ops, twins))
 
 
 def test_embedding_bag_wrapper_counts_launches_and_checks_inputs(cuda_device):
@@ -453,7 +588,7 @@ def test_ranked_serve_batch_kernel_path_matches_plain_path(sg):
     _build.reset_launches()
     got = service.serve_batch(*args, cfg, backend="pallas", rank=rank,
                               scenario=scen, with_stats=True)
-    assert _build.launches["embedding_bag"] == 2
+    assert _build.launches["embedding_bag"] == 1       # both bags, one launch
     retrieval = dataclasses.replace(cfg, top_k=rcfg.n_candidates)
     s, i, st, nh = service.serve_batch(*args, retrieval, backend="xla",
                                        with_stats=True)
@@ -565,11 +700,12 @@ def test_walk_hop_wrapper_refuses_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         hop(pos.t().contiguous().t(), gate, table, 0, 2, walker, base, off,
             tgt)
-    # on the card the dispatch reads the table: pre-gathered words are the
-    # plain route's contract only
-    with pytest.raises(ValueError, match="reads its words from the chunk's table"):
+    # the dispatch reads the table: pre-gathered words are the contract of
+    # walk_hop_words_plain only
+    with pytest.raises(ValueError, match="word table"):
         ops.walk_hop(pos, gate, _gathered(table, 0, 2, gate, walker), off,
-                     tgt, base, use_kernel=True)
+                     tgt, base, step=0, column=2, walker=walker,
+                     use_kernel=True)
 
 
 @pytest.mark.parametrize("slack,dead", [(8.0, None), (0.05, [2**31 - 1, 3, 2**31 - 1, 5])])

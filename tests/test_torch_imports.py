@@ -158,7 +158,8 @@ def test_dispatch_refuses_devices_without_a_path():
         ops.embedding_bag_batched(torch.zeros((4, 8), device="meta"),
                                   m.reshape(1, 1, 4))
     with pytest.raises(ValueError, match="no kernel and no plain path"):
-        ops.walk_hop(m, m.bool(), m, m, m, m[:1], use_kernel=True)
+        ops.walk_hop(m, m.bool(), m, m, m, m[:1], step=0, column=2, walker=m,
+                     use_kernel=True)
     # the legacy entry points: None lets the device decide, as True does
     for use_kernel in (None, True):
         with pytest.raises(ValueError, match="no kernel and no plain path"):

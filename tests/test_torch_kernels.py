@@ -108,9 +108,9 @@ def test_walk_chunk_twin_matches_pallas_kernel_in_interpret_mode(g):
     want = jops.walk_chunk_fused_batched(
         *map(jnp.asarray, (curr, query, feat, slot, qid, rbits)),
         *_csr(g, jnp.asarray), use_kernel=True, **kw)
-    got = tops.walk_chunk_fused_batched(
+    got = tops.walk_chunk_words_batched_plain(
         *map(_torch, (curr, query, feat, slot, qid)), _torch(rbits.view(np.int32)),
-        *_csr(g, _torch), use_kernel=True, **kw)
+        *_csr(g, _torch), **kw)
     _assert_lanes_equal(got, want)
 
 

@@ -296,8 +296,8 @@ def test_walk_hop_twin_matches_reference(seed, all_off):
     t = torch.from_numpy
     r32 = t(r.view(np.int32))
     stacked = tws.walk_hop_ref(t(pos), t(gate), r32, t(off), t(tgt), t(base))
-    via_ops = ops.walk_hop(t(pos), t(gate), t(r.astype(np.int64)), t(off),
-                           t(tgt), t(base), use_kernel=True)
+    via_ops = ops.walk_hop_words_plain(t(pos), t(gate), t(r.astype(np.int64)),
+                                       t(off), t(tgt), t(base))
     for s in range(3):
         want_t, want_ok = jref.walk_hop_ref(
             jnp.asarray(pos[s]), jnp.asarray(gate[s]), jnp.asarray(r[s]),

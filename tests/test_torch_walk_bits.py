@@ -11,8 +11,13 @@ kernels compute against the JAX package:
     the rounds of ``threefry.cuh`` in uint32 arithmetic) equals
     ``walk._chunk_rbits`` and the reference's ``_chunk_rbits``;
   * the keys-in routing of ``ops.walk_chunk_fused[_batched]`` equals the
-    rbits-in call on the same words and the reference's twin on jax's
-    words, biased and unbiased, with board lanes;
+    words-in helpers (``ops.walk_chunk_words[_batched]_plain``) on the same
+    words and the reference's twin on jax's words, biased and unbiased,
+    with board lanes;
+  * each walk dispatcher has one signature: the keys-in chunk refuses a
+    word table and the table-and-walker hop refuses gathered words (on
+    both routes), and the words-in helpers refuse keys and equal the
+    reference's twins;
   * the table-and-walker route of ``ops.walk_hop`` equals ``walk_hop_ref``
     on the gathered words and the reference's twin, with garbage walker
     ids on gated-off lanes.
@@ -197,7 +202,7 @@ def test_keys_in_walk_routing_equals_rbits_in_call(g, mode, bias, count_boards):
     jargs = tuple(map(jnp.asarray, (curr, query, feat, slot)))
     if mode == "per_query":
         want = ref.walk_chunk_ref(*jargs, jbits, *_csr(g, jnp.asarray), **kw)
-        old = tops.walk_chunk_fused(*lanes, rbits, *tcsr, use_kernel=True, **kw)
+        old = tops.walk_chunk_words_plain(*lanes, rbits, *tcsr, **kw)
         calls = [tops.walk_chunk_fused(
             *lanes, keys, *tcsr, step_base=step_base, chunk_steps=chunk,
             use_kernel=use_kernel, **kw)
@@ -208,9 +213,8 @@ def test_keys_in_walk_routing_equals_rbits_in_call(g, mode, bias, count_boards):
         want = ref.walk_chunk_batched_ref(
             *jargs, jnp.asarray(qid), jbits, *_csr(g, jnp.asarray),
             n_queries=n_queries, **kw)
-        old = tops.walk_chunk_fused_batched(
-            *lanes, _torch(qid), rbits, *tcsr, n_queries=n_queries,
-            use_kernel=True, **kw)
+        old = tops.walk_chunk_words_batched_plain(
+            *lanes, _torch(qid), rbits, *tcsr, n_queries=n_queries, **kw)
         calls = [tops.walk_chunk_fused_batched(
             *lanes, _torch(qid), keys, *tcsr, step_base=step_base,
             chunk_steps=chunk, n_queries=n_queries, use_kernel=use_kernel, **kw)
@@ -225,11 +229,73 @@ def test_keys_in_walk_routing_equals_rbits_in_call(g, mode, bias, count_boards):
 
 def test_keys_in_routing_needs_chunk_steps(g):
     curr, query, feat, slot = map(_torch, _lanes(g, 8, seed=1))
-    with pytest.raises(ValueError, match="chunk_steps"):
+    with pytest.raises(TypeError, match="chunk_steps"):
         tops.walk_chunk_fused(
             curr, query, feat, slot, prng.key(0, "cpu"), *_csr(g, _torch),
             step_base=0, n_pins=g.n_pins, n_slots=3, n_boards=g.n_boards,
             alpha_u32=ALPHA_U32, beta_u32=0, use_kernel=True)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("mode", ["per_query", "batched"])
+def test_keys_in_dispatch_refuses_a_word_table(g, mode, use_kernel):
+    """The chunk dispatchers take keys only: a word table, with or without
+    step_base, is the words-in helpers' contract."""
+    n_queries, w, chunk = (1 if mode == "per_query" else 2), 8, 2
+    lanes = tuple(map(_torch, _lanes(g, n_queries * w, seed=2)))
+    keys = prng.split(prng.key(1, "cpu"), n_queries)
+    table = twalk._chunk_rbits(keys if mode == "batched" else keys[0], 0,
+                               chunk, w)
+    kw = dict(n_pins=g.n_pins, n_slots=3, n_boards=g.n_boards,
+              alpha_u32=ALPHA_U32, beta_u32=0, use_kernel=use_kernel)
+    if mode == "per_query":
+        call = lambda bits, **extra: tops.walk_chunk_fused(
+            *lanes, bits, *_csr(g, _torch), **kw, **extra)
+    else:
+        qid = torch.arange(n_queries, dtype=torch.int32).repeat_interleave(w)
+        call = lambda bits, **extra: tops.walk_chunk_fused_batched(
+            *lanes, qid, bits, *_csr(g, _torch), n_queries=n_queries, **kw,
+            **extra)
+    with pytest.raises(ValueError, match="draws its own words"):
+        call(table, step_base=0, chunk_steps=chunk)
+    with pytest.raises(TypeError, match="step_base"):
+        call(table)
+    with pytest.raises(TypeError, match="chunk_steps"):
+        call(keys if mode == "batched" else keys[0], step_base=0)
+
+
+def test_words_in_helpers_refuse_keys_and_equal_the_reference(g):
+    """The reference's words-in contracts live in the plain helpers only:
+    given the same words they equal ``ref.walk_chunk_ref`` and
+    ``ref.walk_chunk_batched_ref``; given keys they raise."""
+    n_queries, w, chunk = 2, 16, 3
+    curr, query, feat, slot = _lanes(g, n_queries * w, seed=6)
+    rng = np.random.default_rng(6)
+    words = rng.integers(0, 2**32, (chunk, n_queries * w, 4), dtype=np.uint64)
+    words = words.astype(np.uint32)
+    kw = dict(n_pins=g.n_pins, n_slots=3, n_boards=g.n_boards,
+              alpha_u32=ALPHA_U32, beta_u32=BETA_U32, count_boards=True)
+    lanes = tuple(map(_torch, (curr, query, feat, slot)))
+    jargs = tuple(map(jnp.asarray, (curr, query, feat, slot)))
+    qid = np.repeat(np.arange(n_queries, dtype=np.int32), w)
+    tw = _torch(words.view(np.int32))
+    got = tops.walk_chunk_words_plain(*lanes, tw, *_csr(g, _torch), **kw)
+    want = ref.walk_chunk_ref(*jargs, jnp.asarray(words), *_csr(g, jnp.asarray),
+                              **kw)
+    _assert_lanes_equal(got, want)
+    got = tops.walk_chunk_words_batched_plain(
+        *lanes, _torch(qid), tw, *_csr(g, _torch), n_queries=n_queries, **kw)
+    want = ref.walk_chunk_batched_ref(
+        *jargs, jnp.asarray(qid), jnp.asarray(words), *_csr(g, jnp.asarray),
+        n_queries=n_queries, **kw)
+    _assert_lanes_equal(got, want)
+    keys = prng.split(prng.key(1, "cpu"), n_queries)
+    with pytest.raises(ValueError, match="word table"):
+        tops.walk_chunk_words_plain(*lanes, keys[0], *_csr(g, _torch), **kw)
+    with pytest.raises(ValueError, match="word table"):
+        tops.walk_chunk_words_batched_plain(
+            *lanes, _torch(qid), keys, *_csr(g, _torch), n_queries=n_queries,
+            **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -285,3 +351,32 @@ def test_table_route_of_walk_hop_equals_twin_on_gathered_words(seed, column):
             np.testing.assert_array_equal(got[0][s].numpy(), np.asarray(jt))
             np.testing.assert_array_equal(got[1][s].numpy(), np.asarray(jok))
         assert bool(got[1].any()) and not bool(got[1].all())
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_table_route_of_walk_hop_refuses_gathered_words(use_kernel):
+    """The hop dispatcher takes the chunk's table with step, column and
+    walker: gathered words (the reference's contract) go to
+    ``walk_hop_words_plain``, which equals the reference's twin."""
+    pos, gate, walker, table, off, tgt, base = _hop_case(3)
+    t = torch.from_numpy
+    r = table[1, np.where(gate, walker, 0), 2]
+    with pytest.raises(ValueError, match="word table"):
+        tops.walk_hop(t(pos), t(gate), t(r), t(off), t(tgt), t(base), step=1,
+                      column=2, walker=t(walker), use_kernel=use_kernel)
+    with pytest.raises(TypeError, match="walker"):
+        tops.walk_hop(t(pos), t(gate), t(table), t(off), t(tgt), t(base),
+                      step=1, column=2, use_kernel=use_kernel)
+    got = tops.walk_hop_words_plain(t(pos), t(gate), t(r), t(off), t(tgt),
+                                    t(base))
+    via_table = tops.walk_hop(t(pos), t(gate), t(table), t(off), t(tgt),
+                              t(base), step=1, column=2, walker=t(walker),
+                              use_kernel=use_kernel)
+    assert torch.equal(got[0], via_table[0]) and torch.equal(got[1], via_table[1])
+    for s in range(pos.shape[0]):
+        jt, jok = ref.walk_hop_ref(
+            jnp.asarray(pos[s]), jnp.asarray(gate[s]),
+            jnp.asarray(r[s].view(np.uint32)), jnp.asarray(off[s]),
+            jnp.asarray(tgt[s]), jnp.asarray(base[s]))
+        np.testing.assert_array_equal(got[0][s].numpy(), np.asarray(jt))
+        np.testing.assert_array_equal(got[1][s].numpy(), np.asarray(jok))
