@@ -27,6 +27,15 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              seed 7); 32 board-rec requests (count_boards on) through
              buckets [(16, 4), (8, 8)]: the batch-native qid lanes and the
              visit_counter_wide kernel; checked against the plain path.
+ 4b. past cap on the same graph, 1,537 queries x 8 slots (12,296 counter
+             rows, past the 12,288 that visit_counter_update_high's shared
+             tally once capped; 984 MB of counts) through serve_batch's
+             batch-native engine on the kernel path under FULL_WALK (twice,
+             wall time each), bit-identical to the plain twins through the
+             same engine; then 1,600 queries x 8 slots sharded 2 ways
+             (LocalFabric(2), 12,800 rows a shard; 1,024 walkers and
+             20,000 steps a query), kernel path == plain path, drops
+             included.
  5. kernels  each kernel against its plain twin at the main path's shapes
              (exact match), timed with CUDA events beside its twin, its
              bandwidth bound and, for the counters, torch's index_add_;
@@ -193,11 +202,14 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              and empty boards on each CSR's last row, high-bit words, alpha
              0 and 2**32 - 1, walker counts off the 256-multiple); their
              kernels-line rows (torch.bincount as visit_counter's library
-             call).
+             call); walk_step's row adds its chain floor (its 4 dependent
+             CSR reads at the probe's L2-hit latency; 5 levels with the
+             lane read, logged beside it) and single launches timed with a
+             warm and an evicted L2.
 
 Launch counts are reset just before and read just after each path that
-is driven (phases 2, 4, 5c, 6, 7, 9, 10, 12, 13, 14, 18, 19 and 19b, 20,
-21, 22, 23); the kernels line sums them, and every one of its nine kernels
+is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
+13, 14, 18, 19 and 19b, 20, 21, 22, 23); the kernels line sums them, and every one of its nine kernels
 (the eight TPU kernels' and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
 kernels (ptxas -v).  The profiled
@@ -1416,6 +1428,151 @@ def chaos_runs(sg, cfg, dev, n_requests: int = 64):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: batches past 12,288 counter rows
+# ---------------------------------------------------------------------------
+
+PAST_CAP_QUERIES = 1_537          # x 8 slots: 12,296 rows, 984 MB of counts
+SHARDED_PAST_CAP_QUERIES = 1_600  # x 8 slots: 12,800 rows on each of 2 shards
+PAST_CAP_SLOTS = 8
+# the sharded batch's walk, cut: 1,024 walkers and 20,000 steps a query
+# (FULL_WALK's 8,192 and 200,000 would route 13M walkers a superstep)
+SHARDED_PAST_CAP_WALKERS = 1_024
+SHARDED_PAST_CAP_STEPS = 20_000
+
+
+def past_cap_batch(sg, n_queries: int, seed: int):
+    """``n_queries`` requests of 1 to 8 top-degree pins -> ``(requests,
+    (pins, weights, feats, keys))``: padded, with per-query keys (the
+    server's folds of the request ids)."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.graphs import synthetic
+
+    dev = sg.graph.device
+    rng = np.random.default_rng(seed)
+    top = synthetic.top_degree_pins(sg, 256)
+    reqs = []
+    for i in range(n_queries):
+        k = 1 + i % PAST_CAP_SLOTS
+        reqs.append(([int(p) for p in rng.choice(top, k, replace=False)],
+                     [float(x) for x in rng.uniform(0.1, 1.0, k).astype(np.float32)],
+                     int(rng.integers(0, 4))))
+    keys = prng.fold_in(prng.key(SEED, dev), torch.arange(n_queries, device=dev))
+    return reqs, (*padded_batch(reqs, PAST_CAP_SLOTS, dev), keys)
+
+
+def past_cap_phases(sg, cfg, dev):
+    """Phase 4b on the 20k graph: a batch whose counter rows pass the old
+    12,288-row cap of visit_counter_update_high through serve_batch's
+    batch-native engine, kernel path == plain path through the same
+    engine, and the counter kernel timed on the batch's first chunk;
+    then a sharded batch past the cap on each shard (kernel path == plain
+    path, drops included).  Returns both paths' launch counts."""
+    import torch
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import service, walk
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import visit_counter as vc
+
+    graph = sg.graph
+    n_rows = PAST_CAP_QUERIES * PAST_CAP_SLOTS
+    reqs, batch = past_cap_batch(sg, PAST_CAP_QUERIES, SEED + 6)
+    if not walk.batched_engine_fits(PAST_CAP_QUERIES, PAST_CAP_SLOTS,
+                                    graph.n_pins, graph.n_boards):
+        raise AssertionError("the past-cap batch does not fit the batched engine")
+    torch.cuda.reset_peak_memory_stats()
+    walls, runs = [], []
+    for rnd in range(2):                  # the first run grows the allocator
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        runs.append(service.serve_batch(graph, *batch, cfg, backend="pallas",
+                                        with_stats=True))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    launches = dict(_build.launches)
+    for name in ("walk_steps_fused", "visit_counter_update_high"):
+        if launches[name] == 0:
+            raise AssertionError(f"the past-cap batch never launched {name}")
+    got = runs[1]
+    assert_same(runs[0], got, "past-cap batch, two kernel runs")
+    t = time.perf_counter()
+    want = walk.recommend_with_stats_batched(
+        graph, *batch, dataclasses.replace(cfg, backend="xla"))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    assert_same(got, want, "past-cap batch")
+    check_result(got[0], got[1], cfg.top_k, graph.n_pins, "past-cap batch")
+    if int(got[3].sum()) == 0:
+        raise AssertionError("past-cap batch: no bin crossed n_v")
+    stats = dict(steps_taken=int(got[2].sum()), n_high=int(got[3].sum()),
+                 early_stopped_rows=int((got[3] > cfg.n_p).sum()),
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del runs, got, want
+    # the counter on the batch's first chunk: 8 steps of 12.6M walkers
+    # into 12,296 rows (its "kernel" line; the kernels line keeps the
+    # retrieval chunk's)
+    inp = walk_inputs(graph, reqs, PAST_CAP_SLOTS, cfg)
+    _, qev, sev, pev, _ = run_walk_kernel(inp)
+    del inp
+    counter = check_counter_kernel(
+        "visit_counter_update_high", vc.visit_counter_update_high,
+        vc.visit_counter_update_high_plain, n_rows * graph.n_pins,
+        (qev.reshape(-1), sev.reshape(-1), pev.reshape(-1)),
+        dict(n_slots=PAST_CAP_SLOTS, n_pins=graph.n_pins, n_v=cfg.n_v,
+             n_queries=PAST_CAP_QUERIES),
+        "src/repro/kernels/visit_counter.py:329",
+        label=f"past-cap batch's first chunk ({n_rows} x {graph.n_pins} bins)")
+    del qev, sev, pev
+    log("past_cap", queries=PAST_CAP_QUERIES, n_slots=PAST_CAP_SLOTS,
+        counter_rows=n_rows, count_bins=n_rows * graph.n_pins,
+        counts_gb=n_rows * graph.n_pins * 4 / 1e9,
+        walkers=PAST_CAP_QUERIES * cfg.n_walkers, kernel_wall_ms=walls,
+        plain_wall_ms=plain_ms, identical_to_plain=True,
+        **stats, counter_ms=counter["ms"], counter_bound_ms=counter["bound_ms"],
+        launches=launches)
+    del batch
+    torch.cuda.empty_cache()
+
+    # the sharded engine counts each shard's n_queries * n_slots rows
+    n_shards = 2
+    shg = dist.shard_graph(graph, n_shards)
+    fabric = dist.LocalFabric(n_shards, device=dev)
+    scfg = dataclasses.replace(cfg, n_walkers=SHARDED_PAST_CAP_WALKERS,
+                               n_steps=SHARDED_PAST_CAP_STEPS, bias_beta=0.0)
+    _, batch = past_cap_batch(sg, SHARDED_PAST_CAP_QUERIES, SEED + 7)
+    out, walls = {}, {}
+    for backend in ("pallas", "xla"):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out[backend] = service.serve_batch(shg, *batch, scfg, backend=backend,
+                                           with_stats=True, fabric=fabric)
+        torch.cuda.synchronize()
+        walls[backend] = (time.perf_counter() - t) * 1e3
+        if backend == "pallas":
+            sharded_launches = dict(_build.launches)
+    for name in ("walk_hop_fused", "walk_bits", "visit_counter_update_high"):
+        if sharded_launches[name] == 0:
+            raise AssertionError(f"the sharded past-cap batch never launched {name}")
+    a, b = out["pallas"], out["xla"]
+    assert_same(a, b, "sharded past-cap batch")
+    if not torch.equal(a[4], b[4]):
+        raise AssertionError("sharded past-cap batch: drops differ between paths")
+    check_result(a[0], a[1], scfg.top_k, graph.n_pins, "sharded past-cap batch")
+    log("sharded_past_cap", queries=SHARDED_PAST_CAP_QUERIES,
+        n_slots=PAST_CAP_SLOTS, n_shards=n_shards,
+        counter_rows_per_shard=SHARDED_PAST_CAP_QUERIES * PAST_CAP_SLOTS,
+        walk=dict(n_walkers=scfg.n_walkers, n_steps=scfg.n_steps),
+        kernel_wall_ms=walls["pallas"], plain_wall_ms=walls["xla"],
+        identical_to_plain=True, dropped=int(a[4]), n_high=int(a[3].sum()),
+        launches=sharded_launches)
+    del out, a, b, shg, batch
+    torch.cuda.empty_cache()
+    return launches, sharded_launches
+
+
+# ---------------------------------------------------------------------------
 # Phases 11-16: the node-range-sharded engine
 # ---------------------------------------------------------------------------
 
@@ -2420,10 +2577,31 @@ def legacy_edge_cases(graph, dev) -> int:
     return n
 
 
-def event_phases(graph, reqs, shape, dev):
+def legacy_step_inputs(graph, reqs, cfg):
+    """Phase 23's walkers: ``cfg.n_walkers`` query pins cycled from the
+    requests, ``LEGACY_STEPS`` seeded (w, 3) tables of uint32 words (int64
+    values), the CSR and the restart threshold."""
+    import torch
+    from repro_torch.core import walk
+
+    dev = graph.device
+    w = cfg.n_walkers
+    qpins = torch.tensor([p for r in reqs for p in r[0]], dtype=torch.int32,
+                         device=dev)
+    query = qpins.repeat(-(-w // qpins.numel()))[:w].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    words = [torch.randint(0, 2**32, (w, 3), generator=gen, device=dev,
+                           dtype=torch.int64) for _ in range(LEGACY_STEPS)]
+    csr = (graph.p2b.offsets, graph.p2b.targets, graph.b2p.offsets,
+           graph.b2p.targets)
+    return query, words, csr, walk._prob_u32(cfg.alpha)
+
+
+def event_phases(graph, reqs, shape, dev, read_ns: dict):
     """Phases 21-23 on the full-width graph; returns the kernels-line rows
     of visit_counter and walk_step, the launch counts of each path and the
-    profiled request's operation counts."""
+    profiled request's operation counts.  ``read_ns`` is the probe's
+    latencies (``chase_latency``), which price walk_step's chain."""
     import torch
     from repro_torch.configs.pixie import FULL_WALK
     from repro_torch.core import counter, walk
@@ -2516,15 +2694,7 @@ def event_phases(graph, reqs, shape, dev):
     # 23. the legacy kernels: ops.walk_step chained, ops.visit_counts over
     # one event request's pin lane
     w = cfg.n_walkers
-    qpins = torch.tensor([p for r in reqs for p in r[0]], dtype=torch.int32,
-                         device=dev)
-    query = qpins.repeat(-(-w // qpins.numel()))[:w].contiguous()
-    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    words = [torch.randint(0, 2**32, (w, 3), generator=gen, device=dev,
-                           dtype=torch.int64) for _ in range(LEGACY_STEPS)]
-    csr = (graph.p2b.offsets, graph.p2b.targets, graph.b2p.offsets,
-           graph.b2p.targets)
-    alpha = walk._prob_u32(cfg.alpha)
+    query, words, csr, alpha = legacy_step_inputs(graph, reqs, cfg)
     sev, pev = outs[0][0], outs[0][1]
     lane = torch.where(sev < n_slots, pev, -1)
     _build.reset_launches()
@@ -2585,12 +2755,19 @@ def event_phases(graph, reqs, shape, dev):
     _, visited, _ = step()
     rb4 = torch.zeros((1, w, 4), dtype=torch.int32, device=dev)
     rb4[0, :, 0], rb4[0, :, 2], rb4[0, :, 3] = rb[:, 0], rb[:, 1], rb[:, 2]
-    sectors, _ = walk_sectors(dict(
+    # the fused walk's replay of one step reads what this kernel reads
+    # (every walker starts on its query pin, so both read that row first)
+    sectors, reads = walk_sectors(dict(
         rbits=rb4, feat=torch.zeros_like(query), query=query, curr=query,
         csr=(*csr, None, None), kw=dict(n_pins=n_pins, alpha_u32=alpha,
                                         beta_u32=0)), visited[None, :])
+    # chain floor: the 4 dependent CSR reads (offset pair, board, offset
+    # pair, pin) at the probe's L2-hit latency, the walk row's convention;
+    # the lane read before them makes 5
+    chain = read_chain(reads, w, read_ns)
     nbytes = SECTOR * sectors + (4 + 4 + 12 + 4 + 4 + 1) * w
     ms = device_ms(step, 50)
+    single = cold_l2_ms(step, dev)
     step_row = dict(
         name="walk_step", route="cuda",
         source="src/repro_torch/kernels/csrc/walk_step.cu",
@@ -2600,10 +2777,12 @@ def event_phases(graph, reqs, shape, dev):
                                                     n_pins=n_pins,
                                                     alpha_u32=alpha), 5),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None,
+        library_ms=None, chain_floor_ms=chain["chain_floor_ms"],
     )
     log("kernel", name="walk_step", device_ms=ms, walkers=w,
-        distinct_sectors=sectors, bound_bytes=nbytes)
+        distinct_sectors=sectors, bound_bytes=nbytes, **chain,
+        chain_floor_with_lanes_ms=(chain["chain_reads"] + 1) * read_ns["l2_ns"] * 1e-6,
+        **single)
     del outs, wouts, lane, hist, counts
     torch.cuda.empty_cache()
     return [visit_row, step_row], [replicated_launches, wide_launches,
@@ -2729,7 +2908,8 @@ def main() -> int:
     board_launches, _ = board_rec_full(graph, reqs, shape, cfg, dev)
 
     # 21-23. event-mode serving and the legacy kernels on the same graph ---------
-    event_rows, event_paths, event_ops = event_phases(graph, reqs, shape, dev)
+    event_rows, event_paths, event_ops = event_phases(graph, reqs, shape, dev,
+                                                      read_ns)
 
     # 6. full-width ranked serving ------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -2926,6 +3106,9 @@ def main() -> int:
     log("batched", requests=len(breqs), batches=srv.stats.batches,
         identical=True, launches=batch_launches["pallas"])
 
+    # 4b. batches past 12,288 counter rows, unsharded and sharded
+    past_cap_launches = past_cap_phases(sg, cfg, dev)
+
     # 5b. wide counter at the batched board shapes
     binp = walk_inputs(sg.graph, small, 4, bcfg)
     _, bq, bs, _, bb = run_walk_kernel(binp)
@@ -2984,7 +3167,7 @@ def main() -> int:
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
-             *sharded_paths, *lm_paths, *event_paths]
+             *past_cap_launches, *sharded_paths, *lm_paths, *event_paths]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
             *event_rows, sharded_rows[1]]
     for row in rows:
@@ -2996,7 +3179,8 @@ def main() -> int:
     if any(row["launches"] == 0 for row in rows):
         raise AssertionError(f"a kernel never launched: {[r['name'] for r in rows if not r['launches']]}")
     log("launches", retrieval=serve_launches, board_rec_full=board_launches,
-        batched=batch_launches["pallas"],
+        batched=batch_launches["pallas"], past_cap=past_cap_launches[0],
+        sharded_past_cap=past_cap_launches[1],
         ranked=ranked_launches, open_loop=open_launches,
         batched_ranked=rlaunches["pallas"], users=user_launches,
         chaos=chaos_launches, sharded_parity=sharded_paths[0],

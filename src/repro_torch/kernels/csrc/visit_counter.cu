@@ -34,11 +34,16 @@
 // 10,628 bins there).  The bin crossed n_v iff that add took it from
 // old < n_v to old + c >= n_v, and exactly one add of a crossing bin sees
 // that, whatever the order of the atomics, so integer results are
-// bit-identical to the twin.  Crossings go to a per-block tally in shared
-// memory (n_rows <= kMaxRows), which bounds the contention on a few tally
-// words when most bins cross (n_v = 1); at the end each block adds its
-// non-zero rows straight into the caller's tally, in place, so no zeroed
-// delta buffer and no add on the host side are needed.
+// bit-identical to the twin.  Each crossing goes straight into the
+// caller's tally, high[row], with a global atomic, the crossings of a warp
+// to one row combined first (a warp's events are consecutive walkers, so
+// they share a row or two): no zeroed delta buffer, no add on the host
+// side, and no row cap, as the reference's kernel has none.  A per-block
+// tally in shared memory, flushed at the end, caps the rows at 12,288 (48
+// KB) and measured as slow or slower on the card at every row count, also
+// when every bin crosses (n_v = 1), and 1.7 us slower at 12,288 rows,
+// where each block zeroes and flushes more tally words than its events
+// touch (kernel_sweep.py, 8 to 16,384 rows; PERF.md section 6).
 //
 // visit_counter_wide runs once per chunk on the board-rec path, on ~10^6
 // events whose (query, slot, board) bins repeat heavily (the board-rec
@@ -72,16 +77,12 @@
 namespace {
 
 constexpr int kHighBlock = 256;
-constexpr int kMaxRows = 12288;  // 48 KB of per-block tally
 
 __global__ void __launch_bounds__(kHighBlock) update_high_kernel(
     const int* __restrict__ qev, const int* __restrict__ sev,
     const int* __restrict__ pev, long long m, int n_slots, int n_pins,
-    int n_queries, int n_rows, int n_v, int* __restrict__ counts,
+    int n_queries, int n_v, int* __restrict__ counts,
     int* __restrict__ high) {
-  extern __shared__ int tally[];
-  for (int r = threadIdx.x; r < n_rows; r += kHighBlock) tally[r] = 0;
-  __syncthreads();
   const int lane = threadIdx.x & 31;
   // block-uniform loop: every lane reaches __match_any_sync
   for (long long base = static_cast<long long>(blockIdx.x) * kHighBlock;
@@ -101,16 +102,16 @@ __global__ void __launch_bounds__(kHighBlock) update_high_kernel(
       if (valid) bin = row * n_pins + p;
     }
     const unsigned peers = __match_any_sync(0xffffffffu, bin);
+    bool crossed = false;
     if (bin >= 0 && lane == __ffs(peers) - 1) {
       const int c = __popc(peers);
       const int old = atomicAdd(&counts[bin], c);
-      if (old < n_v && n_v - old <= c) atomicAdd(&tally[row], 1);
+      crossed = old < n_v && n_v - old <= c;
     }
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < n_rows; r += kHighBlock) {
-    const int t = tally[r];
-    if (t) atomicAdd(&high[r], t);
+    if (__any_sync(0xffffffffu, crossed)) {
+      const unsigned same = __match_any_sync(0xffffffffu, crossed ? row : -1);
+      if (crossed && lane == __ffs(same) - 1) atomicAdd(&high[row], __popc(same));
+    }
   }
 }
 
@@ -229,22 +230,19 @@ __global__ void histogram_kernel(const int* __restrict__ ev, long long m,
 
 // counts (n_rows * n_pins,) is updated in place, and high (n_rows,) gains
 // per row the bins that crossed n_v, in place (n_rows is n_queries *
-// n_slots with a query lane, else n_slots, and at most kMaxRows, the
-// wrapper's MAX_HIGH_ROWS).  qev may be null (per-query mode).
-// One launch; none when m is 0.  Returns cudaGetLastError().
+// n_slots with a query lane, else n_slots; any count whose bins fit
+// int32).  qev may be null (per-query mode).  One launch; none when m is
+// 0.  Returns cudaGetLastError().
 extern "C" int visit_counter_update_high_launch(
     const int* qev, const int* sev, const int* pev, long long m, int n_slots,
     int n_pins, int n_queries, int n_v, int* counts, int* high,
     void* stream) {
-  const int n_rows = qev != nullptr ? n_queries * n_slots : n_slots;
-  if (n_rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
   if (m > 0) {
     const long long blocks = (m + kHighBlock - 1) / kHighBlock;
     const int grid = static_cast<int>(blocks < 4096 ? blocks : 4096);
-    update_high_kernel<<<grid, kHighBlock, n_rows * sizeof(int),
+    update_high_kernel<<<grid, kHighBlock, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        qev, sev, pev, m, n_slots, n_pins, n_queries, n_rows, n_v, counts,
-        high);
+        qev, sev, pev, m, n_slots, n_pins, n_queries, n_v, counts, high);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,8 +23,9 @@ running ``(n_rows,)`` int32 tally as ``high``, it adds the crossings into
 it in place and returns it: one launch per counting call, where a fresh
 delta would cost a fill and an add besides.  Without ``high`` it returns
 a fresh delta, the reference's shape: the in-place path applied to a
-zeroed tally.  The kernel keeps a per-block tally in shared memory, so
-``n_rows`` is capped at ``MAX_HIGH_ROWS``.
+zeroed tally.  Any row count is taken, as the reference's kernel takes
+any: a few rows are tallied per block in shared memory, more straight
+into ``high`` with global atomics (``csrc/visit_counter.cu``).
 
 The kernel wrappers take CUDA tensors only; the ``*_plain`` functions are
 the plain PyTorch twins (ports of ``ref.visit_counter_ref``,
@@ -43,7 +44,6 @@ import torch
 from repro_torch.kernels import _build
 
 _LANES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-MAX_HIGH_ROWS = 12_288   # the kernel's per-block tally: 48 KB of shared memory
 
 
 def _fn(name: str, argtypes):
@@ -124,11 +124,6 @@ def visit_counter_update_high(
         raise ValueError(f"n_v must be >= 1 for crossing tallies, got {n_v}")
     n_rows = _n_rows(n_slots, n_queries, query_events)
     require_dense_bins(n_rows * n_pins)
-    if n_rows > MAX_HIGH_ROWS:
-        raise ValueError(
-            f"visit_counter_update_high tallies at most {MAX_HIGH_ROWS} rows "
-            f"in shared memory, got {n_rows}"
-        )
     lanes = [("query_events", query_events), ("slot_events", slot_events),
              ("pin_events", pin_events)]
     dev = _check(counts, lanes, n_rows * n_pins, "visit_counter_update_high")

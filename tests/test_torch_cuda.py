@@ -36,11 +36,15 @@ query lane); the embedding bag at the edge lengths of its staging (1 to
 bag sets, one launch, equal to two calls.
 The counter adds its crossing tally into the caller's tally in place, one
 launch, equal to the twin's prior tally plus its delta (one bin hit by
-every event, n_v 1, many rows, the row cap).  The legacy flat histogram
+every event, n_v 1, many rows, past the old row cap).  The legacy flat histogram
 and one-superstep walk must equal their twins exactly (no events,
 out-of-range ids, dead ends on each CSR's last row, high-bit words,
-walker counts off the 256-multiple), and event mode's kernel path its
-plain path and the CPU run, every field.
+walker counts off the 256-multiple and on both sides of the launcher's
+block sizes), and event mode's kernel path its plain path and the CPU
+run, every field.  The counter takes any row count: past 12,288 rows (the
+shared-memory tally's old cap) it equals its twin, with a query lane and
+without, n_v 1 included, and a sharded batch past it serves on the
+kernel path as on the plain path.
 """
 
 import dataclasses
@@ -337,14 +341,31 @@ def test_update_high_adds_into_a_prefilled_tally(cuda_device, with_query):
     assert int(dp.sum()) > 0
 
 
-@pytest.mark.parametrize("case", ["one_bin", "n_v_1", "many_rows", "row_cap"])
+# past 12,288 rows the kernel tallies crossings with global atomics, below
+# it in shared memory: (rows, with a query lane, n_v) on both sides of it
+ROW_CAP_CASES = {
+    "row_cap": (12_289, True, 3),
+    "row_cap_16384": (16_384, True, 3),
+    "row_cap_n_v_1": (16_384, True, 1),
+    "row_cap_no_query_lane": (12_289, False, 3),
+    "row_cap_no_query_lane_16384": (16_384, False, 1),
+}
+
+
+@pytest.mark.parametrize("case", ["one_bin", "n_v_1", "many_rows", *ROW_CAP_CASES])
 def test_update_high_edge_cases_match_twin(cuda_device, case):
+    """Every row count is taken: past the old 12,288-row cap the kernel
+    equals its twin too, into a prefilled tally."""
     rng = np.random.default_rng(len(case))
     n_queries, n_slots, n_pins, n_v, m = 2, 4, 300, 3, 50_000
+    with_query = True
     if case == "many_rows":
         n_queries, n_slots = 128, 16
-    if case == "row_cap":
-        n_queries, n_slots, n_pins = vc.MAX_HIGH_ROWS // 8, 8, 64
+    if case in ROW_CAP_CASES:
+        n_rows, with_query, n_v = ROW_CAP_CASES[case]
+        n_pins, m = 64, 200_000
+        n_slots = (8 if n_rows % 8 == 0 else 1) if with_query else n_rows
+        n_queries = n_rows // n_slots
     if case == "n_v_1":
         n_v = 1
     q = rng.integers(0, n_queries, m).astype(np.int32)
@@ -354,23 +375,25 @@ def test_update_high_edge_cases_match_twin(cuda_device, case):
         q[:], s[:], p[:], n_v = 1, 2, 7, 20_000
     t = lambda a: torch.as_tensor(a, device=cuda_device)
     n_rows = n_queries * n_slots
-    ck = torch.zeros(n_rows * n_pins, dtype=torch.int32, device=cuda_device)
+    ck = torch.as_tensor(rng.integers(0, 2, n_rows * n_pins).astype(np.int32),
+                         device=cuda_device)
+    if n_v == 1:
+        ck.zero_()                       # every touched bin crosses
     cp = ck.clone()
     hk = torch.full((n_rows,), 5, dtype=torch.int32, device=cuda_device)
-    kw = dict(n_slots=n_slots, n_pins=n_pins, n_v=n_v, n_queries=n_queries)
-    vc.visit_counter_update_high(ck, t(s), t(p), t(q), high=hk, **kw)
-    dp = vc.visit_counter_update_high_plain(cp, t(s), t(p), t(q), **kw)
+    kw = dict(n_slots=n_slots, n_pins=n_pins, n_v=n_v,
+              n_queries=n_queries if with_query else 0)
+    qe = t(q) if with_query else None
+    _build.reset_launches()
+    vc.visit_counter_update_high(ck, t(s), t(p), qe, high=hk, **kw)
+    assert _build.launches["visit_counter_update_high"] == 1
+    dp = vc.visit_counter_update_high_plain(cp, t(s), t(p), qe, **kw)
     assert torch.equal(ck, cp) and torch.equal(hk, 5 + dp)
+    assert int(dp.sum()) > 0
     if case == "one_bin":
         assert int(dp.sum()) == 1 and int(dp[1 * n_slots + 2]) == 1
-    if case == "n_v_1":
+    if n_v == 1:
         assert int(dp.sum()) == int((cp > 0).sum())
-    if case == "row_cap":
-        with pytest.raises(ValueError, match="at most"):
-            vc.visit_counter_update_high(
-                torch.zeros((n_rows + 8) * n_pins, dtype=torch.int32,
-                            device=cuda_device), t(s), t(p), t(q),
-                n_slots=n_slots, n_pins=n_pins, n_v=n_v, n_queries=n_queries + 1)
 
 
 def test_wrappers_count_launches_and_check_inputs(graph, cuda_device):
@@ -754,6 +777,45 @@ def test_sharded_walk_kernel_path_matches_plain_path(cuda_device, slack, dead):
         assert int(out["pallas"].dropped) > 0 and int(out["pallas"].killed) > 0
 
 
+def test_sharded_serve_batch_past_the_row_cap_matches_plain_path(cuda_device):
+    """1,600 queries x 8 slots: each of two shards counts 12,800 rows, past
+    the old 12,288-row cap of the counter kernel; the kernel path equals
+    the plain path, drops included."""
+    sg20 = synthetic.generate(
+        synthetic.SyntheticGraphConfig(n_pins=20_000, n_boards=2_000,
+                                       n_topics=16, n_langs=4, seed=7),
+        device=cuda_device)
+    shg = distributed.shard_graph(sg20.graph, 2)
+    n_queries, n_slots = 1_600, 8
+    rng = np.random.default_rng(12)
+    qs = synthetic.top_degree_pins(sg20, 256)
+    pins = np.full((n_queries, n_slots), -1, np.int32)
+    weights = np.zeros((n_queries, n_slots), np.float32)
+    for i in range(n_queries):
+        k = 1 + i % n_slots
+        pins[i, :k] = rng.choice(qs, k, replace=False)
+        weights[i, :k] = rng.uniform(0.2, 1.0, k)
+    t = lambda a: torch.as_tensor(a, device=cuda_device)
+    args = (shg, t(pins), t(weights), torch.zeros(n_queries, dtype=torch.int32,
+                                                  device=cuda_device),
+            prng.split(prng.key(13, cuda_device), n_queries))
+    fabric = distributed.LocalFabric(2, device=cuda_device)
+    cfg = walk.WalkConfig(n_steps=2_000, n_walkers=64, chunk_steps=4, top_k=20,
+                          n_p=30, n_v=2, bias_beta=0.0)
+    out = {}
+    for backend in ("pallas", "xla"):
+        _build.reset_launches()
+        out[backend] = service.serve_batch(*args, cfg, backend=backend,
+                                           with_stats=True, fabric=fabric)
+        torch.cuda.synchronize()
+        launched = _build.launches["visit_counter_update_high"]
+        assert (launched > 0) == (backend == "pallas")
+    assert len(out["pallas"]) == 5
+    for a, b in zip(out["pallas"], out["xla"]):
+        assert torch.equal(a, b)
+    assert int(out["pallas"][3].sum()) > 0
+
+
 # (b, h, kh, dh, s, lengths): "ragged" draws each row's length, an int is
 # one length for every row
 ATTN_CASES = [
@@ -918,7 +980,12 @@ def _dead_end_csr(dev):
             t([0, 2, 4, 4, 4]), t([1, 4, 2, 4]), 6)
 
 
-@pytest.mark.parametrize("w", [1, 100, 256, 4096])
+# walker counts around the launcher's block sizes (32 to 256 threads,
+# sized so that every SM gets a block) and the TPU kernel's 256
+STEP_WALKERS = [1, 31, 33, 100, 256, 4096, 8191, 8193]
+
+
+@pytest.mark.parametrize("w", STEP_WALKERS)
 @pytest.mark.parametrize("alpha_u32", [0, 2**31, 2**32 - 1])
 @pytest.mark.parametrize("which", ["small_test_graph", "dead_ends"])
 def test_walk_step_kernel_matches_twin(graph, cuda_device, which, alpha_u32, w):
@@ -928,8 +995,13 @@ def test_walk_step_kernel_matches_twin(graph, cuda_device, which, alpha_u32, w):
         csr, n_pins = list(_csr(graph)[:4]), graph.n_pins
     rng = np.random.default_rng(w + alpha_u32 % 97)
     t = lambda a: torch.as_tensor(a, device=cuda_device)
-    curr = t(rng.integers(0, n_pins, w).astype(np.int32))
-    query = t(rng.integers(0, n_pins, w).astype(np.int32))
+    curr = rng.integers(0, n_pins, w).astype(np.int32)
+    query = rng.integers(0, n_pins, w).astype(np.int32)
+    if which == "dead_ends":
+        # every walker's restart or not: the last pin (no boards) and pin 3,
+        # whose one board is the last board row (no pins)
+        curr[:2] = query[:2] = [n_pins - 1, 3][:w]
+    curr, query = t(curr), t(query)
     words = rng.integers(0, 2**32, (w, 3), dtype=np.uint64).astype(np.uint32)
     words[::2] |= np.uint32(2**31)          # high-bit draws
     rbits = t(words.view(np.int32))
