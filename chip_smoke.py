@@ -207,9 +207,44 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              lane read, logged beside it) and single launches timed with a
              warm and an evicted L2.
 
+24. prune   run after phase 23, before the ranker's table exists, so only
+             the full-width graph, its two int8 language arrays and the
+             topics are resident: seeded stand-in pin topics (140M x 16
+             float32, 8.96 GB, softmax(z / 0.25) of normal draws from one
+             torch.Generator on the card; the recipe is printed), then
+             pruning.prune_graph with the reference's PruneConfig (10% of
+             boards by entropy, delta 0.91, min_keep 2) and the languages:
+             edges before, after entropy pruning and after degree pruning,
+             boards dropped, bytes before and after, seconds, resident GB
+             before and peak GB of the phase; the counts must hold
+             together and no pin may keep more than its ceil(d**delta)
+             target.  Then phase 2's 24 requests through PixieServer on the
+             pruned graph: kernel path == plain path (ids, scores,
+             steps_taken, n_high), walk_steps_fused and
+             visit_counter_update_high launched, p50 beside phase 2's
+             unpruned p50.  The topics and the pruned graph are freed.
+25. fig4     on the 20k graph, bench_fig4_pruning.py's sweep (delta 1.0,
+             0.95, 0.9, 0.8, 0.65; 10% of boards): the card's pruned CSR
+             arrays and stats equal to the CPU's at every delta; edges,
+             keep fraction and link-prediction F1 (20 held-out boards,
+             walk.recommend on the kernel path) per delta; the boards whose
+             entropy on the card differs from the CPU's (float64 log), and
+             the degrees 0..10,000 where the card's pow would part from
+             numpy's (the port uses numpy's table).
+26. table1   bench_table1_hitrate.py's 40 queries on the 20k graph: hit
+             rates at 10, 100 and 1000 of the textual, visual and combined
+             content baselines and of Pixie (kernel path); each baseline's
+             scores on the card against the CPU port's (cosine within 2e-6,
+             Hamming and combined exact).  Quality is printed, not gated.
+27. oracle   on small_test_graph, the kernel-path walk's normalized visits
+             against core/reference.py's sequential oracle: total-variation
+             distance under 0.15 unbiased (basic_random_walk_ref, oracle
+             seed 3, walk key 0) and 0.2 biased (pixie_random_walk_ref,
+             language 1, seed 5, key 1), the reference test's own bounds.
+
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
-13, 14, 18, 19 and 19b, 20, 21, 22, 23); the kernels line sums them, and every one of its nine kernels
+13, 14, 18, 19 and 19b, 20, 21, 22, 23, 24, 25, 26, 27); the kernels line sums them, and every one of its nine kernels
 (the eight TPU kernels' and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
 kernels (ptxas -v).  The profiled
@@ -316,7 +351,9 @@ def wall_ms(fn) -> float:
 
 
 def full_width_graph(shape, dev):
-    """Uniform random edges with 4 edge languages, drawn on the card."""
+    """Uniform random edges with 4 edge languages, drawn on the card:
+    ``(graph, (pin_lang, board_lang))``, the languages int8 (pruning sorts
+    the pruned graph's edges by them)."""
     import torch
     from repro_torch.core.graph import build_graph
 
@@ -330,14 +367,13 @@ def full_width_graph(shape, dev):
     board_lang = randint(4, shape.n_boards, torch.int8)
     p2b_feat = torch.index_select(board_lang, 0, boards)
     b2p_feat = torch.index_select(pin_lang, 0, pins)
-    del pin_lang, board_lang
     graph = build_graph(
         pins, boards, shape.n_pins, shape.n_boards,
         edge_feat=p2b_feat, n_feats=4, edge_feat_b2p=b2p_feat,
     )
     del pins, boards, p2b_feat, b2p_feat
     torch.cuda.empty_cache()
-    return graph
+    return graph, (pin_lang, board_lang)
 
 
 def full_width_requests(graph, n_slots: int):
@@ -2789,6 +2825,352 @@ def event_phases(graph, reqs, shape, dev, read_ns: dict):
                                    legacy_launches], event_ops
 
 
+# ---------------------------------------------------------------------------
+# Phases 24-27: the paper's graph pruning, content baselines and oracle
+# ---------------------------------------------------------------------------
+
+TOPICS = 16                  # topics a pin (the benchmarks' 20k graph's count)
+TOPIC_TEMPERATURE = 0.25     # softmax(z / T), z ~ N(0, 1): peaked, row-stochastic
+TOPIC_ROWS = 10_000_000      # rows drawn at a time
+FIG4_DELTAS = (1.0, 0.95, 0.9, 0.8, 0.65)   # bench_fig4_pruning.py's sweep
+FIG4_BOARDS = 20
+TABLE1_QUERIES = 40
+TABLE1_KS = (10, 100, 1000)
+COSINE_TOL = 2e-6            # the CPU tests' bound on cosine scores
+ORACLE_TV = {"basic": 0.15, "biased": 0.2}   # tests/test_walk.py:42, :64
+
+
+def draw_topics(n_pins: int, dev):
+    """Seeded stand-in pin topics on the card: ``softmax(z / T)`` of normal
+    draws, a block of rows at a time, from one explicit generator."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    topics = torch.empty((n_pins, TOPICS), dtype=torch.float32, device=dev)
+    for r0 in range(0, n_pins, TOPIC_ROWS):
+        r1 = min(r0 + TOPIC_ROWS, n_pins)
+        z = torch.randn((r1 - r0, TOPICS), generator=gen, device=dev)
+        topics[r0:r1] = torch.softmax(z / TOPIC_TEMPERATURE, dim=1)
+        del z
+    return topics
+
+
+def serve_all(server, reqs):
+    """The requests one at a time through ``server``: results by id."""
+    out = []
+    for rid, (p, w, f) in enumerate(reqs):
+        server.submit(p, w, user_feat=f, req_id=rid)
+        server.pump()
+        out += server.harvest()
+    return sorted(out, key=lambda r: r.req_id)
+
+
+def prune_full(graph, langs, reqs, shape, cfg, dev, unpruned_p50: float) -> dict:
+    """Phase 24: the paper's pruning at full width on the card (topics
+    drawn on the card), then the phase-2 requests on the pruned graph,
+    kernel path == plain path.  Returns that serving run's launches."""
+    import torch
+    from repro_torch.core import prng, pruning, service
+    from repro_torch.kernels import _build
+    from repro_torch.serving.server import PixieServer
+
+    resident = torch.cuda.memory_allocated() / 1e9
+    t = time.perf_counter()
+    topics = draw_topics(graph.n_pins, dev)
+    torch.cuda.synchronize()
+    log("topics", shape=list(topics.shape), gb=topics.numel() * 4 / 1e9,
+        draw_s=time.perf_counter() - t, seed=SEED + 24,
+        recipe=f"softmax(z / {TOPIC_TEMPERATURE}) per row, z ~ N(0, 1) float32 "
+               f"from torch.Generator({dev.type}).manual_seed({SEED + 24}), "
+               f"{TOPIC_ROWS:,} rows at a time")
+    pcfg = pruning.PruneConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    pruned, stats = pruning.prune_graph(graph, topics, None, pcfg,
+                                        board_lang=langs[1], pin_lang=langs[0],
+                                        n_langs=4)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del topics
+    # the stages' counts hold together, and no pin keeps more than its target
+    before, after = graph.p2b.degrees(), pruned.p2b.degrees()
+    table = torch.as_tensor(pruning.degree_targets(
+        graph.max_pin_degree, pcfg.delta, pcfg.min_keep), device=dev)
+    if not (stats["edges_before"] >= stats["edges_after_entropy"]
+            >= stats["edges_after"] == pruned.n_edges == pruned.b2p.n_edges):
+        raise AssertionError(f"full-width prune: inconsistent counts {stats}")
+    if stats["boards_dropped"] != int(pcfg.entropy_board_frac * graph.n_boards):
+        raise AssertionError("full-width prune dropped the wrong number of boards")
+    if bool((after > table[before.long()]).any()) or bool((after > before).any()):
+        raise AssertionError("full-width prune kept more edges than a pin's target")
+    boards_left = int((pruned.b2p.degrees() > 0).sum())
+    if boards_left > graph.n_boards - stats["boards_dropped"]:
+        raise AssertionError("a dropped board kept an edge")
+    del before, after, table
+    torch.cuda.empty_cache()
+    log("prune", config=dataclasses.asdict(pcfg), stats=stats, seconds=seconds,
+        resident_gb=resident, peak_gb=peak, n_edges=pruned.n_edges,
+        max_pin_degree=pruned.max_pin_degree, graph_gb=pruned.nbytes() / 1e9,
+        boards_with_edges=boards_left, chunk_edges=pruning.CHUNK_EDGES,
+        cuts=["none in the graph (phase 2's uniform random edges)",
+              "pin topics are seeded stand-ins drawn on the card: no topic "
+              "data is public, and uniform edges carry no topic structure"])
+
+    service.serve_batch(pruned, *padded_batch(reqs[:1], shape.n_slots, dev),
+                        prng.key(SEED, dev), cfg)                 # warm-up
+    server = PixieServer(pruned, cfg, buckets=[(1, shape.n_slots)], seed=SEED)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    results = serve_all(server, reqs)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for name in ("walk_steps_fused", "visit_counter_update_high"):
+        if launches[name] == 0:
+            raise AssertionError(f"serving the pruned graph never launched {name}")
+    ids = list(range(len(reqs)))
+    kern = serve_with_stats(pruned, reqs, ids, shape.n_slots, cfg, "pallas")
+    plain = serve_with_stats(pruned, reqs, ids, shape.n_slots, cfg, "xla")
+    for rid, a, b, r in zip(ids, kern, plain, results):
+        assert_same(a, b, f"pruned request {rid}")
+        if not (np.array_equal(a[0][0].cpu().numpy(), r.scores)
+                and np.array_equal(a[1][0].cpu().numpy(), r.ids)):
+            raise AssertionError(f"pruned request {rid}: server differs from serve_batch")
+        live = pruned.pin_degree(torch.as_tensor(reqs[rid][0], device=dev))
+        if bool((live > 0).any()):      # a pin with edges left: the walk ran
+            check_result(r.scores, r.ids, cfg.top_k, pruned.n_pins, f"pruned {rid}")
+    lat = [r.latency_ms for r in results]
+    log("pruned_serve", requests=len(results), p50_ms=float(np.percentile(lat, 50)),
+        unpruned_p50_ms=unpruned_p50, max_ms=float(np.max(lat)), latencies_ms=lat,
+        identical_to_plain=True, launches=launches,
+        steps_taken=[int(a[2].sum()) for a in kern],
+        n_high=[int(a[3].sum()) for a in kern])
+    del pruned, server, results, kern, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def link_pred_f1(sg, graph, dev, seed: int = SEED) -> float:
+    """``bench_fig4_pruning.py``'s link prediction on the port, kernel
+    path: each held-out board's first 8 members query the walk, F1 of the
+    top 100 against the board's held-out pins."""
+    import torch
+    from repro_torch.core import prng, walk
+
+    rng = np.random.default_rng(seed)
+    by_board = {}
+    for p, b in zip(sg.heldout_pins, sg.heldout_boards):
+        by_board.setdefault(int(b), []).append(int(p))
+    boards = [b for b, pins in by_board.items() if len(pins) >= 2]
+    rng.shuffle(boards)
+    off = graph.b2p.offsets.cpu().numpy()
+    tgt = graph.b2p.targets.cpu().numpy()
+    cfg = walk.WalkConfig(n_steps=20_000, n_walkers=256, top_k=100, n_p=10**9,
+                          n_v=10**9, backend="pallas")
+    f1s = []
+    for i, b in enumerate(boards[:FIG4_BOARDS]):
+        members = tgt[off[b]:off[b + 1]][:8]
+        if members.size == 0:
+            continue
+        qp = np.full(8, -1, np.int32)
+        qp[:members.size] = members
+        qw = np.zeros(8, np.float32)
+        qw[:members.size] = 1.0
+        vals, ids = walk.recommend(graph, torch.as_tensor(qp, device=dev),
+                                   torch.as_tensor(qw, device=dev), 0,
+                                   prng.key(seed + i, dev), cfg)
+        r = set(ids.cpu().numpy()[vals.cpu().numpy() > 0].tolist())
+        x = set(by_board[b])
+        tp = len(r & x)
+        prec, rec = tp / max(len(r), 1), tp / max(len(x), 1)
+        f1s.append(2 * prec * rec / max(prec + rec, 1e-9))
+    return float(np.mean(f1s)) if f1s else 0.0
+
+
+def prune_20k(sg, dev) -> dict:
+    """Phase 25: the Fig. 4 sweep on the 20k graph, the card's prune equal
+    to the CPU's array for array at every delta; link-prediction F1 on the
+    kernel path.  Returns the F1 walks' launches."""
+    import torch
+    from repro_torch.core import graph as graph_lib
+    from repro_torch.core import pruning
+    from repro_torch.kernels import _build
+
+    cpu_graph = sg.graph.to("cpu")
+    # the entropy's float64 log is the card's; measured against the CPU's
+    pins, boards = graph_lib.edge_list(cpu_graph)
+    ent_cpu = pruning.board_entropy(pins, boards, sg.pin_topics, cpu_graph.n_boards)
+    ent_card = pruning.board_entropy(
+        torch.as_tensor(pins, device=dev), torch.as_tensor(boards, device=dev),
+        torch.as_tensor(sg.pin_topics, device=dev), cpu_graph.n_boards).cpu()
+    # and the card's pow, which the port does not use (numpy's table)
+    deg = np.arange(10_001)
+    pow_parts = {d: int((torch.ceil(torch.pow(torch.as_tensor(
+        deg, dtype=torch.float64, device=dev), d)).cpu().numpy()
+        != np.ceil(deg.astype(np.float64) ** d)).sum()) for d in FIG4_DELTAS}
+    rows = []
+    _build.reset_launches()
+    for delta in FIG4_DELTAS:
+        pcfg = pruning.PruneConfig(entropy_board_frac=0.10, delta=delta)
+        kw = dict(board_lang=sg.board_lang, pin_lang=sg.pin_lang, n_langs=4)
+        t = time.perf_counter()
+        card, stats = pruning.prune_graph(sg.graph, sg.pin_topics, None, pcfg, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        host, host_stats = pruning.prune_graph(cpu_graph, sg.pin_topics, None, pcfg, **kw)
+        cpu_s = time.perf_counter() - t
+        a, b = graph_lib.graph_to_numpy(card), graph_lib.graph_to_numpy(host)
+        if stats != host_stats or a.keys() != b.keys() or not all(
+                np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"delta {delta}: the card's prune differs from the CPU's")
+        rows.append(dict(delta=delta, edges=stats["edges_after"],
+                         edge_keep_frac=stats["edge_keep_frac"],
+                         f1=link_pred_f1(sg, card, dev), card_s=card_s, cpu_s=cpu_s))
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for name in ("walk_steps_fused", "visit_counter_update_high"):
+        if launches[name] == 0:
+            raise AssertionError(f"the Fig. 4 walks never launched {name}")
+    log("prune_20k", sweep=rows, card_equals_cpu=True, board_frac=0.10,
+        entropy_boards_differ=int((ent_card != ent_cpu).sum()),
+        entropy_max_abs_diff=float((ent_card - ent_cpu).abs().max()),
+        card_pow_degrees_differ=pow_parts,
+        boards_evaluated=FIG4_BOARDS, launches=launches,
+        note="synthetic 20k graph (seed 7), not the paper's data")
+    return launches
+
+
+def table1_queries(sg, n: int, seed: int = SEED) -> np.ndarray:
+    """``benchmarks/common.py`` ``sample_query_pins``: pins drawn by degree."""
+    rng = np.random.default_rng(seed)
+    degs = sg.graph.p2b.degrees().cpu().numpy().astype(np.float64)
+    return rng.choice(sg.graph.n_pins, size=n, replace=False,
+                      p=degs / degs.sum()).astype(np.int32)
+
+
+def baselines_20k(sg, dev) -> dict:
+    """Phase 26: Table 1 on the card (bench_table1_hitrate.py's queries and
+    ground truth): hit rates at 10 / 100 / 1000 of the three content
+    baselines and Pixie; each baseline's scores on the card against the
+    CPU port's.  Returns the Pixie walks' launches."""
+    import torch
+    from repro_torch.core import baselines, prng, walk
+    from repro_torch.kernels import _build
+
+    g = sg.graph
+    rng = np.random.default_rng(SEED)
+    queries = table1_queries(sg, TABLE1_QUERIES)
+    p2b_off, p2b_tgt = g.p2b.offsets.cpu().numpy(), g.p2b.targets.cpu().numpy()
+    b2p_off, b2p_tgt = g.b2p.offsets.cpu().numpy(), g.b2p.targets.cpu().numpy()
+
+    def co_board_pin(q):
+        lo, hi = p2b_off[q], p2b_off[q + 1]
+        if hi == lo:
+            return None
+        b = p2b_tgt[rng.integers(lo, hi)] - g.n_pins
+        cands = b2p_tgt[b2p_off[b]:b2p_off[b + 1]]
+        cands = cands[cands != q]
+        return None if cands.size == 0 else int(rng.choice(cands))
+
+    text, vis = baselines.make_content_embeddings(sg.pin_topics, seed=SEED)
+    on = {d: (torch.as_tensor(text, device=d), torch.as_tensor(vis, device=d))
+          for d in (dev, torch.device("cpu"))}
+    scorers = {
+        "content_text": lambda t, v, q: baselines.cosine_rank_scores(t, q),
+        "content_visual": lambda t, v, q: baselines.hamming_rank_scores(v, q),
+        "content_combined": baselines.combined_rank_scores,
+    }
+    cfg = walk.WalkConfig(n_steps=30_000, n_walkers=512, top_k=1000, bias_beta=0.0,
+                          n_p=10**9, n_v=10**9, backend="pallas")
+    hits = {m: {k: 0 for k in TABLE1_KS} for m in (*scorers, "pixie")}
+    cos_err, n_eval = 0.0, 0
+    _build.reset_launches()
+    for qi, q in enumerate(queries):
+        x = co_board_pin(int(q))
+        if x is None:
+            continue
+        n_eval += 1
+        for name, fn in scorers.items():
+            s = fn(*on[dev], int(q)).cpu().numpy()
+            s_cpu = fn(*on[torch.device("cpu")], int(q)).numpy()
+            err = float(np.abs(s - s_cpu).max())
+            if name == "content_text":
+                cos_err = max(cos_err, err)
+                if err > COSINE_TOL:
+                    raise AssertionError(f"query {q}: cosine scores {err} apart")
+            elif err != 0.0:
+                raise AssertionError(f"query {q}: {name} scores differ card vs CPU")
+            s = s.copy()
+            s[int(q)] = -np.inf
+            rank = int(np.sum(s > s[x]))
+            for k in TABLE1_KS:
+                hits[name][k] += int(rank < k)
+        vals, ids = walk.recommend(
+            g, torch.tensor([int(q)], dtype=torch.int32, device=dev),
+            torch.ones(1, device=dev), 0, prng.key(SEED + qi, dev), cfg)
+        ids, vals = ids.cpu().numpy(), vals.cpu().numpy()
+        pos = np.where((ids == x) & (vals > 0))[0]
+        rank = int(pos[0]) if pos.size else 10**9
+        for k in TABLE1_KS:
+            hits["pixie"][k] += int(rank < k)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for name in ("walk_steps_fused", "visit_counter_update_high"):
+        if launches[name] == 0:
+            raise AssertionError(f"the Table 1 walks never launched {name}")
+    table = {m: {f"top_{k}": hits[m][k] / max(n_eval, 1) for k in TABLE1_KS}
+             for m in hits}
+    log("baselines_20k", queries=n_eval, table=table, cosine_max_abs_err=cos_err,
+        cosine_tol=COSINE_TOL, hamming_identical=True, combined_identical=True,
+        launches=launches, note="synthetic 20k graph (seed 7), not the paper's data")
+    return launches
+
+
+def oracle_check(dev) -> dict:
+    """Phase 27: the kernel-path walk against the sequential oracle on
+    small_test_graph, as tests/test_walk.py holds the reference's engine:
+    total-variation distance of the normalized visits under 0.15 (basic)
+    and 0.2 (biased).  Returns the walks' launches."""
+    import torch
+    from repro_torch.core import prng, reference, walk
+    from repro_torch.graphs import synthetic
+    from repro_torch.kernels import _build
+
+    sg = synthetic.small_test_graph(0, device=dev)
+    g = sg.graph
+    q = int(synthetic.top_degree_pins(sg, 1)[0])
+
+    def tv(a, b):
+        return 0.5 * float(np.abs(a / max(a.sum(), 1) - b / max(b.sum(), 1)).sum())
+
+    _build.reset_launches()
+    v_ref = reference.basic_random_walk_ref(g, q, alpha=0.5, n_steps=40_000, seed=3)
+    cfg = walk.WalkConfig(n_steps=40_000, n_walkers=512, bias_beta=0.0, n_p=10**9,
+                          n_v=10**9, backend="pallas")
+    v = walk.basic_random_walk(g, q, prng.key(0, dev), cfg).cpu().numpy()
+    tv_basic = tv(v_ref, v)
+    b_ref = reference.pixie_random_walk_ref(
+        g, q, user_feat=1, alpha=0.5, n_steps=30_000, n_p=10**9, n_v=10**9,
+        beta=0.9, seed=5)
+    cfg = dataclasses.replace(cfg, n_steps=30_000, bias_beta=0.9)
+    res = walk.pixie_random_walk(g, torch.tensor([q], dtype=torch.int32, device=dev),
+                                 torch.ones(1, device=dev), 1, prng.key(1, dev), cfg)
+    tv_biased = tv(b_ref, res.counts[0].cpu().numpy())
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for name in ("walk_steps_fused", "visit_counter_update_high"):
+        if launches[name] == 0:
+            raise AssertionError(f"the oracle check never launched {name}")
+    if tv_basic >= ORACLE_TV["basic"] or tv_biased >= ORACLE_TV["biased"]:
+        raise AssertionError(f"oracle TV distance: basic {tv_basic}, biased {tv_biased}")
+    log("oracle", query_pin=q, tv_basic=tv_basic, tv_biased=tv_biased,
+        bounds=ORACLE_TV, seeds={"basic": {"oracle": 3, "walk_key": 0},
+                                 "biased": {"oracle": 5, "walk_key": 1}},
+        launches=launches)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2831,7 +3213,7 @@ def main() -> int:
     cfg = FULL_WALK
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    graph = full_width_graph(shape, dev)
+    graph, langs = full_width_graph(shape, dev)
     torch.cuda.synchronize()
     log("graph", name=shape.name, n_pins=graph.n_pins, n_boards=graph.n_boards,
         n_edges=graph.n_edges, max_pin_degree=graph.max_pin_degree,
@@ -2845,11 +3227,7 @@ def main() -> int:
 
     server = PixieServer(graph, cfg, buckets=[(1, shape.n_slots)], seed=SEED)
     _build.reset_launches()
-    results = []
-    for rid, (p, w, f) in enumerate(reqs):
-        server.submit(p, w, user_feat=f, req_id=rid)
-        server.pump()
-        results += server.harvest()
+    results = serve_all(server, reqs)
     torch.cuda.synchronize()
     serve_launches = dict(_build.launches)
     for name in ("walk_steps_fused", "visit_counter_update_high"):
@@ -2910,6 +3288,14 @@ def main() -> int:
     # 21-23. event-mode serving and the legacy kernels on the same graph ---------
     event_rows, event_paths, event_ops = event_phases(graph, reqs, shape, dev,
                                                       read_ns)
+
+    # 24. the paper's pruning at full width, where only the graph, its
+    # languages and the topics are resident; then the pruned graph served
+    log("prune_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
+    pruned_launches = prune_full(graph, langs, reqs, shape, cfg, dev,
+                                 float(np.percentile(lat, 50)))
+    del langs
+    torch.cuda.empty_cache()
 
     # 6. full-width ranked serving ------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -3155,6 +3541,11 @@ def main() -> int:
     # 10. chaos on the 20k retrieval replica --------------------------------------
     chaos_launches = chaos_runs(sg, cfg, dev)
 
+    # 25-27. Fig. 4's pruning sweep, Table 1's baselines, the oracle ----------------
+    fig4_launches = prune_20k(sg, dev)
+    table1_launches = baselines_20k(sg, dev)
+    oracle_launches = oracle_check(dev)
+
     # 16. the NCCL fabric on one rank, 4-way board counts ------------------------------
     nccl_fabric(sg, dev)
 
@@ -3167,7 +3558,8 @@ def main() -> int:
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
-             *past_cap_launches, *sharded_paths, *lm_paths, *event_paths]
+             *past_cap_launches, *sharded_paths, *lm_paths, *event_paths,
+             pruned_launches, fig4_launches, table1_launches, oracle_launches]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
             *event_rows, sharded_rows[1]]
     for row in rows:
@@ -3188,7 +3580,9 @@ def main() -> int:
         sharded_open_loop=sharded_paths[3], lm_f32=lm_paths[0],
         lm_bf16=lm_paths[1], decode_32k=lm_paths[2], lm_smollm=lm_paths[3],
         events_replicated=event_paths[0], events_wide=event_paths[1],
-        legacy_kernels=event_paths[2])
+        legacy_kernels=event_paths[2], pruned_serve=pruned_launches,
+        prune_20k=fig4_launches, baselines_20k=table1_launches,
+        oracle=oracle_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",

@@ -338,7 +338,7 @@ def sweep_step(dev, gen) -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import walk_step as ws
 
-    graph = cs.full_width_graph(SERVE_200M_REPLICATED, dev)
+    graph, _ = cs.full_width_graph(SERVE_200M_REPLICATED, dev)
     reqs = cs.full_width_requests(graph, SERVE_200M_REPLICATED.n_slots)
     query, words, csr, alpha = cs.legacy_step_inputs(graph, reqs, FULL_WALK)
     rb = ws.u32_bits_as_int32(words[0]).contiguous()

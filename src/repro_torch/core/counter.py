@@ -29,6 +29,40 @@ import torch
 from repro_torch.kernels import ops
 
 
+def dense_accumulate(
+    counts: torch.Tensor, pins: torch.Tensor, valid: torch.Tensor
+) -> torch.Tensor:
+    """Scatter-add a batch of visit events into per-slot dense counts.
+
+    ``counts`` is ``(n_slots, n_pins)``, ``pins`` and ``valid`` are
+    ``(n_slots, m)``; returns new counts.  An id is read as the
+    reference's ``.at[].add(mode="drop")`` reads it: a negative id wraps
+    once (``-1`` is the last bin), and an id still outside ``[0, n_pins)``
+    is dropped.
+    """
+    n_slots, n_pins = counts.shape
+    rows = torch.arange(n_slots, device=counts.device)[:, None] * n_pins
+    return _drop_mode_add(counts, pins, valid, n_pins, rows)
+
+
+def dense_accumulate_flat(
+    counts: torch.Tensor, pins: torch.Tensor, valid: torch.Tensor
+) -> torch.Tensor:
+    """Single-slot ``dense_accumulate``: counts ``(n_pins,)``, pins and
+    valid ``(m,)``."""
+    return _drop_mode_add(counts, pins, valid, counts.shape[0], 0)
+
+
+def _drop_mode_add(counts, pins, valid, n_pins: int, row_base):
+    ids = torch.where(valid, pins, 0).long()
+    ids = torch.where(ids < 0, ids + n_pins, ids)
+    keep = valid & (ids >= 0) & (ids < n_pins)
+    flat = (torch.where(keep, ids, 0) + row_base).reshape(-1)
+    out = counts.clone()
+    out.view(-1).index_add_(0, flat, keep.reshape(-1).to(counts.dtype))
+    return out
+
+
 def accumulate_packed_events(
     counts: torch.Tensor,
     slot_events: torch.Tensor,

@@ -112,6 +112,10 @@ class PinBoardGraph:
 # ---------------------------------------------------------------------------
 
 
+# edges per pass of the graph compiler's counting sort
+BUILD_CHUNK = 2**24
+
+
 def _build_csr(
     src: torch.Tensor,
     dst: torch.Tensor,
@@ -120,28 +124,45 @@ def _build_csr(
     n_feats: int,
     dst_base: int = 0,
 ) -> CSR:
-    """Sort edges by (src, feat), stably, and emit edgeVec CSR + bounds.
+    """Group edges by (src, feat), stably, and emit edgeVec CSR + bounds.
 
-    The composite key ``src * n_feats + feat`` sorted stably is the
-    reference's ``np.lexsort((feat, src))``.  Offsets and feature bounds
-    come from binary searches of the sorted keys (no per-edge int64
-    histogram), which keeps the production-size build inside the card.
+    A stable counting sort, the reference's ``np.lexsort((feat, src))``:
+    one pass counts each ``src * n_feats + feat`` key, a prefix sum places
+    each key's group, and a second pass moves every edge to its group's
+    next free slot in input order (within one pass a stable sort of the
+    pass's keys ranks the edges that share a key).  Only the per-key
+    counts and the output are as large as the key space and the edge
+    list; no pass holds more than ``BUILD_CHUNK`` edges' keys and order,
+    which keeps a billion-edge build inside the card.
     """
     dev = src.device
+    n_edges = src.shape[0]
+    chunk = BUILD_CHUNK
     n_keys = n_src * max(n_feats, 1)
     key_dtype = torch.int32 if n_keys < 2**31 else torch.int64
-    key = src.to(key_dtype, copy=True)
-    if edge_feat is not None:
-        key.mul_(n_feats).add_(edge_feat)
-    sorted_key, order = torch.sort(key, stable=True)
-    del key
-    targets = dst[order].to(torch.int32)
-    del order
-    if dst_base:
-        targets += dst_base
-    bounds = torch.arange(n_keys + 1, dtype=key_dtype, device=dev)
-    pos = torch.searchsorted(sorted_key, bounds, out_int32=True)
-    del bounds, sorted_key
+    spans = [(e0, min(e0 + chunk, n_edges)) for e0 in range(0, n_edges, chunk)]
+
+    def keys(e0, e1):
+        k = src[e0:e1].to(key_dtype)
+        return k if edge_feat is None else k * n_feats + edge_feat[e0:e1].to(key_dtype)
+
+    counts = torch.zeros(n_keys + 1, dtype=torch.int32, device=dev)
+    for e0, e1 in spans:
+        k = keys(e0, e1)
+        counts.index_add_(0, k + 1, torch.ones_like(k, dtype=torch.int32))
+    pos = torch.cumsum(counts, 0, dtype=torch.int32)   # first slot of each key
+    del counts
+    cursor = pos[:-1].clone()
+    targets = torch.empty(n_edges, dtype=torch.int32, device=dev)
+    for e0, e1 in spans:
+        sk, order = torch.sort(keys(e0, e1), stable=True)
+        # an edge's rank among this pass's edges of its key
+        rank = torch.arange(sk.shape[0], device=dev) - torch.searchsorted(sk, sk)
+        slot = cursor[sk].long() + rank
+        targets[slot] = dst[e0:e1][order].to(torch.int32) + dst_base
+        cursor.index_add_(0, sk, torch.ones_like(sk, dtype=torch.int32))
+        del sk, order, rank, slot
+    del cursor
     if edge_feat is None:
         return CSR(offsets=pos, targets=targets)
     offsets = pos[::n_feats].contiguous()

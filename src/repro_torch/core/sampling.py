@@ -15,7 +15,8 @@ in the same order:
   * every argsort is stable, as JAX's is.
 
 All functions take a leading batch shape: the last axis is the query's
-slots.
+slots.  ``restart_mask`` and ``step_key`` are the reference's per-step
+restart helpers on the port's threefry (``core/prng.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,30 @@ from typing import Tuple, Union
 
 import torch
 
+from repro_torch.core import prng
+
 IntLike = Union[int, torch.Tensor]
+
+
+def restart_mask(key: torch.Tensor, shape, alpha: float) -> torch.Tensor:
+    """Per-walker Bernoulli(alpha) restart decisions for one step, the bits
+    of ``jax.random.bernoulli(key, alpha, shape)``.
+
+    jax maps a word to a float32 in [0, 1) as ``((bits >> 9) | 0x3f800000)``
+    read as a float, minus 1.0, and compares it with ``alpha`` rounded to
+    float32.  ``key`` is one ``(2,)`` key; returns a bool tensor on its
+    device.
+    """
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    words = prng.bits(key, shape)
+    u = ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return u < torch.tensor(alpha, dtype=torch.float32, device=key.device)
+
+
+def step_key(base: torch.Tensor, step: IntLike) -> torch.Tensor:
+    """Counter-based per-step key (``jax.random.fold_in``): stateless and
+    restart-reproducible."""
+    return prng.fold_in(base, step)
 
 
 def _sum_last_f32(x: torch.Tensor) -> torch.Tensor:

@@ -44,7 +44,12 @@ block sizes), and event mode's kernel path its plain path and the CPU
 run, every field.  The counter takes any row count: past 12,288 rows (the
 shared-memory tally's old cap) it equals its twin, with a query lane and
 without, n_v 1 included, and a sharded batch past it serves on the
-kernel path as on the plain path.
+kernel path as on the plain path.  Graph pruning runs on the card and
+must give the CPU's pruned graph array for array on the benchmarks' 20k
+graph (its entropies within 1e-6 of the CPU's: the float64 log is the
+card's), the content baselines' scores the CPU's (Hamming and combined
+exactly, cosine within 2e-6), and ``ceil(d**delta)`` from the card's
+``pow`` numpy's at every degree to 10,000.
 """
 
 import dataclasses
@@ -54,7 +59,9 @@ import pytest
 import torch
 
 from repro_torch.configs import qwen2_5_3b
-from repro_torch.core import counter, distributed, prng, service, walk
+from repro_torch.core import baselines, counter, distributed, prng, pruning
+from repro_torch.core import graph as graph_lib
+from repro_torch.core import service, walk
 from repro_torch.graphs import synthetic
 from repro_torch.models import transformer
 from repro_torch.serving import decode, ranker
@@ -1065,3 +1072,79 @@ def test_event_walk_kernel_path_matches_plain_path(sg, check_mode, early_stop):
     cpu = run(graph.to("cpu"), "pallas")
     for a, b, c in zip(got, want, cpu):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+# ---------------------------------------------------------------------------
+# Graph pruning and the content baselines, on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sg20k_cpu(cuda_device):
+    """The benchmarks' 20k graph (benchmarks/common.py bench_graph)."""
+    return synthetic.generate(synthetic.SyntheticGraphConfig(
+        n_pins=20_000, n_boards=2_000, n_topics=16, n_langs=4, seed=7),
+        device="cpu")
+
+
+@pytest.mark.parametrize("delta", [0.91, 0.65])
+def test_prune_on_card_equals_cpu(sg20k_cpu, cuda_device, monkeypatch, delta):
+    """In passes of 8,192 edges on the card, of one pass on the CPU."""
+    sg = sg20k_cpu
+    cfg = pruning.PruneConfig(entropy_board_frac=0.1, delta=delta)
+    kw = dict(board_lang=sg.board_lang, pin_lang=sg.pin_lang, n_langs=4)
+    host, host_stats = pruning.prune_graph(sg.graph, sg.pin_topics, None, cfg, **kw)
+    monkeypatch.setattr(pruning, "CHUNK_EDGES", 8192)
+    card, card_stats = pruning.prune_graph(
+        sg.graph.to(cuda_device), sg.pin_topics, None, cfg, **kw)
+    assert card.device.type == "cuda"
+    assert card_stats == host_stats
+    a, b = graph_lib.graph_to_numpy(card), graph_lib.graph_to_numpy(host)
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_entropy_and_cosine_on_card_match_cpu(sg20k_cpu, cuda_device):
+    sg = sg20k_cpu
+    pins, boards = graph_lib.edge_list(sg.graph)
+    host = pruning.board_entropy(pins, boards, sg.pin_topics, sg.graph.n_boards)
+    card = pruning.board_entropy(
+        torch.as_tensor(pins, device=cuda_device), torch.as_tensor(boards, device=cuda_device),
+        torch.as_tensor(sg.pin_topics, device=cuda_device), sg.graph.n_boards)
+    diff = (card.cpu() - host).abs()
+    assert float(diff.max()) <= 1e-6, f"{int((diff > 0).sum())} boards, {float(diff.max())}"
+    rng = np.random.default_rng(0)
+    a = rng.dirichlet(np.full(16, 0.1), 50_000).astype(np.float32)
+    b = rng.dirichlet(np.full(16, 0.1), 50_000).astype(np.float32)
+    want = pruning.cosine_sim(a, b)
+    got = pruning.cosine_sim(torch.as_tensor(a, device=cuda_device),
+                             torch.as_tensor(b, device=cuda_device))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("query", [0, 777, 19_999])
+def test_rank_scores_on_card_match_cpu(cuda_device, query):
+    topics = np.random.default_rng(1).dirichlet(np.full(16, 0.1), 20_000)
+    text, vis = baselines.make_content_embeddings(topics.astype(np.float32))
+    host = [torch.as_tensor(text), torch.as_tensor(vis)]
+    card = [t.to(cuda_device) for t in host]
+    cos = baselines.cosine_rank_scores(card[0], query).cpu()
+    assert float((cos - baselines.cosine_rank_scores(host[0], query)).abs().max()) <= 2e-6
+    assert torch.equal(baselines.hamming_rank_scores(card[1], query).cpu(),
+                       baselines.hamming_rank_scores(host[1], query))
+    assert torch.equal(baselines.combined_rank_scores(*card, query).cpu(),
+                       baselines.combined_rank_scores(*host, query))
+
+
+@pytest.mark.parametrize("delta", [1.0, 0.95, 0.91, 0.9, 0.8, 0.7, 0.65, 0.6, 0.1])
+def test_ceil_pow_on_card_equals_numpy(cuda_device, delta):
+    deg = np.arange(10_001)
+    want = np.ceil(deg.astype(np.float64) ** delta)
+    got = torch.ceil(torch.pow(torch.as_tensor(deg, dtype=torch.float64,
+                                               device=cuda_device), delta))
+    bad = deg[got.cpu().numpy() != want]
+    assert bad.size == 0, f"torch.pow on the card parts from numpy at degrees {bad[:20]}"
+    table = torch.as_tensor(pruning.degree_targets(10_000, delta, 2), device=cuda_device)
+    assert torch.equal(table.cpu(), torch.as_tensor(
+        np.maximum(want.astype(np.int64), np.minimum(deg, 2))))

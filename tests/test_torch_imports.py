@@ -48,7 +48,9 @@ def test_port_files_exist():
                  "core/distributed.py", "models/layers.py",
                  "models/transformer.py", "serving/decode.py",
                  "kernels/decode_attention.py", "configs/qwen2_5_3b.py",
-                 "configs/smollm_360m.py", "configs/minitron_4b.py"):
+                 "configs/smollm_360m.py", "configs/minitron_4b.py",
+                 "core/pruning.py", "core/baselines.py", "core/reference.py",
+                 "graphs/sampler.py", "graphs/gnn_data.py"):
         assert twin in names
     for src in ("walk_steps_fused.cu", "visit_counter.cu", "embedding_bag.cu",
                 "walk_hop.cu", "decode_attention.cu", "walk_step.cu",
@@ -78,6 +80,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.distributed\n"
         "import repro_torch.serving.decode, repro_torch.configs.qwen2_5_3b\n"
         "import repro_torch.configs.smollm_360m, repro_torch.configs.minitron_4b\n"
+        "import repro_torch.core.pruning, repro_torch.core.baselines\n"
+        "import repro_torch.core.reference, repro_torch.graphs.sampler\n"
+        "import repro_torch.graphs.gnn_data\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
