@@ -140,8 +140,9 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              and the parity batch's (8 requests), bit for bit, timed beside
              it.
 16. nccl     ProcessGroupFabric over NCCL on one rank (a TCP store on
-             localhost) equals LocalFabric(1) on the 20k graph, and the
-             4-way sharded walk's board counts equal the unsharded ones.
+             localhost) equals LocalFabric(1) on the 20k graph, the
+             recsys mega-table's lookup_sharded over it equals lookup, and
+             the 4-way sharded walk's board counts equal the unsharded ones.
 
 17. attn     after the Pixie state is freed: the decode-attention kernel
              against its twin (max abs difference <= 2e-6 on the float32
@@ -242,9 +243,46 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              seed 3, walk key 0) and 0.2 biased (pixie_random_walk_ref,
              language 1, seed 5, key 1), the reference test's own bounds.
 
+28. sasrec   right after phase 24 frees its topics and pruned graph, before
+             the ranker's table (only the graph and its languages
+             resident): SASRec at its published widths (configs/sasrec.py
+             FULL: dim 50, 2 blocks, 1 head, seq_len 50) with n_items set to
+             the graph's 140M pins (140,000,256 padded rows x 50 float32,
+             28.0 GB, drawn on the card from a seeded generator; the one
+             cut) ranks Pixie's candidates: phase 2's 24 requests, each with
+             a seeded 50-pin history (left-padded with -1 by 0, 10, 25 or
+             49), through pixie_then_rank(..., FULL_WALK,
+             sasrec_ranker(...), TwoStageConfig()) on the kernel path and
+             with backend="xla": final ids and scores bit-identical,
+             walk_steps_fused and visit_counter_update_high launched; p50
+             and max beside phase 2's p50, one request's split (walk, user
+             state, candidate scores, top-k), resident GB before and peak
+             GB of the phase.  The table is freed.
+29. recsys   after the 20k graph's state is freed, before the LM phases,
+             nothing else resident, one model at a time (each table freed
+             before the next): SASRec FULL (10M items, 2.0 GB) user states
+             at serve_p99 (512 seeded histories, padded rows among them)
+             and score_candidates for one user over 1,000,000 distinct
+             candidates, top 100 (equal to a direct recomputation of those
+             candidates' dots within 2e-6, descending, none left out scoring
+             higher); BST FULL (1.28 GB) bst_forward at serve_p99 and
+             serve_bulk (262,144); dlrm-rm2 (187,767,808 rows x 64 bf16,
+             24.0 GB) then dlrm-mlperf (x 128 bf16, 48.1 GB): forward at
+             serve_p99 and serve_bulk (seeded dense features, ids uniform
+             within each feature's rows), retrieval_score over 1,000,000
+             candidates in chunks of 2**17 (top 100 checked as SASRec's),
+             lookup_sharded over LocalFabric(4) == lookup.  Device ms a
+             call and peak GB per model beside the card's name and power
+             limit.  Then the four SMOKE configs on the card against the
+             CPU port with the same parameters: user states, scores,
+             logits and the three losses within 2e-6 (the maximum
+             printed), top-k ids exact.  Every float32 comparison first
+             asserts float32 matmul precision "highest" and no TF32.
+
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
-13, 14, 18, 19 and 19b, 20, 21, 22, 23, 24, 25, 26, 27); the kernels line sums them, and every one of its nine kernels
+13, 14, 18, 19 and 19b, 20, 21, 22, 23, 24, 25, 26, 27, 28, and 29, whose
+models launch no hand kernel); the kernels line sums them, and every one of its nine kernels
 (the eight TPU kernels' and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
 kernels (ptxas -v).  The profiled
@@ -2023,14 +2061,17 @@ def sharded_phases(graph, reqs, shape, dev, read_ns: dict):
 
 def nccl_fabric(sg, dev) -> None:
     """Phase 16: ProcessGroupFabric over NCCL on one rank (a TCP store on
-    localhost) equals LocalFabric(1) on the 20k graph; board counts of the
+    localhost) equals LocalFabric(1) on the 20k graph, and the mega-table's
+    ``lookup_sharded`` over it equals ``lookup``; board counts of the
     4-way sharded walk equal the unsharded engine's."""
     import datetime
     import socket
 
     import torch
     import torch.distributed as tdist
+    from repro_torch.configs import dlrm_rm2
     from repro_torch.core import counter, distributed as dist, prng, walk
+    from repro_torch.models import embedding
 
     cfg = walk.WalkConfig(n_steps=20_000, n_walkers=512, chunk_steps=4, n_p=300,
                           n_v=3, bias_beta=0.0, count_boards=True, backend="pallas")
@@ -2052,9 +2093,18 @@ def nccl_fabric(sg, dev) -> None:
                 for f in (dist.ProcessGroupFabric(device=dev), dist.LocalFabric(1, device=dev))]
         tops = [dist._hierarchical_topk(r.counts, 1, 3, 4, shg1.pins_per_shard, 50, f)
                 for r, f in zip(runs, (dist.ProcessGroupFabric(device=dev), None))]
+        # the recsys mega-table's sharded lookup over the same one-rank group
+        tcfg = dlrm_rm2.SMOKE.table
+        table = embedding.init_table(torch.Generator(device=dev).manual_seed(SEED + 16), tcfg)
+        rng = np.random.default_rng(SEED + 16)
+        ids = torch.as_tensor(np.stack([rng.integers(0, r, 512) for r in tcfg.feature_rows],
+                                       1).astype(np.int32), device=dev)
+        pg_rows = embedding.lookup_sharded(table, ids, tcfg, dist.ProcessGroupFabric(device=dev))
         torch.cuda.synchronize()
     finally:
         tdist.destroy_process_group()
+    if not torch.equal(pg_rows, embedding.lookup(table, ids, tcfg)):
+        raise AssertionError("NCCL fabric: lookup_sharded differs from lookup")
     for name, x in runs[0]._asdict().items():
         y = getattr(runs[1], name)
         if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
@@ -2070,7 +2120,7 @@ def nccl_fabric(sg, dev) -> None:
     if int(res4.dropped) or not torch.equal(folded[..., :sg.graph.n_boards], flat.board_counts):
         raise AssertionError("4-way sharded board counts differ from the unsharded engine's")
     log("nccl_fabric", backend="nccl", world_size=1, identical_to_local=True,
-        board_counts_4way_identical=True, board_visits=int(flat.board_counts.sum()))
+        lookup_sharded_identical=True, board_counts_4way_identical=True, board_visits=int(flat.board_counts.sum()))
 
 
 # ---------------------------------------------------------------------------
@@ -3171,6 +3221,380 @@ def oracle_check(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-29: the recsys models (SASRec, BST, DLRM) at full width
+# ---------------------------------------------------------------------------
+
+SASREC_HISTORY_PAD = (0, 10, 25, 49)   # leading -1s of request rid % 4's history
+RECSYS_P99 = 512                       # RECSYS_SHAPES serve_p99 (registry.py:85)
+RECSYS_BULK = 262_144                  # serve_bulk
+RECSYS_CAND = 1_000_000                # retrieval_cand
+RECSYS_TOP = 100
+RECSYS_TOL = 2e-6                      # the CPU tests' bound on float outputs
+
+
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of card 0."""
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return smi.stdout.strip().splitlines()[0]
+
+
+def assert_fp32_matmuls() -> None:
+    """float32 products in float32: no TF32 anywhere a comparison is made."""
+    import torch
+
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmul precision is not 'highest'")
+    if torch.backends.cuda.matmul.allow_tf32 is not False:
+        raise AssertionError("TF32 matmuls are allowed")
+
+
+def gb(n_bytes) -> float:
+    return n_bytes / 1e9
+
+
+def seeded_histories(n_requests: int, n_items: int, seq_len: int, dev):
+    """One seeded history a request; request ``rid``'s is left-padded with
+    ``SASREC_HISTORY_PAD[rid % 4]`` ids of -1."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 28)
+    h = rng.integers(0, n_items, (n_requests, seq_len)).astype(np.int32)
+    for rid in range(n_requests):
+        h[rid, :SASREC_HISTORY_PAD[rid % 4]] = -1
+    return torch.as_tensor(h, device=dev)
+
+
+def sasrec_two_stage(graph, reqs, shape, cfg, dev, unpruned_p50: float) -> dict:
+    """Phase 28: SASRec at its published widths ranks Pixie's candidates
+    on the full-width graph, ``pixie_then_rank`` with ``sasrec_ranker``,
+    the kernel path against the plain path.  Returns the kernel run's
+    launches."""
+    import torch
+    from repro_torch.configs import sasrec
+    from repro_torch.core import counter as counter_lib
+    from repro_torch.core import prng, walk
+    from repro_torch.kernels import _build
+    from repro_torch.models import sequential_rec as sr
+    from repro_torch.serving import recommend
+
+    assert_fp32_matmuls()
+    resident = gb(torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    scfg = dataclasses.replace(sasrec.FULL, n_items=graph.n_pins)
+    t = time.perf_counter()
+    params = sr.init_params(torch.Generator(device=dev).manual_seed(SEED + 28), scfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    table = params["items"]
+    hist = seeded_histories(len(reqs), graph.n_pins, scfg.seq_len, dev)
+    ts = recommend.TwoStageConfig()
+    key0 = prng.key(SEED, dev)
+
+    def run(rid, walk_cfg):
+        pins, weights, _ = padded_batch(reqs[rid:rid + 1], shape.n_slots, dev)
+        ranker = recommend.sasrec_ranker(params, hist[rid], scfg)
+        return recommend.pixie_then_rank(
+            graph, pins[0], weights[0], reqs[rid][2], prng.fold_in(key0, rid),
+            walk_cfg, ranker, ts)
+
+    run(0, cfg)                                                 # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    kern, lat = [], []
+    for rid in range(len(reqs)):
+        t = time.perf_counter()
+        kern.append(run(rid, cfg))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    launches = dict(_build.launches)
+    for name in ("walk_steps_fused", "visit_counter_update_high"):
+        if launches[name] == 0:
+            raise AssertionError(f"SASRec two-stage never launched {name}")
+    plain_cfg = dataclasses.replace(cfg, backend="xla")
+    n_real = []
+    for rid, (s, i) in enumerate(kern):
+        ps, pi = run(rid, plain_cfg)
+        if not (torch.equal(s, ps) and torch.equal(i, pi)):
+            raise AssertionError(f"SASRec two-stage request {rid}: kernel and plain paths differ")
+        real = i >= 0
+        if i.shape != (ts.final_k,) or not bool(torch.isfinite(s[real]).all()):
+            raise AssertionError(f"SASRec two-stage request {rid}: bad result")
+        if bool((s[1:] > s[:-1]).any()) or not bool(torch.isneginf(s[~real]).all()):
+            raise AssertionError(f"SASRec two-stage request {rid}: bad order or padding")
+        if int(i.max()) >= graph.n_pins or not bool(real.any()):
+            raise AssertionError(f"SASRec two-stage request {rid}: bad ids")
+        n_real.append(int(real.sum()))
+    # one request's split, each part synchronised
+    pins, weights, _ = padded_batch(reqs[:1], shape.n_slots, dev)
+    rcfg = dataclasses.replace(cfg, top_k=ts.n_candidates)
+    out = {}
+    split = {"walk": wall_ms(lambda: out.setdefault("w", walk.recommend(
+        graph, pins[0], weights[0], reqs[0][2], prng.fold_in(key0, 0), rcfg)))}
+    split["user_state"] = wall_ms(lambda: out.setdefault("r", recommend.sasrec_ranker(
+        params, hist[0], scfg)))
+    ws, cand = out["w"]
+    split["candidate_scores"] = wall_ms(lambda: out.setdefault("s", out["r"](cand)))
+    split["topk"] = wall_ms(lambda: counter_lib.topk_total(
+        torch.where(ws > 0, out["s"], float("-inf")), ts.final_k))
+    log("sasrec_2stage", requests=len(reqs), n_items=scfg.n_items,
+        table_rows=table.shape[0], table_gb=gb(table.numel() * table.element_size()),
+        init_s=init_s, p50_ms=float(np.percentile(lat, 50)), max_ms=float(np.max(lat)),
+        latencies_ms=lat, pixie_p50_ms=unpruned_p50, split_ms=split,
+        launches=launches, identical_to_plain=True, real_ids=n_real,
+        history_pad=list(SASREC_HISTORY_PAD), resident_gb=resident,
+        peak_gb=gb(torch.cuda.max_memory_allocated()), card=card_line(),
+        cuts=[f"n_items {scfg.n_items:,} (the graph's pins) instead of 10,000,000: "
+              "candidates are pin ids"])
+    del params, table, kern, out, hist
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recsys_smoke_outputs(name: str, dev) -> dict:
+    """One SMOKE config's outputs on ``dev``, parameters drawn on the CPU
+    from one seed and carried across, inputs from one numpy seed."""
+    import torch
+    from repro_torch.configs import bst, dlrm_mlperf, dlrm_rm2, sasrec
+    from repro_torch.models import dlrm, sequential_rec as sr
+
+    rng = np.random.default_rng(SEED + 29)
+    gen = torch.Generator().manual_seed(SEED + 29)
+    to = lambda a: torch.as_tensor(a, device=dev)
+    move = lambda t: {k: move(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+    out = {}
+    if name in ("sasrec", "bst"):
+        cfg = (sasrec if name == "sasrec" else bst).SMOKE
+        p = move(sr.init_params(gen, cfg))
+        seq = rng.integers(0, cfg.n_items, (9, cfg.seq_len)).astype(np.int32)
+        seq[2, :5], seq[5, :-1] = -1, -1
+        if name == "sasrec":
+            tg = rng.integers(-1, cfg.n_items, seq.shape).astype(np.int32)
+            neg = rng.integers(0, cfg.n_items, seq.shape + (cfg.n_negatives,)).astype(np.int32)
+            st = sr.sasrec_user_state(p, to(seq), cfg)
+            out["user_state"] = st
+            out["scores"], out["ids"] = sr.score_candidates(
+                p, st, to(np.arange(cfg.n_items, dtype=np.int32)), cfg, top_k=20)
+            out["loss"] = sr.sasrec_loss(p, to(seq), to(tg), to(neg), cfg)
+        else:
+            cand = to(rng.integers(0, cfg.n_items, 9).astype(np.int32))
+            out["logits"] = sr.bst_forward(p, to(seq), cand, cfg)
+            out["loss"] = sr.bst_loss(p, to(seq), cand,
+                                      to((rng.random(9) < 0.5).astype(np.float32)), cfg)
+    else:
+        cfg = (dlrm_rm2 if name == "dlrm_rm2" else dlrm_mlperf).SMOKE
+        p = move(dlrm.init_params(gen, cfg))
+        dense = to(rng.normal(size=(16, cfg.n_dense)).astype(np.float32))
+        sparse = to(np.stack([rng.integers(0, r, 16) for r in cfg.feature_rows], 1)
+                    .astype(np.int32))
+        out["logits"] = dlrm.forward(p, dense, sparse, cfg)
+        out["loss"] = dlrm.bce_loss(p, dense, sparse,
+                                    to((rng.random(16) < 0.5).astype(np.float32)), cfg)
+        out["scores"], out["ids"] = dlrm.retrieval_score(
+            p, dense[0], sparse[0], to(np.arange(cfg.feature_rows[0], dtype=np.int32)),
+            cfg, top_k=10)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+RECSYS_SMOKE = ("sasrec", "bst", "dlrm_rm2", "dlrm_mlperf")
+
+
+def recsys_smoke_parity(dev, names=RECSYS_SMOKE) -> dict:
+    """The four SMOKE configs on the card against the CPU port: floats
+    within RECSYS_TOL, top-k ids exact.  Returns the largest differences."""
+    import torch
+
+    assert_fp32_matmuls()
+    errs = {}
+    for name in names:
+        got, want = recsys_smoke_outputs(name, dev), recsys_smoke_outputs(name, "cpu")
+        for k, w in want.items():
+            if k == "ids":
+                if not torch.equal(got[k], w):
+                    raise AssertionError(f"{name} SMOKE: top-k ids differ card vs CPU")
+                continue
+            err = float((got[k] - w).abs().max())
+            if not err <= RECSYS_TOL:
+                raise AssertionError(f"{name} SMOKE {k}: card vs CPU {err} > {RECSYS_TOL}")
+            errs[f"{name}/{k}"] = err
+    return errs
+
+
+def padded_ids(n: int, seq_len: int, n_items: int, gen, dev):
+    """``(n, seq_len)`` uniform item ids; row ``i`` left-padded with
+    ``(i % 5) * seq_len // 5`` ids of -1, and row 1 all -1."""
+    import torch
+
+    ids = torch.randint(0, n_items, (n, seq_len), generator=gen, device=dev,
+                        dtype=torch.int32)
+    pad = (torch.arange(n, device=dev) % 5) * seq_len // 5
+    ids = torch.where(torch.arange(seq_len, device=dev)[None] < pad[:, None], -1, ids)
+    ids[1] = -1
+    return ids
+
+
+def distinct_ids(n_items: int, n: int, gen, dev):
+    """``n`` distinct int32 ids drawn uniformly from ``[0, n_items)``."""
+    import torch
+
+    return torch.randperm(n_items, generator=gen, device=dev)[:n].to(torch.int32)
+
+
+def timed(fn, n: int):
+    """``(result, device ms a call over n calls after a warm-up, peak GB)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    ms = cuda_ms(fn, n)
+    return out, ms, gb(torch.cuda.max_memory_allocated())
+
+
+def check_finite(x, shape, what: str) -> None:
+    import torch
+
+    if tuple(x.shape) != tuple(shape) or not bool(torch.isfinite(x).all()):
+        raise AssertionError(f"{what}: expected finite {shape}, got {tuple(x.shape)}")
+
+
+def check_topk(vals, ids, direct, rest_max, k: int, what: str) -> float:
+    """A top-k against a direct recomputation of its candidates' scores:
+    within RECSYS_TOL, descending, and no other candidate above the k-th
+    by more than RECSYS_TOL.  Returns the largest difference."""
+    if vals.shape != (k,) or ids.shape != (k,):
+        raise AssertionError(f"{what}: expected top {k}")
+    err = float((vals - direct).abs().max())
+    if not err <= RECSYS_TOL:
+        raise AssertionError(f"{what}: top-k scores {err} from their direct recomputation")
+    if bool((vals[1:] > vals[:-1]).any()):
+        raise AssertionError(f"{what}: top-k not descending")
+    if float(rest_max) > float(vals[-1]) + RECSYS_TOL:
+        raise AssertionError(f"{what}: a candidate outside the top-k scores higher")
+    return err
+
+
+def recsys_full(dev) -> dict:
+    """Phase 29: SASRec, BST, dlrm-rm2 and dlrm-mlperf at their published
+    widths, one at a time (each table freed before the next), then the
+    SMOKE configs on the card against the CPU.  Returns the launches
+    (none: these models run no hand kernel)."""
+    import torch
+    from repro_torch.configs import bst, dlrm_mlperf, dlrm_rm2, sasrec
+    from repro_torch.core.distributed import LocalFabric
+    from repro_torch.kernels import _build
+    from repro_torch.models import dlrm, embedding, sequential_rec as sr
+
+    assert_fp32_matmuls()
+    card = card_line()
+    log("recsys_start", resident_gb=gb(torch.cuda.memory_allocated()), card=card)
+    _build.reset_launches()
+
+    # SASRec: user states at serve_p99, one user against 1M candidates
+    cfg = sasrec.FULL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    torch.cuda.reset_peak_memory_stats()
+    p = sr.init_params(gen, cfg)
+    seq = padded_ids(RECSYS_P99, cfg.seq_len, cfg.n_items, gen, dev)
+    st, st_ms, st_peak = timed(lambda: sr.sasrec_user_state(p, seq, cfg), 10)
+    check_finite(st, (RECSYS_P99, cfg.embed_dim), "sasrec user states")
+    cand = distinct_ids(cfg.n_items, RECSYS_CAND, gen, dev)
+    (vals, ids), sc_ms, sc_peak = timed(
+        lambda: sr.score_candidates(p, st[:1], cand, cfg, top_k=RECSYS_TOP), 5)
+    items = p["items"]
+    rest = torch.where(torch.isin(cand, ids[0]), float("-inf"),
+                       torch.mv(items[cand.long()], st[0])).max()
+    err = check_topk(vals[0], ids[0], (items[ids[0].long()] * st[0]).sum(-1), rest,
+                     RECSYS_TOP, "sasrec score_candidates")
+    log("recsys_sasrec", table_gb=gb(items.numel() * 4), rows=items.shape[0],
+        user_state_ms=st_ms, user_state_batch=RECSYS_P99, user_state_peak_gb=st_peak,
+        score_candidates_ms=sc_ms, n_candidates=RECSYS_CAND, top_k=RECSYS_TOP,
+        score_candidates_peak_gb=sc_peak, topk_max_abs_err=err,
+        peak_gb=max(st_peak, sc_peak), card=card)
+    del p, items, st, vals, ids, rest, cand, seq
+    torch.cuda.empty_cache()
+
+    # BST: CTR logits at serve_p99 and serve_bulk
+    cfg = bst.FULL
+    torch.cuda.reset_peak_memory_stats()
+    p = sr.init_params(gen, cfg)
+    row = {}
+    for label, b, n in (("serve_p99", RECSYS_P99, 10), ("serve_bulk", RECSYS_BULK, 3)):
+        seq = padded_ids(b, cfg.seq_len, cfg.n_items, gen, dev)
+        c = torch.randint(0, cfg.n_items, (b,), generator=gen, device=dev, dtype=torch.int32)
+        logits, ms, peak = timed(lambda: sr.bst_forward(p, seq, c, cfg), n)
+        check_finite(logits, (b,), f"bst {label}")
+        row[label] = dict(batch=b, ms=ms, peak_gb=peak)
+        del seq, c, logits
+    log("recsys_bst", table_gb=gb(p["items"].numel() * 4), rows=p["items"].shape[0],
+        forward=row, card=card)
+    del p
+    torch.cuda.empty_cache()
+
+    # the DLRMs: forward, retrieval over 1M candidates, the sharded lookup
+    for cfg in (dlrm_rm2.FULL, dlrm_mlperf.FULL):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        p = dlrm.init_params(gen, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        table = p["table"]
+
+        def batch(b):
+            dense = torch.randn((b, cfg.n_dense), generator=gen, device=dev)
+            sparse = torch.stack([torch.randint(0, r, (b,), generator=gen, device=dev,
+                                                dtype=torch.int32)
+                                  for r in cfg.feature_rows], 1)
+            return dense, sparse
+
+        row = {}
+        for label, b, n in (("serve_p99", RECSYS_P99, 10), ("serve_bulk", RECSYS_BULK, 3)):
+            dense, sparse = batch(b)
+            logits, ms, peak = timed(lambda: dlrm.forward(p, dense, sparse, cfg), n)
+            check_finite(logits, (b,), f"{cfg.name} {label}")
+            row[label] = dict(batch=b, ms=ms, peak_gb=peak)
+            del dense, sparse, logits
+        dense, sparse = batch(RECSYS_P99)
+        cand = distinct_ids(cfg.feature_rows[0], RECSYS_CAND, gen, dev)
+        (vals, ids), r_ms, r_peak = timed(lambda: dlrm.retrieval_score(
+            p, dense[0], sparse[0], cand, cfg, top_k=RECSYS_TOP), 2)
+        ids_b = sparse[:1].expand(RECSYS_TOP, cfg.n_sparse).clone()
+        ids_b[:, 0] = ids
+        direct = dlrm.forward(p, dense[:1].expand(RECSYS_TOP, cfg.n_dense), ids_b, cfg)
+        # every candidate once more, in chunks of another size: the largest
+        # score outside the top-k
+        rest = []
+        for c0 in range(0, RECSYS_CAND, dlrm.RETRIEVAL_CHUNK // 2):
+            c = cand[c0:c0 + dlrm.RETRIEVAL_CHUNK // 2]
+            ib = sparse[:1].expand(c.shape[0], cfg.n_sparse).clone()
+            ib[:, 0] = c
+            sc = dlrm.forward(p, dense[:1].expand(c.shape[0], cfg.n_dense), ib, cfg)
+            rest.append(torch.where(torch.isin(c, ids), float("-inf"), sc).max())
+        err = check_topk(vals, ids, direct, torch.stack(rest).max(), RECSYS_TOP,
+                         f"{cfg.name} retrieval_score")
+        sharded = embedding.lookup_sharded(table, sparse, cfg.table, LocalFabric(4, device=dev))
+        if not torch.equal(sharded, embedding.lookup(table, sparse, cfg.table)):
+            raise AssertionError(f"{cfg.name}: lookup_sharded over 4 shards differs from lookup")
+        log("recsys_dlrm", name=cfg.name, rows=table.shape[0], dim=cfg.embed_dim,
+            table_dtype=str(table.dtype), table_gb=gb(table.numel() * table.element_size()),
+            init_s=init_s, forward=row, retrieval_ms=r_ms, n_candidates=RECSYS_CAND,
+            top_k=RECSYS_TOP, chunk=dlrm.RETRIEVAL_CHUNK, retrieval_peak_gb=r_peak,
+            topk_max_abs_err=err, lookup_sharded_4_identical=True,
+            peak_gb=gb(torch.cuda.max_memory_allocated()), card=card)
+        del p, table, dense, sparse, cand, vals, ids, ids_b, direct, rest, sharded
+        torch.cuda.empty_cache()
+
+    launches = dict(_build.launches)
+    errs = recsys_smoke_parity(dev)
+    log("recsys_smoke_parity", max_abs_err=errs, tol=RECSYS_TOL, topk_ids_identical=True,
+        card=card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3296,6 +3720,10 @@ def main() -> int:
                                  float(np.percentile(lat, 50)))
     del langs
     torch.cuda.empty_cache()
+
+    # 28. SASRec ranking Pixie's candidates, before the ranker's table
+    sasrec_launches = sasrec_two_stage(graph, reqs, shape, cfg, dev,
+                                       float(np.percentile(lat, 50)))
 
     # 6. full-width ranked serving ------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -3552,6 +3980,9 @@ def main() -> int:
     # 17-20. dense-LM decode serving, after the Pixie state is freed ----------------
     del sg, srv, outs, routs, oracle, rank20, binp, bq, bs, bb
     torch.cuda.empty_cache()
+
+    # 29. the recsys models at full width, nothing else resident ----------------------
+    recsys_launches = recsys_full(dev)
     log("lm_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
     attn_row, lm_paths = lm_phases(dev, qwen2_5_3b.FULL, smollm_360m.FULL)
 
@@ -3559,7 +3990,8 @@ def main() -> int:
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *past_cap_launches, *sharded_paths, *lm_paths, *event_paths,
-             pruned_launches, fig4_launches, table1_launches, oracle_launches]
+             pruned_launches, fig4_launches, table1_launches, oracle_launches,
+             sasrec_launches, recsys_launches]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
             *event_rows, sharded_rows[1]]
     for row in rows:
@@ -3582,14 +4014,10 @@ def main() -> int:
         events_replicated=event_paths[0], events_wide=event_paths[1],
         legacy_kernels=event_paths[2], pruned_serve=pruned_launches,
         prune_20k=fig4_launches, baselines_20k=table1_launches,
-        oracle=oracle_launches)
+        oracle=oracle_launches, sasrec_2stage=sasrec_launches,
+        recsys_full=recsys_launches)
     print(json.dumps({"kernels": rows}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,7 +14,10 @@ Float parity with the reference:
     float32 CPU ``sqrt`` is not correctly rounded; ``jnp.sqrt`` is) and sums
     the slots as an explicit left-to-right chain (XLA's CPU order);
   * ``topk_dense`` reproduces ``lax.top_k``'s tie rule — among equal
-    scores the lower index comes first — without sorting the whole row;
+    scores the lower index comes first — without sorting the whole row,
+    for rows free of NaN (the walk's); ``topk_total`` adds ``lax.top_k``'s
+    IEEE total order (NaN first, ``+0.0`` above ``-0.0``) for scores that
+    may hold NaN (a model's, a ranker's);
   * ``boosted_from_events`` sums a pin's roots as a left-to-right chain in
     slot order (XLA's CPU ``segment_sum`` order), which is also the dense
     booster's order, so event mode and dense mode give the same scores.
@@ -170,32 +173,69 @@ def n_high_visited(counts_q: torch.Tensor, n_v: int) -> torch.Tensor:
     return (counts_q >= n_v).sum(-1, dtype=torch.int32)
 
 
-def topk_dense(boosted: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k ``(scores, int32 ids)`` over the last axis, ``lax.top_k`` ties.
+_KEY_BITS = {torch.float32: (torch.int32, 0x7FFFFFFF),
+             torch.float64: (torch.int64, 0x7FFFFFFFFFFFFFFF),
+             torch.bfloat16: (torch.int16, 0x7FFF),
+             torch.float16: (torch.int16, 0x7FFF)}
 
-    Scores descend; among equal scores the lower index comes first.  The
-    k-th value comes from ``torch.topk``; then every entry strictly above it
-    and the lowest-index entries equal to it, so no full sort of the row.
-    """
-    n = boosted.shape[-1]
-    if not 0 <= k <= n:
-        raise ValueError(f"top_k={k} must lie in [0, {n}]")
-    if k == 0:
-        shape = boosted.shape[:-1] + (0,)
-        return (boosted.new_zeros(shape),
-                torch.zeros(shape, dtype=torch.int32, device=boosted.device))
-    rows = boosted.reshape(-1, n)
-    kth = torch.topk(rows, k, dim=-1, sorted=True).values[:, -1:]
-    above = rows > kth
-    ties = rows == kth
+
+def order_keys(x: torch.Tensor) -> torch.Tensor:
+    """Integer keys that order ``x`` as ``lax.top_k`` does: IEEE total
+    order, ``-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN``, equal
+    keys only for equal bit patterns.  Integer tensors are their own keys."""
+    if not x.is_floating_point():
+        return x
+    itype, mag = _KEY_BITS[x.dtype]
+    bits = x.contiguous().view(itype)
+    return torch.where(bits < 0, bits ^ mag, bits)
+
+
+def _topk(rows: torch.Tensor, keys: torch.Tensor,
+          k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of each row of ``rows`` by ``keys``, ties to the lower index:
+    the k-th key comes from ``torch.topk``; then every entry strictly above
+    it and the lowest-index entries equal to it, so no full sort of the row."""
+    kth = torch.topk(keys, k, dim=-1, sorted=True).values[:, -1:]
+    above = keys > kth
+    ties = keys == kth
     need = k - above.sum(-1, keepdim=True)
     take = above | (ties & (torch.cumsum(ties, dim=-1) <= need))
     idx = take.nonzero()[:, 1].reshape(-1, k)          # ascending per row
-    vals = torch.gather(rows, 1, idx)
-    vals, perm = torch.sort(vals, dim=-1, descending=True, stable=True)
+    top, perm = torch.sort(torch.gather(keys, 1, idx), dim=-1, descending=True,
+                           stable=True)
     idx = torch.gather(idx, 1, perm)
-    out_shape = boosted.shape[:-1] + (k,)
+    return (top if keys is rows else torch.gather(rows, 1, idx)), idx
+
+
+def _topk_rows(x: torch.Tensor, k: int, total: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    n = x.shape[-1]
+    if not 0 <= k <= n:
+        raise ValueError(f"top_k={k} must lie in [0, {n}]")
+    out_shape = x.shape[:-1] + (k,)
+    if k == 0:
+        return (x.new_zeros(out_shape),
+                torch.zeros(out_shape, dtype=torch.int32, device=x.device))
+    rows = x.reshape(-1, n)
+    vals, idx = _topk(rows, order_keys(rows) if total else rows, k)
     return vals.reshape(out_shape), idx.to(torch.int32).reshape(out_shape)
+
+
+def topk_dense(boosted: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k ``(scores, int32 ids)`` over the last axis, ``lax.top_k`` ties.
+
+    Scores descend; among equal scores the lower index comes first.  For
+    rows free of NaN (the walk's boosted counts): a NaN compares false, so
+    a row holding one fails; ``topk_total`` orders it.
+    """
+    return _topk_rows(boosted, k, total=False)
+
+
+def topk_total(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``topk_dense`` in ``lax.top_k``'s full order, for scores that may
+    hold NaN: descending in ``order_keys``' IEEE total order (NaN first,
+    ``+0.0`` above ``-0.0``), equal keys to the lower index.  It keys the
+    row by its bits first, one more pass than ``topk_dense``."""
+    return _topk_rows(scores, k, total=True)
 
 
 # ---------------------------------------------------------------------------

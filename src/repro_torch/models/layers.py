@@ -1,9 +1,12 @@
-"""Shared neural building blocks: RMSNorm, RoPE, flash attention, SwiGLU.
+"""Shared neural building blocks: RMSNorm, LayerNorm, RoPE, flash
+attention, SwiGLU.
 
 Twin of ``repro/models/layers.py``: the same names, argument orders and
 layouts (``(b, s, heads, head_dim)`` activations), and the reference's
 float order where it shows: RMSNorm and RoPE compute in float32 and cast
 back to the input's dtype, masked scores are ``NEG_INF = -1e30``.
+``layernorm`` is the reference's, not ``F.layer_norm``: eps 1e-6 and the
+population variance (``jnp.var``), mean and variance in float32.
 
 ``flash_attention`` is the reference's chunked online-softmax scan over KV
 blocks, written as a Python loop over chunks in plain PyTorch.  It is
@@ -14,15 +17,19 @@ kernel here; prefill and ``forward`` use it, decode uses the
 The initialisers draw from an explicit ``torch.Generator`` with the
 reference's standard deviations; their numbers differ from ``jax.random``'s,
 so a parity test carries the reference's arrays across
-(``transformer.params_from_reference``).
+(``params_from_reference``, the identity on names and layouts, which the
+LM and the recsys models share).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.device import DeviceLike, resolve_device
 
 NEG_INF = -1e30
 
@@ -38,6 +45,16 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    return (out * weight + bias).to(dtype)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
@@ -147,3 +164,25 @@ def embed_init(gen: torch.Generator, shape: Tuple[int, ...],
                std: float = 0.02, device=None) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=device) * std
+
+
+def dense_stack(gen: torch.Generator, n: int, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``n`` independent ``dense_init(shape)`` draws stacked on axis 0."""
+    out = torch.empty((n,) + shape, dtype=torch.float32, device=gen.device)
+    for i in range(n):
+        out[i] = dense_init(gen, shape, device=gen.device)
+    return out
+
+
+def params_from_reference(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
+    """The reference's parameter pytree, as numpy arrays, as the port's
+    tensors on ``device``: the identity on names and layouts."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.as_tensor(np.require(np.asarray(node), requirements="W"),
+                               device=dev)
+
+    return conv(tree)

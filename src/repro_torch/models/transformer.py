@@ -34,7 +34,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -121,14 +120,6 @@ def _dense_only(cfg: LMConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _dense_stack(gen: torch.Generator, n: int, shape: Tuple[int, ...]) -> torch.Tensor:
-    """``n`` independent ``dense_init(shape)`` draws stacked on axis 0."""
-    out = torch.empty((n,) + shape, dtype=torch.float32, device=gen.device)
-    for i in range(n):
-        out[i] = layers.dense_init(gen, shape, device=gen.device)
-    return out
-
-
 def init_params(gen: torch.Generator, cfg: LMConfig) -> Dict[str, Any]:
     """Seeded parameters on the generator's device, in the reference's
     tree and layout (the values differ: ``torch.Generator`` is not
@@ -144,19 +135,19 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> Dict[str, Any]:
     }
     blocks = {
         "ln1": ones(n, d),
-        "wq": _dense_stack(gen, n, (d, hp, dh)),
-        "wk": _dense_stack(gen, n, (d, kh, dh)),
-        "wv": _dense_stack(gen, n, (d, kh, dh)),
-        "wo": _dense_stack(gen, n, (hp, dh, d)),
+        "wq": layers.dense_stack(gen, n, (d, hp, dh)),
+        "wk": layers.dense_stack(gen, n, (d, kh, dh)),
+        "wv": layers.dense_stack(gen, n, (d, kh, dh)),
+        "wo": layers.dense_stack(gen, n, (hp, dh, d)),
         "ln2": ones(n, d),
     }
     if cfg.qkv_bias:
         blocks.update(bq=zeros(n, hp, dh), bk=zeros(n, kh, dh),
                       bv=zeros(n, kh, dh))
     blocks.update(
-        w_gate=_dense_stack(gen, n, (d, cfg.d_ff)),
-        w_up=_dense_stack(gen, n, (d, cfg.d_ff)),
-        w_down=_dense_stack(gen, n, (cfg.d_ff, d)),
+        w_gate=layers.dense_stack(gen, n, (d, cfg.d_ff)),
+        w_up=layers.dense_stack(gen, n, (d, cfg.d_ff)),
+        w_down=layers.dense_stack(gen, n, (cfg.d_ff, d)),
     )
     params["blocks"] = blocks
     params["final_norm"] = ones(d)
@@ -166,18 +157,8 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> Dict[str, Any]:
     return params
 
 
-def params_from_reference(tree: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
-    """The reference's parameter pytree, as numpy arrays, as the port's
-    tensors on ``device``: the identity on names and layouts."""
-    dev = resolve_device(device)
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return torch.as_tensor(np.require(np.asarray(node), requirements="W"),
-                               device=dev)
-
-    return conv(tree)
+# the reference's tree as the port's tensors (shared with the recsys models)
+params_from_reference = layers.params_from_reference
 
 
 def cast_for_serving(params: Dict[str, Any], cfg: LMConfig) -> Dict[str, Any]:

@@ -6,16 +6,14 @@ boundary is ``rank_retrieved``: anything holding walk output enters there
 without re-walking.  ``recommend_two_stage`` is ``serve_batch(rank=...)``;
 ``recommend_multi_interest`` walks every interest lane of a batch of users
 in one ``serve_batch`` call and merges each user's lanes (Eq. 3 across
-clusters), optionally ranking the merged set.
-
-``sasrec_ranker`` is not ported yet: it needs the port of
-``models/sequential_rec.py``.
+clusters), optionally ranking the merged set.  ``sasrec_ranker`` builds
+a stage-2 closure from a SASRec user state (``models/sequential_rec.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +21,7 @@ import torch
 from repro_torch.core import counter as counter_lib
 from repro_torch.core import service, walk as walk_lib
 from repro_torch.core.graph import PinBoardGraph
+from repro_torch.models import embedding, sequential_rec as sr
 from repro_torch.serving import ranker as ranker_lib
 
 
@@ -45,7 +44,8 @@ def rank_retrieved(
     """
     rank_scores = ranker(cand)
     rank_scores = torch.where(walk_scores > 0, rank_scores, float("-inf"))
-    vals, idx = counter_lib.topk_dense(rank_scores, final_k)
+    # a ranker's scores may hold NaN (an id past its table): lax.top_k's order
+    vals, idx = counter_lib.topk_total(rank_scores, final_k)
     idx = idx.long()
     ids = torch.where(walk_scores[idx] > 0, cand[idx], -1)
     return vals, ids.to(torch.int32)
@@ -68,6 +68,24 @@ def pixie_then_rank(
         graph, query_pins, query_weights, user_feat, key, walk_cfg
     )
     return rank_retrieved(walk_scores, cand, ranker, cfg.final_k)
+
+
+def sasrec_ranker(
+    params: Dict[str, Any],
+    user_history: torch.Tensor,  # (s,) item ids
+    cfg: sr.SeqRecConfig,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A candidate-scoring closure from one SASRec user state.
+
+    A ``-1`` candidate (an under-full retrieval slot) scores ``-inf``, not
+    item 0's affinity; other ids are read as ``jnp.take`` reads them."""
+    state = sr.sasrec_user_state(params, user_history[None], cfg)[0]   # (d,)
+
+    def score(cand: torch.Tensor) -> torch.Tensor:
+        emb = embedding.take_rows(params["items"], torch.clamp(cand, min=0))
+        return torch.where(cand >= 0, emb @ state, float("-inf"))
+
+    return score
 
 
 def recommend_two_stage(

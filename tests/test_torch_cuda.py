@@ -49,7 +49,12 @@ must give the CPU's pruned graph array for array on the benchmarks' 20k
 graph (its entropies within 1e-6 of the CPU's: the float64 log is the
 card's), the content baselines' scores the CPU's (Hamming and combined
 exactly, cosine within 2e-6), and ``ceil(d**delta)`` from the card's
-``pow`` numpy's at every degree to 10,000.
+``pow`` numpy's at every degree to 10,000.  The recsys models at their
+SMOKE widths (SASRec, BST, both DLRMs) give the CPU port's user states,
+scores, logits and losses within 2e-6 and its top-k ids exactly, with
+float32 matmuls (no TF32); ``jnp.take``'s id table (NaN rows past the
+table, no host sync), ``topk_total``'s NaN order and ``lookup_sharded``
+over ``LocalFabric(1, 2, 4)`` hold on the card as on the CPU.
 """
 
 import dataclasses
@@ -1148,3 +1153,83 @@ def test_ceil_pow_on_card_equals_numpy(cuda_device, delta):
     table = torch.as_tensor(pruning.degree_targets(10_000, delta, 2), device=cuda_device)
     assert torch.equal(table.cpu(), torch.as_tensor(
         np.maximum(want.astype(np.int64), np.minimum(deg, 2))))
+
+
+# ---------------------------------------------------------------------------
+# The recsys models: SMOKE widths on the card against the CPU port
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """``chip_smoke.py``, at the repo's root: its SMOKE-output builder and
+    card-vs-CPU check serve both the script's phase 29 and this test."""
+    import importlib
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+@pytest.mark.parametrize("name", ["sasrec", "bst", "dlrm_rm2", "dlrm_mlperf"])
+def test_recsys_smoke_models_on_card_match_cpu(cuda_device, name):
+    """User states, scores, logits and losses within 2e-6 of the CPU port
+    (float32 matmuls, no TF32); top-k ids exact."""
+    cs = _chip_smoke()
+    assert cs.RECSYS_TOL == 2e-6
+    errs = cs.recsys_smoke_parity(cuda_device, names=(name,))
+    assert errs and max(errs.values()) <= cs.RECSYS_TOL, errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_take_rows_id_table_on_card(cuda_device, dtype):
+    """jnp.take's edges on the card: -1 wraps, ids past the table are NaN
+    rows (no host sync, no raise); the sharded lookup gives zeros."""
+    from repro_torch.models import embedding
+
+    n = 16
+    table = torch.randn((n, 5), generator=torch.Generator().manual_seed(0)).to(dtype)
+    ids = torch.tensor([[-1], [0], [n - 1], [n], [n + 90], [-n], [-n - 1]], dtype=torch.int32)
+    cfg = embedding.MegaTableConfig((13,), 5, pad_to_multiple=8)
+    want = embedding.lookup(table, ids, cfg)
+    got = embedding.lookup(table.to(cuda_device), ids.to(cuda_device), cfg).cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[[3, 4, 6]]).all() and torch.equal(got[0], table[[n - 1]])
+    fin = ~torch.isnan(want)
+    assert torch.equal(got[fin], want[fin])
+    sharded = embedding.lookup_sharded(table.to(cuda_device), ids.to(cuda_device), cfg,
+                                       distributed.LocalFabric(2, device=cuda_device)).cpu()
+    assert (sharded[[0, 3, 4, 5, 6]] == 0).all() and torch.equal(sharded[[1, 2]], want[[1, 2]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_topk_total_nan_order_on_card(cuda_device, dtype):
+    """NaN first (lowest index first), then +inf, ties by index, +0.0 above
+    -0.0, a sign-bit NaN last: lax.top_k's order, as on the CPU."""
+    nan, inf = float("nan"), float("inf")
+    rows = torch.tensor([[1, nan, 3, -inf, nan, 3, 0.0, -0.0, 2],
+                         [inf, -nan, nan, -inf, 1, nan, nan, nan, inf],
+                         [2, 2, 2, 2, nan, 2, 2, -0.0, 0.0]], dtype=dtype)
+    for k in (1, 4, 9):
+        v_cpu, i_cpu = counter.topk_total(rows, k)
+        v, i = counter.topk_total(rows.to(cuda_device), k)
+        assert torch.equal(i.cpu(), i_cpu), k
+        assert torch.equal(torch.isnan(v.cpu()), torch.isnan(v_cpu))
+    _, i4 = counter.topk_total(rows.to(cuda_device), 4)
+    assert i4[0].tolist() == [1, 4, 2, 5]
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_lookup_sharded_on_card_equals_lookup(cuda_device, n_shards):
+    from repro_torch.configs import dlrm_rm2
+    from repro_torch.models import embedding
+
+    cfg = dlrm_rm2.SMOKE.table
+    table = embedding.init_table(torch.Generator(device=cuda_device).manual_seed(1), cfg)
+    rng = np.random.default_rng(2)
+    ids = torch.as_tensor(np.stack([rng.integers(0, r, 512) for r in cfg.feature_rows], 1)
+                          .astype(np.int32), device=cuda_device)
+    got = embedding.lookup_sharded(table, ids, cfg,
+                                   distributed.LocalFabric(n_shards, device=cuda_device))
+    assert torch.equal(got, embedding.lookup(table, ids, cfg))

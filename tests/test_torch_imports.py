@@ -50,7 +50,10 @@ def test_port_files_exist():
                  "kernels/decode_attention.py", "configs/qwen2_5_3b.py",
                  "configs/smollm_360m.py", "configs/minitron_4b.py",
                  "core/pruning.py", "core/baselines.py", "core/reference.py",
-                 "graphs/sampler.py", "graphs/gnn_data.py"):
+                 "graphs/sampler.py", "graphs/gnn_data.py",
+                 "models/embedding.py", "models/sequential_rec.py",
+                 "models/dlrm.py", "configs/sasrec.py", "configs/bst.py",
+                 "configs/dlrm_rm2.py", "configs/dlrm_mlperf.py"):
         assert twin in names
     for src in ("walk_steps_fused.cu", "visit_counter.cu", "embedding_bag.cu",
                 "walk_hop.cu", "decode_attention.cu", "walk_step.cu",
@@ -83,6 +86,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.core.pruning, repro_torch.core.baselines\n"
         "import repro_torch.core.reference, repro_torch.graphs.sampler\n"
         "import repro_torch.graphs.gnn_data\n"
+        "import repro_torch.models.embedding, repro_torch.models.dlrm\n"
+        "import repro_torch.models.sequential_rec, repro_torch.configs.sasrec\n"
+        "import repro_torch.configs.bst, repro_torch.configs.dlrm_rm2\n"
+        "import repro_torch.configs.dlrm_mlperf, repro_torch.configs.registry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
