@@ -278,11 +278,40 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              logits and the three losses within 2e-6 (the maximum
              printed), top-k ids exact.  Every float32 comparison first
              asserts float32 matmul precision "highest" and no TF32.
+30. moe_granite  after phase 20, nothing else resident:
+             granite_moe_3b_a800m.FULL at full width and depth (40 experts
+             padded to 48, top 8, 24 heads padded to 32, 49,155 tokens
+             padded to 49,168), seeded weights on the card, a 4 x 512
+             prompt.  The peak is reckoned from the config first
+             (weights, two KV caches, one MoE layer's prefill transients);
+             the float32 run cuts its depth only if that passes 76 GB.
+             float32: 32 greedy and 32 sampled tokens (temperature 0.7, a
+             seeded key) through decode.generate on the kernel path and
+             with backend="xla", identical, and the largest logit
+             difference of each lockstep step; the card's gumbel noise of
+             one step (4 x 49,168) equal to the CPU port's bit for bit.
+             bf16 (weights drawn cast, one layer's slice at a time):
+             prefill ms, decode ms a step (p50 of 32), tokens/s, one
+             profiled step (device idle share), decode-attention launches,
+             the tokens the two paths agree on, and the attention kernel
+             at layer 0 of the last step beside SDPA and its byte bound.
+31. moe_deepseek  the same for deepseek_moe_16b.FULL (64 experts top 6,
+             2 shared, dense layer 0 with d_ff 10,944, MHA: the kernel's
+             group 1).
+32. gin      gin_tu.FULL on cora_like() (full_graph_sm: 2,708 nodes,
+             10,556 edges, 1,433 features, 7 classes), on a FanoutSampler
+             block of reddit_like() (minibatch_lg: the full 232,965-node,
+             ~115M-edge graph built on the host, 1,024 seeds, fanout 15 /
+             10, 602 features, 41 classes) and on a 128-graph molecule
+             batch (sum readout): logits and loss on the card against the
+             CPU port on the same parameters within 2e-6 times max(1, the
+             largest magnitude), two card calls the same bits, ms a
+             forward.
 
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
-13, 14, 18, 19 and 19b, 20, 21, 22, 23, 24, 25, 26, 27, 28, and 29, whose
-models launch no hand kernel); the kernels line sums them, and every one of its nine kernels
+13, 14, 18, 19 and 19b, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, whose
+models launch no hand kernel, 30 and 31); the kernels line sums them, and every one of its nine kernels
 (the eight TPU kernels' and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
 kernels (ptxas -v).  The profiled
@@ -2270,17 +2299,20 @@ def capture_attention(fn):
     return out, seen[0]
 
 
-def lockstep_logits(params, cfg, prompt, n_new: int) -> list:
+def lockstep_logits(params, cfg, prompt, n_new: int, temperature: float = 0.0,
+                    key=None) -> list:
     """Prefill once, then decode on the kernel path and the plain path side
-    by side, both fed the kernel path's greedy token: the max |logit
-    difference| per step; the greedy tokens must agree at every step."""
+    by side, both fed the kernel path's token (greedy, or sampled as
+    ``decode.generate`` samples with ``temperature`` and ``key``): the max
+    |logit difference| per step; the tokens must agree at every step."""
     import torch
     from repro_torch.models import transformer
+    from repro_torch.serving import decode
 
     logits, cache_k = transformer.prefill(params, prompt, cfg,
                                           max_seq=prompt.shape[1] + n_new)
     cache_p = {name: t.clone() for name, t in cache_k.items()}
-    cur = torch.argmax(logits, dim=-1).to(torch.int32)
+    cur = decode._sample(logits, temperature, key, 0)
     diffs = []
     for i in range(n_new - 1):
         pos = prompt.shape[1] + i
@@ -2290,18 +2322,20 @@ def lockstep_logits(params, cfg, prompt, n_new: int) -> list:
         if not bool(torch.isfinite(lk).all()):
             raise AssertionError(f"{cfg.name}: step {i} logits not finite")
         diffs.append(float((lk - lp).abs().max()))
-        cur = torch.argmax(lk, dim=-1).to(torch.int32)
-        if not torch.equal(cur, torch.argmax(lp, dim=-1).to(torch.int32)):
-            raise AssertionError(f"{cfg.name}: greedy tokens differ at step {i}")
+        cur = decode._sample(lk, temperature, key, i + 1)
+        if not torch.equal(cur, decode._sample(lp, temperature, key, i + 1)):
+            raise AssertionError(f"{cfg.name}: tokens differ at step {i}")
     return diffs
 
 
-def generate_both(params, cfg, prompt, n_new: int, what: str, identical=True):
-    """Greedy generate on the kernel path (its launches counted) and on the
-    plain path; the tokens must be in range and, with ``identical``, equal.
+def generate_both(params, cfg, prompt, n_new: int, what: str, identical=True,
+                  **sample):
+    """Generate (greedy, or with ``sample``'s temperature and key) on the
+    kernel path (its launches counted) and on the plain path; the tokens
+    must be in range and, with ``identical``, equal.
     Returns the kernel path's tokens, its launches, its wall seconds and
     the share of generated tokens the two paths agree on.  In bf16 the two
-    attention outputs round to different bf16 values, so greedy paths may
+    attention outputs round to different bf16 values, so the paths may
     part; in float32 they must not."""
     import torch
     from repro_torch.kernels import _build
@@ -2310,11 +2344,12 @@ def generate_both(params, cfg, prompt, n_new: int, what: str, identical=True):
     torch.cuda.synchronize()
     _build.reset_launches()
     t = time.perf_counter()
-    toks = decode.generate(params, prompt, cfg, max_new_tokens=n_new)
+    toks = decode.generate(params, prompt, cfg, max_new_tokens=n_new, **sample)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
     launches = dict(_build.launches)
-    plain = decode.generate(params, prompt, cfg, max_new_tokens=n_new, backend="xla")
+    plain = decode.generate(params, prompt, cfg, max_new_tokens=n_new,
+                            backend="xla", **sample)
     torch.cuda.synchronize()
     if _build.launches["decode_attention"] != launches["decode_attention"]:
         raise AssertionError(f"{what}: the plain path launched the kernel")
@@ -2507,6 +2542,266 @@ def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
 
 
 # ---------------------------------------------------------------------------
+# Phases 30-32: MoE LM serving (granite, deepseek) and the GIN model
+# ---------------------------------------------------------------------------
+
+MOE_TEMPERATURE = 0.7
+MOE_F32_LIMIT_GB = 76.0    # the float32 phase's reckoned peak must stay under this
+GIN_TOL = 2e-6             # card vs CPU port, times max(1, the CPU's largest |value|)
+REDDIT_BATCH, REDDIT_FANOUT = 1024, (15, 10)   # registry.py minibatch_lg
+MOLECULE_BATCH = 128                           # registry.py molecule
+
+
+def moe_reckon_gb(cfg, dtype, batch: int, prompt_len: int, max_seq: int) -> dict:
+    """The peak a decode phase reckons from its config, before it runs:
+    the weights in ``dtype`` (the router in float32), two KV caches (the
+    lockstep check holds one per path), and the larger of one MoE layer's
+    prefill transients (the ``(E, cap, d)`` buffer, its gate/up/swiglu
+    products in float32, the down product, the gathered tokens and their
+    contributions) and one layer's float32 draw at init."""
+    import torch
+
+    m = cfg.moe
+    size = torch.empty((), dtype=dtype).element_size()
+    d, e, ff = cfg.d_model, m.n_experts_padded, m.d_ff_expert
+    router = cfg.n_scan * d * e
+    weights = (cfg.physical_param_count() - router) * size + router * 4
+    cache = 2 * 2 * cfg.n_layers * batch * max_seq * cfg.n_kv_heads * cfg.head_dim * \
+        torch.empty((), dtype=cfg.cache_dtype).element_size()
+    t = batch * prompt_len
+    cap = m.capacity(t)
+    prefill = (3 * e * cap * d * size + 3 * e * cap * ff * 4
+               + 2 * t * m.top_k * d * size)
+    if cfg.first_dense_ff:
+        prefill = max(prefill, 3 * t * cfg.first_dense_ff * 4)
+    draw = (3 * e * d * ff + d * e) * 4
+    return dict(weights_gb=gb(weights), caches_gb=gb(cache),
+                transient_gb=gb(max(prefill, draw)),
+                peak_gb=gb(weights + cache + max(prefill, draw)))
+
+
+def moe_model(dev, cfg, seed: int, prompt_len: int, lm_batch: int, new_tokens: int,
+              what: str) -> tuple:
+    """One MoE config on the card: float32 (kernel path == plain path,
+    greedy and sampled, the card's gumbel noise == the CPU port's), then
+    bf16 (prefill, decode p50, tokens/s, a profiled step, the attention
+    kernel at layer 0 beside SDPA).  Returns (attention row, launches of
+    the four driven paths)."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import transformer
+
+    f32 = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
+    max_seq = prompt_len + new_tokens
+    gen = lambda: torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (lm_batch, prompt_len), dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                           device=dev)
+    key = prng.key(seed + 2, dev)
+    sample = dict(temperature=MOE_TEMPERATURE, key=key)
+
+    # float32 at full depth when the reckoning fits, else cut
+    cfg32 = dataclasses.replace(cfg, **f32)
+    reckon = moe_reckon_gb(cfg32, torch.float32, lm_batch, prompt_len, max_seq)
+    cut = None
+    while reckon["peak_gb"] > MOE_F32_LIMIT_GB:
+        cfg32 = dataclasses.replace(cfg32, n_layers=cfg32.n_layers - 1)
+        reckon = moe_reckon_gb(cfg32, torch.float32, lm_batch, prompt_len, max_seq)
+        cut = (f"float32 depth {cfg32.n_layers} of {cfg.n_layers}: the reckoned "
+               f"peak at full depth passes {MOE_F32_LIMIT_GB} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = transformer.init_params(gen(), cfg32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    greedy, greedy_launches, greedy_s, _ = generate_both(params, cfg32, prompt,
+                                                         new_tokens, f"{what} f32")
+    greedy_diffs = lockstep_logits(params, cfg32, prompt, new_tokens)
+    sampled, sampled_launches, sampled_s, _ = generate_both(
+        params, cfg32, prompt, new_tokens, f"{what} f32 sampled", **sample)
+    sampled_diffs = lockstep_logits(params, cfg32, prompt, new_tokens, **sample)
+    shape = (lm_batch, cfg.vocab_padded)
+    noise = prng.gumbel(prng.fold_in(key, 1), shape)
+    host = prng.gumbel(prng.fold_in(prng.key(seed + 2, "cpu"), 1), shape)
+    if not torch.equal(noise.cpu().view(torch.int32), host.view(torch.int32)):
+        raise AssertionError(f"{what}: the card's gumbel noise differs from the CPU's")
+    log(f"{what}_f32", model=cfg.name, n_layers=cfg32.n_layers, d_model=cfg.d_model,
+        n_experts=cfg.moe.n_experts, n_experts_padded=cfg.moe.n_experts_padded,
+        top_k=cfg.moe.top_k, n_shared=cfg.moe.n_shared, vocab=cfg.vocab_size,
+        params=cfg.param_count(), physical_params=cfg32.physical_param_count(),
+        active_params=cfg.active_param_count(), cut=cut, reckoned=reckon,
+        init_s=init_s, batch=lm_batch, prompt=prompt_len, new_tokens=new_tokens,
+        tokens_identical=True, max_logit_diff_per_step=greedy_diffs,
+        sampled_tokens_identical=True, temperature=MOE_TEMPERATURE,
+        sampled_max_logit_diff_per_step=sampled_diffs,
+        sampled_differs_from_greedy=not torch.equal(sampled, greedy),
+        gumbel_bits_equal_cpu=list(shape), generate_s=greedy_s,
+        sampled_generate_s=sampled_s, launches=greedy_launches,
+        sampled_launches=sampled_launches,
+        peak_gb=gb(torch.cuda.max_memory_allocated()))
+    del params, noise
+    torch.cuda.empty_cache()
+
+    # bf16 at full depth, drawn cast (a float32 tree never coexists)
+    reckon = moe_reckon_gb(cfg, cfg.compute_dtype, lm_batch, prompt_len, max_seq)
+    torch.cuda.reset_peak_memory_stats()
+    served = transformer.init_params(gen(), cfg, dtype=cfg.compute_dtype)
+    transformer.decode_step(served, transformer.prefill(served, prompt[:, :8], cfg,
+                                                        max_seq=9)[1],
+                            prompt[:, 8], 8, cfg)                       # warm-up
+    toks, bf16_launches, bf16_wall, bf16_agree = generate_both(
+        served, cfg, prompt, new_tokens, f"{what} bf16", identical=False)
+    _, sampled_bf16_launches, _, sampled_agree = generate_both(
+        served, cfg, prompt, new_tokens, f"{what} bf16 sampled", identical=False,
+        **sample)
+    out = {}
+    prefill_ms = wall_ms(lambda: out.setdefault("p", transformer.prefill(
+        served, prompt, cfg, max_seq=max_seq)))
+    cache = out["p"][1]
+    step_ms = [wall_ms(lambda i=i: transformer.decode_step(
+        served, cache, toks[:, prompt_len + i], prompt_len + i, cfg))
+        for i in range(new_tokens)]
+    last = prompt_len + new_tokens - 1
+    prof = profile_decode_step(lambda: transformer.decode_step(
+        served, cache, toks[:, -1], last, cfg))
+    _, (q, k, v, lengths) = capture_attention(lambda: transformer.decode_step(
+        served, cache, toks[:, -1], last, cfg))
+    attn_row = time_attn(q, k, v, lengths, f"{cfg.name} batch {lm_batch} layer 0")
+    p50 = float(np.percentile(step_ms, 50))
+    log(f"{what}_bf16", model=cfg.name, compute_dtype="bfloat16", cache_dtype="bfloat16",
+        n_layers=cfg.n_layers, reckoned=reckon, batch=lm_batch, prompt=prompt_len,
+        new_tokens=new_tokens, prefill_ms=prefill_ms, decode_p50_ms=p50,
+        decode_ms=step_ms, decode_tokens_per_s=lm_batch * 1e3 / p50,
+        generate_s=bf16_wall, generate_tokens_per_s=lm_batch * new_tokens / bf16_wall,
+        tokens_agreeing_with_plain=bf16_agree,
+        sampled_tokens_agreeing_with_plain=sampled_agree,
+        attention_launches=bf16_launches["decode_attention"],
+        launches=bf16_launches, profiled_step=prof,
+        weights_floor_ms=reckon["weights_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3,
+        peak_gb=gb(torch.cuda.max_memory_allocated()))
+    del served, cache, out, q, k, v
+    torch.cuda.empty_cache()
+    return attn_row, [greedy_launches, sampled_launches, bf16_launches,
+                      sampled_bf16_launches]
+
+
+def moe_phases(dev, granite, deepseek, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
+               new_tokens=LM_NEW_TOKENS) -> tuple:
+    """Phases 30-31 (see the module docstring): ``(attention rows, launch
+    counts of every driven path)``; each path must launch the attention
+    kernel."""
+    rows, paths = [], []
+    for i, (cfg, what) in enumerate(((granite, "moe_granite"),
+                                     (deepseek, "moe_deepseek"))):
+        row, p = moe_model(dev, cfg, SEED + 10 * (i + 1), prompt_len, lm_batch,
+                           new_tokens, what)
+        rows.append(row)
+        paths += p
+    if any(p["decode_attention"] == 0 for p in paths):
+        raise AssertionError(f"an MoE phase never launched decode_attention: {paths}")
+    return rows, paths
+
+
+def gin_cases(scale: float = 1.0) -> list:
+    """``(name, config, host arrays, cut)`` at the reference's GNN cells:
+    full_graph_sm on ``cora_like()``, a minibatch_lg ``FanoutSampler``
+    block of ``reddit_like(scale)`` and a molecule batch (sum readout)."""
+    from repro_torch.configs import gin_tu
+    from repro_torch.graphs import gnn_data, sampler
+
+    cora = gnn_data.cora_like(seed=SEED)
+    t = time.perf_counter()
+    red = gnn_data.reddit_like(seed=SEED, scale=scale)
+    n = red.feats.shape[0]
+    csr = sampler.csr_from_edges(red.edge_src, red.edge_dst, n)
+    seeds = np.random.default_rng(SEED).choice(n, REDDIT_BATCH, replace=False)
+    block = sampler.FanoutSampler(csr, REDDIT_FANOUT, seed=SEED).sample(
+        seeds.astype(np.int32), step=0)
+    arr = sampler.block_to_arrays(block, red.feats, red.labels)
+    reddit_s = time.perf_counter() - t
+    mol = gnn_data.molecule_batch(batch=MOLECULE_BATCH, seed=SEED)
+    return [
+        ("full_graph_sm", gin_tu.FULL,
+         dict(feats=cora.feats, edge_src=cora.edge_src, edge_dst=cora.edge_dst,
+              labels=cora.labels, mask=cora.train_mask), None),
+        ("minibatch_lg", dataclasses.replace(gin_tu.FULL, d_in=602, n_classes=41),
+         dict(arr, graph_nodes=n, graph_edges=int(red.edge_src.size),
+              build_s=reddit_s,
+              block_nodes=int((block.nodes >= 0).sum()),
+              block_edges=int((block.edge_src >= 0).sum())),
+         None if scale == 1.0 else f"reddit_like nodes and edges x {scale}"),
+        ("molecule", dataclasses.replace(gin_tu.FULL, d_in=16, n_classes=2,
+                                         readout="sum"),
+         dict(feats=mol.feats, edge_src=mol.edge_src, edge_dst=mol.edge_dst,
+              graph_ids=mol.graph_ids, labels=mol.labels, n_graphs=MOLECULE_BATCH),
+         None),
+    ]
+
+
+GIN_ARRAYS = ("feats", "edge_src", "edge_dst", "labels", "mask", "graph_ids")
+
+
+def gin_outputs(params, cfg, t: dict):
+    """``(logits, loss)`` of one case; ``t`` holds its arrays as tensors on
+    the parameters' device."""
+    from repro_torch.models import gnn
+
+    args = (t["feats"], t["edge_src"], t["edge_dst"])
+    if cfg.readout == "sum":
+        n = t["n_graphs"]
+        return (gnn.forward(params, *args, cfg, graph_ids=t["graph_ids"], n_graphs=n),
+                gnn.graph_classification_loss(params, *args, t["graph_ids"],
+                                              t["labels"], cfg, n))
+    return (gnn.forward(params, *args, cfg),
+            gnn.node_classification_loss(params, *args, t["labels"], t["mask"], cfg))
+
+
+def gin_phase(dev, cases=None) -> dict:
+    """Phase 32: each GIN case on the card against the CPU port on the same
+    parameters (logits and loss within GIN_TOL times max(1, the CPU's
+    largest magnitude)), two card calls the same bits, ms a forward on
+    inputs already on the card (CUDA events around back-to-back calls; each
+    ``segment_sum`` reads its depth from the card).  Returns the largest
+    relative differences."""
+    import torch
+    from repro_torch.models import gnn
+
+    assert_fp32_matmuls()
+    errs = {}
+    for i, (name, cfg, a, cut) in enumerate(cases or gin_cases()):
+        params = gnn.init_params(torch.Generator(device=dev).manual_seed(SEED + 30 + i), cfg)
+        host = {g: {k: v.cpu() for k, v in d.items()} for g, d in params.items()}
+        on = lambda d: dict({k: torch.as_tensor(a[k], device=d)
+                             for k in GIN_ARRAYS if k in a}, n_graphs=a.get("n_graphs"))
+        card = on(dev)
+        logits, loss = gin_outputs(params, cfg, card)
+        again, loss2 = gin_outputs(params, cfg, card)
+        if not (torch.equal(logits, again) and torch.equal(loss, loss2)):
+            raise AssertionError(f"gin {name}: two calls on the card differ")
+        want, want_loss = gin_outputs(host, cfg, on("cpu"))
+        rows = a.get("n_graphs", a["feats"].shape[0])
+        check_finite(logits, (rows, cfg.n_classes), f"gin {name}")
+        err = {}
+        for what, got, ref in (("logits", logits, want), ("loss", loss, want_loss)):
+            scale = max(1.0, float(ref.abs().max()))
+            err[what] = float((got.cpu() - ref).abs().max())
+            if err[what] > GIN_TOL * scale:
+                raise AssertionError(f"gin {name} {what}: {err[what]} > {GIN_TOL} x {scale}")
+            err[f"{what}_scale"] = scale
+        ms = cuda_ms(lambda: gnn.forward(params, card["feats"], card["edge_src"],
+                                         card["edge_dst"], cfg,
+                                         graph_ids=card.get("graph_ids"),
+                                         n_graphs=a.get("n_graphs", 0)), 5)
+        errs[name] = max(err["logits"] / err["logits_scale"], err["loss"] / err["loss_scale"])
+        log("gin", cell=name, n_layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+            d_in=cfg.d_in, n_classes=cfg.n_classes, readout=cfg.readout,
+            nodes=int(a["feats"].shape[0]), edges=int(a["edge_src"].shape[0]),
+            cut=cut, **{k: a[k] for k in ("graph_nodes", "graph_edges", "build_s",
+                                           "block_nodes", "block_edges") if k in a},
+            card_equals_itself=True, max_abs_diff=err, tolerance=GIN_TOL,
+            loss=float(loss), forward_ms=ms)
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -3602,7 +3897,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.configs import qwen2_5_3b, smollm_360m
+    from repro_torch.configs import (deepseek_moe_16b, granite_moe_3b_a800m,
+                                     qwen2_5_3b, smollm_360m)
     from repro_torch.configs.pixie import FULL_WALK, SERVE_200M_REPLICATED
     from repro_torch.core import prng, service, walk
     from repro_torch.core import counter as counter_lib
@@ -3986,12 +4282,23 @@ def main() -> int:
     log("lm_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
     attn_row, lm_paths = lm_phases(dev, qwen2_5_3b.FULL, smollm_360m.FULL)
 
+    # 30-31. MoE LM serving at full width, nothing else resident ------------------
+    torch.cuda.empty_cache()
+    log("moe_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
+    moe_rows, moe_paths = moe_phases(dev, granite_moe_3b_a800m.FULL,
+                                     deepseek_moe_16b.FULL)
+    attn_row["max_abs_err"] = max(attn_row["max_abs_err"],
+                                  *(r["max_abs_err"] for r in moe_rows))
+
+    # 32. the GIN model at the reference's three GNN cells --------------------------
+    gin_errs = gin_phase(dev)
+
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *past_cap_launches, *sharded_paths, *lm_paths, *event_paths,
              pruned_launches, fig4_launches, table1_launches, oracle_launches,
-             sasrec_launches, recsys_launches]
+             sasrec_launches, recsys_launches, *moe_paths]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
             *event_rows, sharded_rows[1]]
     for row in rows:
@@ -4015,7 +4322,8 @@ def main() -> int:
         legacy_kernels=event_paths[2], pruned_serve=pruned_launches,
         prune_20k=fig4_launches, baselines_20k=table1_launches,
         oracle=oracle_launches, sasrec_2stage=sasrec_launches,
-        recsys_full=recsys_launches)
+        recsys_full=recsys_launches, moe_granite=moe_paths[:4],
+        moe_deepseek=moe_paths[4:], gin_max_rel_diff=gin_errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

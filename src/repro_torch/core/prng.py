@@ -6,12 +6,14 @@ with the default threefry2x32 implementation in its *partitionable* mode
 port reproduces those bits exactly, so a query walked by the port visits
 the same pins as in the reference for the same key:
 
-  * ``key(seed)``       -> ``(seed >> 32, seed & 0xFFFFFFFF)``;
+  * ``key(seed)``       -> ``(0, seed & 0xFFFFFFFF)`` (64-bit types off);
   * ``fold_in(k, d)``   -> ``threefry2x32(k, (0, d))``;
   * ``split(k, n)[i]``  -> ``threefry2x32(k, (0, i))`` (partitionable
     split is a fold-in of the index);
   * ``bits(k, shape)``  -> ``y0 ^ y1`` of ``threefry2x32(k, (hi, lo))``
-    over the row-major flat index ``(hi, lo)`` of each element.
+    over the row-major flat index ``(hi, lo)`` of each element;
+  * ``uniform`` and ``gumbel`` -> ``jax.random.uniform`` / ``gumbel``
+    (mode "low") from those bits.
 
 A key is an int64 tensor whose last axis holds the two 32-bit words;
 ``(2,)`` is one key, ``(n, 2)`` a batch of keys.  Every uint32 value is
@@ -58,14 +60,13 @@ def threefry2x32(
 def key(seed: int, device: DeviceLike = None) -> torch.Tensor:
     """``jax.random.key(seed)`` as a ``(2,)`` int64 word pair.
 
-    With 64-bit types off (the reference's mode) a seed in int32 range is
-    an int32, whose logical shift by 32 is 0: the high word is 0 then,
-    negative seeds included.
+    With 64-bit types off (the reference's mode) the seed is held in 32
+    bits, whose logical shift by 32 is 0: the high word is always 0 and
+    the low word is the seed's low 32 bits, negative seeds and seeds past
+    2**32 included.
     """
-    seed = int(seed)
-    hi = 0 if -(2**31) <= seed < 2**31 else (seed >> 32) & MASK32
     return torch.tensor(
-        [hi, seed & MASK32],
+        [0, int(seed) & MASK32],
         dtype=torch.int64,
         device=resolve_device(device),
     )
@@ -116,3 +117,34 @@ def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
 def from_int32_bits(x: torch.Tensor) -> torch.Tensor:
     """int32 bit patterns -> their uint32 values held in int64."""
     return x.to(torch.int64) & MASK32
+
+
+F32_TINY = 2.0**-126    # float32's smallest normal (jnp.finfo(float32).tiny)
+
+
+def uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)`` bit for bit.
+
+    jax sets the exponent of a word's top 23 bits to make a float32 in
+    [1, 2), subtracts 1, then scales: ``max(min, f * (max - min) + min)``,
+    the multiply-add fused (XLA contracts it into an FMA; ``_fma_f32``
+    makes the same single rounding on any device).  ``minval`` and
+    ``maxval`` are rounded to float32 first, as jax converts them.
+    """
+    from repro_torch.core.sampling import _fma_f32
+
+    words = bits(k, shape)
+    f = ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    return torch.maximum(lo, _fma_f32(f, hi - lo, lo))
+
+
+def gumbel(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.gumbel(k, shape, float32)`` in its default mode
+    ("low") bit for bit: ``-log(-log(u))`` for ``u`` uniform in
+    [tiny, 1), each ``log`` XLA's CPU float32 ``log`` (``log_f32``)."""
+    from repro_torch.core.sampling import log_f32
+
+    return -log_f32(-log_f32(uniform(k, shape, F32_TINY, 1.0)))

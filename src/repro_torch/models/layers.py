@@ -1,5 +1,5 @@
 """Shared neural building blocks: RMSNorm, LayerNorm, RoPE, flash
-attention, SwiGLU.
+attention, SwiGLU, the token-mean cross-entropy.
 
 Twin of ``repro/models/layers.py``: the same names, argument orders and
 layouts (``(b, s, heads, head_dim)`` activations), and the reference's
@@ -148,6 +148,21 @@ def flash_attention(
 
 
 # ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Token-mean CE (forward value).  logits (..., v) f32; labels/mask (...)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
 
@@ -166,9 +181,11 @@ def embed_init(gen: torch.Generator, shape: Tuple[int, ...],
                        device=device) * std
 
 
-def dense_stack(gen: torch.Generator, n: int, shape: Tuple[int, ...]) -> torch.Tensor:
-    """``n`` independent ``dense_init(shape)`` draws stacked on axis 0."""
-    out = torch.empty((n,) + shape, dtype=torch.float32, device=gen.device)
+def dense_stack(gen: torch.Generator, n: int, shape: Tuple[int, ...],
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``n`` independent ``dense_init(shape)`` draws stacked on axis 0,
+    each cast to ``dtype`` as it is stored."""
+    out = torch.empty((n,) + shape, dtype=dtype, device=gen.device)
     for i in range(n):
         out[i] = dense_init(gen, shape, device=gen.device)
     return out

@@ -1,13 +1,14 @@
-"""Decoder-only LM: GQA + RoPE + RMSNorm + SwiGLU, dense FFN.
+"""Decoder-only LM: GQA + RoPE + RMSNorm + SwiGLU, dense or MoE FFN.
 
-Twin of ``repro/models/transformer.py`` for the dense configurations
-(qwen2.5-3b, smollm-360m, minitron-4b): the same ``LMConfig`` fields and
-defaults, the same parameter tree (plain nested dicts with the stacked
-``(L, ...)`` block layout: ``wq`` is ``(L, d, hp, dh)``, ``wo`` is
-``(L, hp, dh, d)``) and the same KV-cache layout ``(L, b, max_seq, kh,
-dh)``.  A config with ``moe`` or ``first_dense_ff`` set raises
-``NotImplementedError``: MoE routing waits for ``moe.py`` (ROADMAP Queue 1
-item 1).
+Twin of ``repro/models/transformer.py`` for all five LM configurations
+(qwen2.5-3b, smollm-360m, minitron-4b, granite-moe-3b-a800m,
+deepseek-moe-16b): the same ``LMConfig`` fields and defaults, the same
+parameter tree (plain nested dicts with the stacked ``(L, ...)`` block
+layout: ``wq`` is ``(L, d, hp, dh)``, ``wo`` is ``(L, hp, dh, d)``; an MoE
+block's FFN is the nested ``moe`` dict of ``models/moe.py``, stacked the
+same way; DeepSeekMoE's dense layer 0 is the unstacked ``dense0``, which
+the other blocks follow) and the same KV-cache layout ``(L, b, max_seq,
+kh, dh)``, ``dense0``'s K/V at layer 0.
 
 Differences from the reference, none of which changes a value:
 
@@ -26,7 +27,10 @@ Differences from the reference, none of which changes a value:
     heads' outputs are zeros, as the reference's ``hmask`` makes them;
   * ``cast_for_serving`` casts the matrices to ``compute_dtype`` once
     (the reference casts with ``.astype(cd)`` at every use, which gives
-    the same values).
+    the same values); the MoE router stays float32, as the reference
+    routes in float32, and ``init_params(..., dtype=)`` draws a tree
+    already cast, one layer's slice at a time, so a float32 tree and its
+    cast copy never coexist.
 """
 
 from __future__ import annotations
@@ -40,12 +44,15 @@ import torch.nn.functional as F
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
 
 BACKENDS = ("pallas", "xla")
 # matrices the reference casts to compute_dtype at each use; the norm
-# weights stay float32 (rmsnorm upcasts them)
+# weights stay float32 (rmsnorm upcasts them), and so does the MoE router
+# (the reference routes in float32)
 _CAST = ("embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
-         "w_gate", "w_up", "w_down")
+         "w_gate", "w_up", "w_down", "shared_gate", "shared_up",
+         "shared_down")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +68,7 @@ class LMConfig:
     rope_theta: float = 10_000.0
     qkv_bias: bool = False
     tie_embeddings: bool = False
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     first_dense_ff: Optional[int] = None  # DeepSeekMoE: layer 0 dense FFN
     norm_eps: float = 1e-6
     compute_dtype: Any = torch.bfloat16
@@ -91,28 +98,68 @@ class LMConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def n_scan(self) -> int:
+        """Layers in the stacked ``blocks`` (all but a dense layer 0)."""
+        return self.n_layers - (1 if self.first_dense_ff else 0)
+
     def param_count(self) -> int:
         """Total parameters (for 6ND model-FLOPs accounting)."""
-        _dense_only(self)
         d, l = self.d_model, self.n_layers
         attn = d * self.qkv_dim + 2 * d * self.kv_dim + self.qkv_dim * d
         if self.qkv_bias:
             attn += self.qkv_dim + 2 * self.kv_dim
-        ffn = 3 * d * self.d_ff
-        total = l * (attn + ffn + 2 * d)
+        if self.moe is not None:
+            m = self.moe
+            ffn = d * m.n_experts + 3 * m.n_experts * d * m.d_ff_expert
+            if m.n_shared:
+                ffn += 3 * d * m.d_ff_expert * m.n_shared
+            total = self.n_scan * (attn + ffn + 2 * d)
+            if self.first_dense_ff:
+                total += attn + 3 * d * self.first_dense_ff + 2 * d
+        else:
+            ffn = 3 * d * self.d_ff
+            total = l * (attn + ffn + 2 * d)
         total += self.vocab_size * d  # embedding
         if not self.tie_embeddings:
             total += d * self.vocab_size
         total += d  # final norm
         return total
 
+    def physical_param_count(self) -> int:
+        """param_count plus padding zeros (actual array elements)."""
+        extra_h = self.n_heads_padded - self.n_heads
+        per_layer = 2 * self.d_model * extra_h * self.head_dim  # wq + wo
+        if self.qkv_bias:
+            per_layer += extra_h * self.head_dim
+        total = self.param_count() + self.n_layers * per_layer
+        extra_v = self.vocab_padded - self.vocab_size
+        total += extra_v * self.d_model * (1 if self.tie_embeddings else 2)
+        if self.moe is not None:
+            extra_e = self.moe.n_experts_padded - self.moe.n_experts
+            per_moe_layer = extra_e * (
+                self.d_model + 3 * self.d_model * self.moe.d_ff_expert
+            )
+            total += self.n_scan * per_moe_layer
+        return total
 
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe is not None or cfg.first_dense_ff:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (moe / first_dense_ff) are not ported "
-            "yet; see ROADMAP Queue 1 item 1 (moe.py)"
-        )
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if self.moe is None:
+            return self.param_count()
+        d, m = self.d_model, self.moe
+        attn = d * self.qkv_dim + 2 * d * self.kv_dim + self.qkv_dim * d
+        ffn_act = d * m.n_experts + 3 * m.top_k * d * m.d_ff_expert
+        if m.n_shared:
+            ffn_act += 3 * d * m.d_ff_expert * m.n_shared
+        total = self.n_scan * (attn + ffn_act + 2 * d)
+        if self.first_dense_ff:
+            total += attn + 3 * d * self.first_dense_ff + 2 * d
+        total += self.vocab_size * d
+        if not self.tie_embeddings:
+            total += d * self.vocab_size
+        return total
+
 
 
 # ---------------------------------------------------------------------------
@@ -120,40 +167,61 @@ def _dense_only(cfg: LMConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_params(gen: torch.Generator, cfg: LMConfig) -> Dict[str, Any]:
-    """Seeded parameters on the generator's device, in the reference's
-    tree and layout (the values differ: ``torch.Generator`` is not
-    ``jax.random``)."""
-    _dense_only(cfg)
+def _init_blocks(gen: torch.Generator, cfg: LMConfig, n: int,
+                 dtype: torch.dtype) -> Dict[str, Any]:
+    """``n`` blocks stacked on axis 0, the matrices in ``dtype`` (each
+    layer's slice drawn in float32 and cast as it is stored)."""
     dev = gen.device
-    d, n, hp, dh = cfg.d_model, cfg.n_layers, cfg.n_heads_padded, cfg.head_dim
-    kh = cfg.n_kv_heads
+    d, hp, dh, kh = cfg.d_model, cfg.n_heads_padded, cfg.head_dim, cfg.n_kv_heads
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=dev)
-    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)
-    params: Dict[str, Any] = {
-        "embed": layers.embed_init(gen, (cfg.vocab_padded, d), device=dev),
-    }
+    zeros = lambda *s: torch.zeros(s, dtype=dtype, device=dev)
+    stack = lambda shape: layers.dense_stack(gen, n, shape, dtype=dtype)
     blocks = {
         "ln1": ones(n, d),
-        "wq": layers.dense_stack(gen, n, (d, hp, dh)),
-        "wk": layers.dense_stack(gen, n, (d, kh, dh)),
-        "wv": layers.dense_stack(gen, n, (d, kh, dh)),
-        "wo": layers.dense_stack(gen, n, (hp, dh, d)),
+        "wq": stack((d, hp, dh)),
+        "wk": stack((d, kh, dh)),
+        "wv": stack((d, kh, dh)),
+        "wo": stack((hp, dh, d)),
         "ln2": ones(n, d),
     }
     if cfg.qkv_bias:
         blocks.update(bq=zeros(n, hp, dh), bk=zeros(n, kh, dh),
                       bv=zeros(n, kh, dh))
-    blocks.update(
-        w_gate=layers.dense_stack(gen, n, (d, cfg.d_ff)),
-        w_up=layers.dense_stack(gen, n, (d, cfg.d_ff)),
-        w_down=layers.dense_stack(gen, n, (cfg.d_ff, d)),
-    )
-    params["blocks"] = blocks
-    params["final_norm"] = ones(d)
+    if cfg.moe is None:
+        blocks.update(w_gate=stack((d, cfg.d_ff)), w_up=stack((d, cfg.d_ff)),
+                      w_down=stack((cfg.d_ff, d)))
+        return blocks
+    moe: Dict[str, torch.Tensor] = {}
+    for i in range(n):
+        for name, w in init_moe_params(gen, d, cfg.moe).items():
+            if name not in moe:
+                kind = dtype if name in _CAST else torch.float32
+                moe[name] = torch.empty((n,) + w.shape, dtype=kind, device=dev)
+            moe[name][i] = w
+    blocks["moe"] = moe
+    return blocks
+
+
+def init_params(gen: torch.Generator, cfg: LMConfig,
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Seeded parameters on the generator's device, in the reference's
+    tree and layout (the values differ: ``torch.Generator`` is not
+    ``jax.random``).  With ``dtype`` the matrices ``cast_for_serving``
+    casts come out in that dtype, with the values ``cast_for_serving``
+    gives the float32 tree; the float32 tree is never held whole."""
+    dev = gen.device
+    d = cfg.d_model
+    params: Dict[str, Any] = {
+        "embed": layers.embed_init(gen, (cfg.vocab_padded, d), device=dev).to(dtype),
+        "blocks": _init_blocks(gen, cfg, cfg.n_scan, dtype),
+        "final_norm": torch.ones(d, dtype=torch.float32, device=dev),
+    }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, (d, cfg.vocab_padded),
-                                              device=dev)
+                                              device=dev).to(dtype)
+    if cfg.first_dense_ff:
+        dense_cfg = dataclasses.replace(cfg, moe=None, d_ff=cfg.first_dense_ff)
+        params["dense0"] = _layer(_init_blocks(gen, dense_cfg, 1, dtype), 0)
     return params
 
 
@@ -186,8 +254,21 @@ def lm_head_weight(params: Dict[str, Any], cfg: LMConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _layer(blocks: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    return {k: v[i] for k, v in blocks.items()}
+def _layer(blocks: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+def _layers(params: Dict[str, Any], cfg: LMConfig):
+    """``(cache index, block params)`` of every layer in order: ``dense0``
+    first when the config has one, then the stacked blocks (the reference
+    scans those after it).  ``dense0`` holds no ``moe``, so ``_ffn`` takes
+    its dense branch with its own ``d_ff`` under the model's config."""
+    first = 1 if cfg.first_dense_ff else 0
+    if first:
+        yield 0, params["dense0"]
+    for i in range(cfg.n_scan):
+        yield first + i, _layer(params["blocks"], i)
 
 
 def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -235,12 +316,20 @@ def _expanded_attention(q, k, v, cfg: LMConfig, q_offset: int = 0):
     return attn
 
 
-def _ffn(p, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+def _ffn(p, x: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN half of a block: ``(x + ffn(x), aux loss)``.  MoE when the
+    block holds ``moe`` (the reference's test), on the flattened ``b * s``
+    tokens, whose count sets the capacity."""
     cd = cfg.compute_dtype
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.moe is not None and "moe" in p:
+        b, s, d = h.shape
+        out, aux = moe_ffn(h.reshape(b * s, d), p["moe"], cfg.moe)
+        return x + out.reshape(b, s, d), aux
     g = h @ p["w_gate"].to(cd)
     u = h @ p["w_up"].to(cd)
-    return x + layers.swiglu(g, u) @ p["w_down"].to(cd)
+    out = layers.swiglu(g, u) @ p["w_down"].to(cd)
+    return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _embed(params, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -261,20 +350,22 @@ def forward(
     cfg: LMConfig,
     mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token ids -> final hidden states (b, s, d). Returns (hidden, aux_loss)."""
-    _dense_only(cfg)
+    """Token ids -> final hidden states (b, s, d). Returns (hidden, aux_loss),
+    the aux loss summed over the stacked blocks."""
     b, s = tokens.shape
     x = _embed(params, tokens, cfg)
     dev = x.device
     freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
     pos = torch.arange(s, device=dev).expand(b, s)
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    auxes = []
+    for _, p in _layers(params, cfg):
         q, k, v = _qkv(p, x, cfg, pos, freqs)
         x = x + _out_proj(_expanded_attention(q, k, v, cfg), p["wo"].to(cfg.compute_dtype))
-        x = _ffn(p, x, cfg)
+        x, aux = _ffn(p, x, cfg)
+        auxes.append(aux)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=dev)
+    # the reference sums the stacked blocks' aux, not dense0's (zero) one
+    return x, torch.stack(auxes[cfg.n_layers - cfg.n_scan:]).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +398,6 @@ def decode_step(
     ``backend="pallas"`` attends through the decode-attention kernel on a
     CUDA cache (its twin on the CPU); ``"xla"`` takes the twin anywhere.
     """
-    _dense_only(cfg)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     pos = int(pos)
@@ -321,8 +411,7 @@ def decode_step(
     freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
     hp = cfg.n_heads_padded
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, p in _layers(params, cfg):
         q, k, v = _qkv(p, x, cfg, posb, freqs)
         ck, cv = cache["k"][i], cache["v"][i]
         ck[:, pos] = k[:, 0].to(ck.dtype)
@@ -332,7 +421,7 @@ def decode_step(
         if hp != cfg.n_heads:   # pad heads contribute zeros
             attn = F.pad(attn, (0, 0, 0, hp - cfg.n_heads))
         x = x + _out_proj(attn[:, None].to(cd), p["wo"].to(cd))
-        x = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x[:, 0], cfg), cache
 
@@ -348,7 +437,6 @@ def prefill(
 
     The cache layout matches decode_step; padding beyond s is zeros.
     """
-    _dense_only(cfg)
     b, s = tokens.shape
     if max_seq is None:
         max_seq = s
@@ -357,11 +445,10 @@ def prefill(
     freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
     pos = torch.arange(s, device=dev).expand(b, s)
     cache = init_kv_cache(cfg, b, max_seq, device=dev)
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, p in _layers(params, cfg):
         q, k, v = _qkv(p, x, cfg, pos, freqs)
         x = x + _out_proj(_expanded_attention(q, k, v, cfg), p["wo"].to(cfg.compute_dtype))
-        x = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg)
         cache["k"][i, :, :s] = k.to(cfg.cache_dtype)
         cache["v"][i, :, :s] = v.to(cfg.cache_dtype)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)

@@ -1,4 +1,4 @@
-"""LM text generation: prefill + greedy decode loop.
+"""LM text generation: prefill + greedy/temperature decode loop.
 
 Twin of ``repro/serving/decode.py``: a host loop over
 ``transformer.prefill`` and ``transformer.decode_step``.  ``backend``
@@ -6,10 +6,15 @@ Twin of ``repro/serving/decode.py``: a host loop over
 decode-attention kernel on the card (its twin on the CPU), ``"xla"`` the
 plain twin anywhere.
 
-Greedy decoding only: ``_sample`` takes the first maximal logit, as
-``jnp.argmax`` does (``torch.argmax`` returns the first maximal index too).
-Temperature sampling needs ``jax.random.categorical``'s bit path and is
-refused (ROADMAP Queue 1 item 1).
+``_sample`` takes the first maximal logit, as ``jnp.argmax`` does
+(``torch.argmax`` returns the first maximal index too).  With a
+temperature and a key (``prng.key``) it is ``jax.random.categorical``'s
+Gumbel-max trick on the reference's bits: ``argmax(gumbel(fold_in(key,
+i)) + logits / temperature)``, the noise from ``prng.gumbel`` and the
+division a true float32 division, as the reference's eager ``_sample``
+divides (a division by a Python float on a CUDA tensor would multiply by
+its reciprocal instead, so the temperature is a tensor on the logits'
+device).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.models import transformer as tf
 
 
@@ -51,7 +57,6 @@ def generate(
 def _sample(logits: torch.Tensor, temperature: float, key, i: int) -> torch.Tensor:
     if temperature <= 0.0 or key is None:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    raise NotImplementedError(
-        "temperature sampling needs jax.random.categorical's bits-to-uniform "
-        "path; only greedy decoding is ported (ROADMAP Queue 1 item 1)"
-    )
+    noise = prng.gumbel(prng.fold_in(key, i), logits.shape)
+    t = torch.tensor(temperature, dtype=logits.dtype, device=logits.device)
+    return torch.argmax(noise + logits / t, dim=-1).to(torch.int32)

@@ -54,7 +54,15 @@ SMOKE widths (SASRec, BST, both DLRMs) give the CPU port's user states,
 scores, logits and losses within 2e-6 and its top-k ids exactly, with
 float32 matmuls (no TF32); ``jnp.take``'s id table (NaN rows past the
 table, no host sync), ``topk_total``'s NaN order and ``lookup_sharded``
-over ``LocalFabric(1, 2, 4)`` hold on the card as on the CPU.
+over ``LocalFabric(1, 2, 4)`` hold on the card as on the CPU.  The MoE
+SMOKE configs give the CPU port's hidden states, logits and caches within
+2e-6 times max(1, the largest magnitude) and its greedy tokens on both
+decode paths; the card's gumbel noise is the CPU's bit for bit and its
+temperature samples the CPU's tokens; the expert products'
+``bmm(out_dtype=float32)`` and the CPU's upcast product each lie within
+the float32 dot-product error bound of the float64 product; GIN on the
+card gives the CPU's logits and losses within the same bound, and the
+same bits on a second call.
 """
 
 import dataclasses
@@ -1233,3 +1241,141 @@ def test_lookup_sharded_on_card_equals_lookup(cuda_device, n_shards):
     got = embedding.lookup_sharded(table, ids, cfg,
                                    distributed.LocalFabric(n_shards, device=cuda_device))
     assert torch.equal(got, embedding.lookup(table, ids, cfg))
+
+
+# ---------------------------------------------------------------------------
+# MoE serving, temperature sampling and GIN: the card against the CPU port
+# ---------------------------------------------------------------------------
+
+
+def _within(got, want, what, rel=2e-6):
+    """Within 2e-6, or 2e-6 of the CPU's largest magnitude where it is
+    larger than 1 (the CPU tests' bound on these models)."""
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    assert got.shape == want.shape, what
+    bound = rel * max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= bound, f"{what}: {err} > {bound}"
+    return err
+
+
+@pytest.mark.parametrize("name", ["granite_moe_3b_a800m", "deepseek_moe_16b"])
+def test_moe_smoke_on_card_matches_cpu(cuda_device, name):
+    """The MoE SMOKE configs in float32 (no TF32): forward, prefill and
+    decode logits within the CPU tests' bound of the CPU port on the same
+    weights; greedy tokens equal, on the kernel path and the plain path."""
+    import dataclasses
+    import importlib
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    cfg = dataclasses.replace(mod.SMOKE, cache_dtype=torch.float32)
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    card = _to(host, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 9)).astype(np.int32))
+    h_cpu, aux_cpu = transformer.forward(host, toks, cfg)
+    h_gpu, aux_gpu = transformer.forward(card, toks.to(cuda_device), cfg)
+    _within(h_gpu, h_cpu, "hidden")
+    _within(aux_gpu, aux_cpu, "aux")
+    want = decode.generate(host, toks, cfg, max_new_tokens=6)
+    for backend in ("pallas", "xla"):
+        _build.reset_launches()
+        got = decode.generate(card, toks.to(cuda_device), cfg, max_new_tokens=6,
+                              backend=backend)
+        torch.cuda.synchronize()
+        assert (_build.launches["decode_attention"] > 0) == (backend == "pallas")
+        assert torch.equal(got.cpu(), want), backend
+    lc, cc = transformer.prefill(host, toks, cfg, max_seq=12)
+    lg, cg = transformer.prefill(card, toks.to(cuda_device), cfg, max_seq=12)
+    _within(lg, lc, "prefill logits")
+    for i in range(9, 12):
+        lc, cc = transformer.decode_step(host, cc, want[:, i], i, cfg)
+        lg, cg = transformer.decode_step(card, cg, want[:, i].to(cuda_device), i, cfg)
+        _within(lg, lc, f"decode step {i}")
+        _within(cg["k"], cc["k"], f"cache k {i}")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("shape", [(4, 49168), (4, 102400), (3, 5, 7)])
+def test_gumbel_on_card_equals_cpu_bits(cuda_device, shape):
+    for seed, i in ((0, 0), (7, 31)):
+        k = prng.fold_in(prng.key(seed, cuda_device), i)
+        got = prng.gumbel(k, shape)
+        want = prng.gumbel(prng.fold_in(prng.key(seed, "cpu"), i), shape)
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_temperature_sample_on_card_equals_cpu(cuda_device):
+    logits = torch.randn((4, 49168), generator=torch.Generator().manual_seed(2)) * 3
+    for t in (0.7, 1.0):
+        for i in range(4):
+            want = decode._sample(logits, t, prng.key(5, "cpu"), i)
+            got = decode._sample(logits.to(cuda_device), t, prng.key(5, cuda_device), i)
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("e,cap,d,ff", [(8, 8, 64, 64), (48, 8, 1536, 512),
+                                        (64, 8, 2048, 1408)])
+def test_expert_matmul_out_dtype_on_card_against_cpu_upcast(cuda_device, e, cap, d, ff):
+    """bf16 in, float32 out: ``bmm(out_dtype=float32)`` on the card and the
+    CPU's upcast product each within the float32 dot-product error bound
+    gamma_K * sum|a_i b_i| of the float64 product (bf16 products are exact
+    in both), K the contraction length."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(e)
+    a = torch.randn((e, cap, d), generator=g).to(torch.bfloat16)
+    b = (torch.randn((e, d, ff), generator=g) * d ** -0.5).to(torch.bfloat16)
+    exact = torch.bmm(a.double(), b.double())
+    bound = torch.bmm(a.double().abs(), b.double().abs()) * (d * 2.0**-24 / (1 - d * 2.0**-24))
+    host = moe.expert_matmul(a, b)
+    card = moe.expert_matmul(a.to(cuda_device), b.to(cuda_device))
+    assert host.dtype == card.dtype == torch.float32
+    assert bool(((host.double() - exact).abs() <= bound).all())
+    assert bool(((card.cpu().double() - exact).abs() <= bound).all())
+
+
+def test_gin_on_card_matches_cpu_and_repeats(cuda_device):
+    """gin-tu SMOKE on a planted-partition graph and on a molecule batch:
+    logits and losses within the CPU tests' bound, two card calls the same
+    bits (segment_sum adds without atomics)."""
+    import dataclasses
+
+    from repro_torch.configs import gin_tu
+    from repro_torch.graphs import gnn_data
+    from repro_torch.models import gnn
+
+    node = gnn_data.planted_partition(600, 3000, 32, 3, seed=1)
+    mol = gnn_data.molecule_batch(batch=16, d_feat=16, n_classes=2, seed=2)
+    cases = [
+        (gin_tu.SMOKE, node.feats, node.edge_src, node.edge_dst, {},
+         lambda p, a, c, dev: gnn.node_classification_loss(
+             p, *a, torch.as_tensor(node.labels, device=dev),
+             torch.as_tensor(node.train_mask, device=dev), c)),
+        (dataclasses.replace(gin_tu.SMOKE, d_in=16, n_classes=2, readout="sum"),
+         mol.feats, mol.edge_src, mol.edge_dst,
+         dict(graph_ids=mol.graph_ids, n_graphs=16),
+         lambda p, a, c, dev: gnn.graph_classification_loss(
+             p, *a, torch.as_tensor(mol.graph_ids, device=dev),
+             torch.as_tensor(mol.labels, device=dev), c, 16)),
+    ]
+    for cfg, feats, src, dst, kw, loss in cases:
+        host = gnn.init_params(torch.Generator().manual_seed(3), cfg)
+        card = _to(host, cuda_device)
+        t = lambda a, dev: torch.as_tensor(a, device=dev)
+        args = lambda dev: (t(feats, dev), t(src, dev), t(dst, dev))
+        kw_dev = lambda dev: {k: (t(v, dev) if isinstance(v, np.ndarray) else v)
+                              for k, v in kw.items()}
+        want = gnn.forward(host, *args("cpu"), cfg, **kw_dev("cpu"))
+        got = gnn.forward(card, *args(cuda_device), cfg, **kw_dev(cuda_device))
+        again = gnn.forward(card, *args(cuda_device), cfg, **kw_dev(cuda_device))
+        assert torch.equal(got, again)
+        _within(got, want, cfg.name)
+        _within(loss(card, args(cuda_device), cfg, cuda_device),
+                loss(host, args("cpu"), cfg, "cpu"), f"{cfg.name} loss")

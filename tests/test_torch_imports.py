@@ -53,7 +53,10 @@ def test_port_files_exist():
                  "graphs/sampler.py", "graphs/gnn_data.py",
                  "models/embedding.py", "models/sequential_rec.py",
                  "models/dlrm.py", "configs/sasrec.py", "configs/bst.py",
-                 "configs/dlrm_rm2.py", "configs/dlrm_mlperf.py"):
+                 "configs/dlrm_rm2.py", "configs/dlrm_mlperf.py",
+                 "models/moe.py", "models/gnn.py",
+                 "configs/granite_moe_3b_a800m.py",
+                 "configs/deepseek_moe_16b.py", "configs/gin_tu.py"):
         assert twin in names
     for src in ("walk_steps_fused.cu", "visit_counter.cu", "embedding_bag.cu",
                 "walk_hop.cu", "decode_attention.cu", "walk_step.cu",
@@ -90,6 +93,9 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.sequential_rec, repro_torch.configs.sasrec\n"
         "import repro_torch.configs.bst, repro_torch.configs.dlrm_rm2\n"
         "import repro_torch.configs.dlrm_mlperf, repro_torch.configs.registry\n"
+        "import repro_torch.models.moe, repro_torch.models.gnn\n"
+        "import repro_torch.configs.granite_moe_3b_a800m\n"
+        "import repro_torch.configs.deepseek_moe_16b, repro_torch.configs.gin_tu\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -316,17 +316,8 @@ def test_bf16_decode_tracks_the_f32_path():
 
 
 # ---------------------------------------------------------------------------
-# refusals and the greedy rule
+# the cache bound and the greedy rule
 # ---------------------------------------------------------------------------
-
-
-def test_moe_configs_are_refused():
-    cfg = dataclasses.replace(tqwen.SMOKE, first_dense_ff=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        ttf.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        ttf.prefill({}, torch.zeros((1, 2), dtype=torch.int32),
-                    dataclasses.replace(tqwen.SMOKE, moe=object()))
 
 
 def test_decode_step_refuses_a_position_past_the_cache():
@@ -347,10 +338,3 @@ def test_greedy_takes_the_first_maximal_logit():
     assert got.dtype == torch.int32
     assert got.tolist() == np.asarray(
         jnp.argmax(jnp.asarray(logits.numpy()), axis=-1)).tolist() == [1, 0]
-
-
-def test_temperature_sampling_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        tdecode._sample(torch.zeros((1, 4)), 0.7, torch.zeros(2), 0)
-    # without a key the reference samples greedily too
-    assert tdecode._sample(torch.tensor([[0.0, 1.0]]), 0.7, None, 0).tolist() == [1]
