@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one GPU and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -306,12 +307,48 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              batch (sum readout): logits and loss on the card against the
              CPU port on the same parameters within 2e-6 times max(1, the
              largest magnitude), two card calls the same bits, ms a
-             forward.
+             forward.  Phases 30-31's bf16 step also names the MoE
+             router's keying pass (counter.order_keys, topk_total's pass
+             beyond topk_dense): the step profiled again with each call
+             under a record_function range, its calls, its kernels'
+             device time and their share of the step's device-busy time.
+
+33. lm_train after phase 32, nothing else resident: SmolLM-360M FULL at
+             full width and depth (32 layers, d 960, 15 heads padded to 16,
+             5 KV heads, ff 2560, vocab 49,152; bf16 compute, float32
+             parameters, remat on, loss_chunk 1024) trained through
+             train_loop.make_train_step(transformer.loss_fn, n_micro=4,
+             AdamWConfig()) at the reference's train_4k shape (seq_len
+             4096), batches from TokenPipeline(49152, batch, 4096, 0).  The
+             one cut, global batch 256: the largest multiple of 4 (at
+             least 8) whose peak, reckoned from the config first
+             (train_reckon_gb), stays under 70 GB is 112, and a step costs
+             ~0.8 s a sequence, so the batch is cut on to 8
+             (TRAIN_TIME_BATCH) for the time limit.  8 steps uninterrupted
+             (loss, grad_norm and lr finite at every step, step 8's loss
+             below step 1's), the state copied to the host; then
+             run_resilient over the same steps from the same seed with a
+             checkpoint every 4 steps under a temporary directory and one
+             injected failure at step 6: one restore, and the final
+             parameters and optimizer state equal to the uninterrupted
+             run's bit for bit.  Printed: the reckoned and measured peak,
+             step ms (p50 of steps 2-8), tokens/s, seconds to save and to
+             restore one checkpoint (restored bits checked), one profiled
+             step's device busy and idle share (the profiler's own cost
+             inflates that step's wall time: its busy time is also given
+             as a share of the unprofiled p50 step), and the step's reckoned
+             FLOPs (6 N a token plus attention) as a share of the bf16
+             dense peak.
+34. gin_train gin_tu FULL at full_graph_sm (cora_like) and at molecule (128
+             graphs of 30 nodes): 20 make_train_step steps with
+             AdamWConfig() each, twice from one seed: the same bits, the
+             loss falling, ms a step.
 
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
 13, 14, 18, 19 and 19b, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, whose
-models launch no hand kernel, 30 and 31); the kernels line sums them, and every one of its nine kernels
+models launch no hand kernel, 30 and 31, and 33-34, whose training path
+reaches none); the kernels line sums them, and every one of its nine kernels
 (the eight TPU kernels' and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
 kernels (ptxas -v).  The profiled
@@ -331,6 +368,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2366,9 +2404,10 @@ def generate_both(params, cfg, prompt, n_new: int, what: str, identical=True,
 
 
 def profile_decode_step(fn) -> dict:
-    """One decode step under torch.profiler: wall ms, device busy ms and the
-    idle share, the device operations it issued, and the host operations
-    that took the most host time (self time, profiler overhead included)."""
+    """One step (a decode step, a train step) under torch.profiler: wall
+    ms, device busy ms and the idle share, the device operations it
+    issued, and the host operations that took the most host time (self
+    time, profiler overhead included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2665,6 +2704,8 @@ def moe_model(dev, cfg, seed: int, prompt_len: int, lm_batch: int, new_tokens: i
     last = prompt_len + new_tokens - 1
     prof = profile_decode_step(lambda: transformer.decode_step(
         served, cache, toks[:, -1], last, cfg))
+    keying = route_keying_cost(lambda: transformer.decode_step(
+        served, cache, toks[:, -1], last, cfg), cfg, prof)
     _, (q, k, v, lengths) = capture_attention(lambda: transformer.decode_step(
         served, cache, toks[:, -1], last, cfg))
     attn_row = time_attn(q, k, v, lengths, f"{cfg.name} batch {lm_batch} layer 0")
@@ -2677,13 +2718,48 @@ def moe_model(dev, cfg, seed: int, prompt_len: int, lm_batch: int, new_tokens: i
         tokens_agreeing_with_plain=bf16_agree,
         sampled_tokens_agreeing_with_plain=sampled_agree,
         attention_launches=bf16_launches["decode_attention"],
-        launches=bf16_launches, profiled_step=prof,
+        launches=bf16_launches, profiled_step=prof, router_keying=keying,
         weights_floor_ms=reckon["weights_gb"] * 1e9 / HBM_BYTES_PER_S * 1e3,
         peak_gb=gb(torch.cuda.max_memory_allocated()))
     del served, cache, out, q, k, v
     torch.cuda.empty_cache()
     return attn_row, [greedy_launches, sampled_launches, bf16_launches,
                       sampled_bf16_launches]
+
+
+def route_keying_cost(step, cfg, prof: dict) -> dict:
+    """The MoE router's keying pass (``counter.order_keys``: the one pass
+    ``topk_total`` makes beyond ``topk_dense``) in one decode step: the
+    step profiled again with each call under a ``record_function`` range,
+    its calls and the device time of the kernels they launched, beside
+    the step's device-busy time from ``prof``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core import counter
+
+    real = counter.order_keys
+
+    def annotated(x):
+        with record_function("moe_route_order_keys"):
+            return real(x)
+
+    counter.order_keys = annotated
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        counter.order_keys = real
+    # the host-side ranges: their device time is their kernels' (the
+    # device-side annotation spans the gaps between launches too)
+    ranges = [e for e in p.key_averages() if e.key == "moe_route_order_keys"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    kernel_ms = sum(e.device_time_total for e in ranges) / 1e3
+    busy = prof["device_busy_ms"]
+    return dict(calls=sum(e.count for e in ranges), moe_layers=cfg.n_scan,
+                kernel_ms=kernel_ms, step_device_busy_ms=busy,
+                share_of_busy=kernel_ms / busy if busy else None)
 
 
 def moe_phases(dev, granite, deepseek, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
@@ -2742,19 +2818,29 @@ def gin_cases(scale: float = 1.0) -> list:
 GIN_ARRAYS = ("feats", "edge_src", "edge_dst", "labels", "mask", "graph_ids")
 
 
-def gin_outputs(params, cfg, t: dict):
-    """``(logits, loss)`` of one case; ``t`` holds its arrays as tensors on
-    the parameters' device."""
+def gin_loss(params, cfg, t: dict):
+    """One case's loss; ``t`` holds its arrays as tensors on the
+    parameters' device."""
     from repro_torch.models import gnn
 
     args = (t["feats"], t["edge_src"], t["edge_dst"])
     if cfg.readout == "sum":
-        n = t["n_graphs"]
-        return (gnn.forward(params, *args, cfg, graph_ids=t["graph_ids"], n_graphs=n),
-                gnn.graph_classification_loss(params, *args, t["graph_ids"],
-                                              t["labels"], cfg, n))
-    return (gnn.forward(params, *args, cfg),
-            gnn.node_classification_loss(params, *args, t["labels"], t["mask"], cfg))
+        return gnn.graph_classification_loss(params, *args, t["graph_ids"], t["labels"],
+                                             cfg, t["n_graphs"])
+    return gnn.node_classification_loss(params, *args, t["labels"], t["mask"], cfg)
+
+
+def gin_outputs(params, cfg, t: dict):
+    """``(logits, loss)`` of one case (see ``gin_loss``)."""
+    from repro_torch.models import gnn
+
+    args = (t["feats"], t["edge_src"], t["edge_dst"])
+    if cfg.readout == "sum":
+        logits = gnn.forward(params, *args, cfg, graph_ids=t["graph_ids"],
+                             n_graphs=t["n_graphs"])
+    else:
+        logits = gnn.forward(params, *args, cfg)
+    return logits, gin_loss(params, cfg, t)
 
 
 def gin_phase(dev, cases=None) -> dict:
@@ -3890,6 +3976,230 @@ def recsys_full(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 33-34: training on one card
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ = 4096                 # registry.py train_4k
+TRAIN_GLOBAL_BATCH = 256         # registry.py train_4k's global batch
+TRAIN_MICRO = 4                  # cells.py build_lm_cell's n_micro
+TRAIN_LIMIT_GB = 70.0            # the reckoned peak must stay under this
+# a step costs ~0.8 s a sequence on the card (6.3 s at batch 8, PERF.md
+# §5): the memory-fitted batch (112) would take ~90 s a step, and the
+# phase's 19 steps would pass the script's time limit
+TRAIN_TIME_BATCH = 8
+TRAIN_STEPS = 8
+TRAIN_CKPT_EVERY = 4
+TRAIN_FAIL_AT = {6: 1}           # one injected failure before step 6
+GIN_TRAIN_STEPS = 20
+BF16_DENSE_FLOPS = 989e12        # H100 SXM, NVIDIA data sheet, dense
+
+
+def train_reckon_gb(cfg, batch: int, seq: int, n_micro: int) -> dict:
+    """The training step's reckoned peak, from the config: five float32
+    copies of the parameters (the parameters, ``m``, ``v``, the grad sum
+    and one microbatch's grads, or the clipped copy in the update), each
+    block's bf16 input saved for the backward pass (``remat``), and the
+    larger of one block's recompute and one loss chunk: the block's float32
+    scores and probabilities over the (causally visible) rows of each KV
+    chunk plus one chunk's gradients, and a loss chunk's float32 logits,
+    softmax and their gradients."""
+    import torch
+
+    p = cfg.physical_param_count()
+    bm = batch // n_micro
+    cd = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    hp, kvc = cfg.n_heads_padded, min(cfg.kv_chunk, seq)
+    rows = sum(seq - c * kvc for c in range(-(-seq // kvc)))
+    state = 5 * 4 * p
+    saved = cfg.n_layers * bm * seq * cfg.d_model * cd
+    block = (2 * bm * rows * hp * kvc * 4            # scores and probabilities kept
+             + 3 * bm * seq * hp * kvc * 4           # one chunk's grads in flight
+             + 8 * bm * seq * max(cfg.d_ff, hp * cfg.head_dim) * 4)
+    loss = 4 * bm * min(cfg.loss_chunk, seq) * cfg.vocab_padded * 4
+    peak = state + saved + max(block, loss)
+    return dict(params=p, state_gb=gb(state), saved_inputs_gb=gb(saved),
+                block_recompute_gb=gb(block), loss_chunk_gb=gb(loss), peak_gb=gb(peak))
+
+
+def train_batch_size(cfg, seq: int, n_micro: int, limit_gb: float = TRAIN_LIMIT_GB,
+                     start: int = TRAIN_GLOBAL_BATCH) -> int:
+    """The largest multiple of ``n_micro`` (and at least 2 * n_micro) up to
+    ``start`` whose reckoned peak stays under ``limit_gb``."""
+    for batch in range(start, 2 * n_micro - 1, -n_micro):
+        if train_reckon_gb(cfg, batch, seq, n_micro)["peak_gb"] < limit_gb:
+            return batch
+    raise AssertionError(f"{cfg.name}: no batch of {seq} tokens fits {limit_gb} GB")
+
+
+def to_host(state) -> list:
+    """The state's leaves copied to the host, in the checkpoint's order."""
+    from repro_torch.training import tree
+
+    return [x.detach().cpu() for x in tree.leaves(state)]
+
+
+def same_bits(state, host: list) -> bool:
+    import torch
+    from repro_torch.training import tree
+
+    leaves = tree.leaves(state)
+    return len(leaves) == len(host) and all(
+        a.dtype == b.dtype and torch.equal(a.cpu(), b) for a, b in zip(leaves, host))
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Reckoned model FLOPs of a step: 6 N a token plus attention's 12 L h
+    dh s a token (PaLM's count; causal masking and remat not subtracted
+    or added)."""
+    return tokens * (6 * cfg.param_count()
+                     + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq)
+
+
+def lm_train_phase(dev, cfg, seq: int = TRAIN_SEQ, batch=None, n_steps: int = TRAIN_STEPS,
+                   n_micro: int = TRAIN_MICRO) -> dict:
+    """Phase 33 (see the module docstring).  Returns the phase's numbers."""
+    import tempfile
+
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import transformer
+    from repro_torch.training import checkpoint, optim, resilience, train_loop
+
+    fitted = train_batch_size(cfg, seq, n_micro)
+    batch = batch or min(fitted, TRAIN_TIME_BATCH)
+    reckon = train_reckon_gb(cfg, batch, seq, n_micro)
+    pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=SEED)
+    to_dev = lambda b: {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    step = train_loop.make_train_step(
+        lambda p, b: transformer.loss_fn(p, b["tokens"], b["labels"], b["mask"], cfg),
+        train_loop.TrainStepConfig(adamw=optim.AdamWConfig(), n_micro=n_micro))
+
+    def fresh():
+        params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+        return params, optim.init(params)
+
+    # the uninterrupted run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    metrics, step_s = [], []
+    for i in range(n_steps):
+        t = time.perf_counter()
+        state, m = step(state, to_dev(pipe(i)))
+        m = {k: float(v) for k, v in m.items()}          # reads the card
+        step_s.append(time.perf_counter() - t)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(metrics):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"lm_train step {i + 1}: a metric is not finite: {m}")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        raise AssertionError(f"lm_train: the loss did not fall: {metrics}")
+    clean = to_host(state)
+    del state
+    torch.cuda.empty_cache()
+
+    # the same steps under run_resilient, one failure, one restore
+    with tempfile.TemporaryDirectory() as d:
+        rc = resilience.ResilienceConfig(ckpt_dir=d, ckpt_every=TRAIN_CKPT_EVERY)
+        t = time.perf_counter()
+        state, report = resilience.run_resilient(
+            step, lambda s: to_dev(pipe(s)), fresh(), n_steps, rc,
+            failure_hook=resilience.make_scheduled_failures(TRAIN_FAIL_AT))
+        resilient_s = time.perf_counter() - t
+        if report.restores != 1:
+            raise AssertionError(f"lm_train: {report.restores} restores, expected 1")
+        if not same_bits(state, clean):
+            raise AssertionError("lm_train: the resilient run ended on other bits")
+        t = time.perf_counter()
+        checkpoint.save(os.path.join(d, "timed"), n_steps, state)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored, _ = checkpoint.restore(os.path.join(d, "timed"), state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        if not same_bits(restored, clean):
+            raise AssertionError("lm_train: a restored checkpoint has other bits")
+        del restored
+    del clean
+
+    # one profiled step: the device's busy and idle share
+    b = to_dev(pipe(n_steps))
+    box = {}
+    prof = profile_decode_step(lambda: box.setdefault("s", step(state, b)))
+    del box, state
+    torch.cuda.empty_cache()
+    tokens = batch * seq
+    p50 = float(np.percentile(step_s[1:], 50))
+    flops = train_flops(cfg, tokens, seq)
+    out = dict(
+        model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_heads=cfg.n_heads, n_heads_padded=cfg.n_heads_padded,
+        n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        compute_dtype=str(cfg.compute_dtype), remat=cfg.remat, loss_chunk=cfg.loss_chunk,
+        params=cfg.param_count(), seq=seq, global_batch=batch,
+        memory_fitted_batch=fitted, n_micro=n_micro,
+        cut=(f"global batch {batch} of {TRAIN_GLOBAL_BATCH} ({fitted} fit "
+             f"{TRAIN_LIMIT_GB} GB by the reckoning; {batch} for the time limit)"),
+        reckoned=reckon,
+        resident_gb=gb(resident), peak_gb=gb(peak),
+        losses=[m["loss"] for m in metrics], grad_norms=[m["grad_norm"] for m in metrics],
+        lrs=[m["lr"] for m in metrics], step_s=step_s, step_p50_ms=p50 * 1e3,
+        tokens_per_s=tokens / p50, resilient_s=resilient_s, restores=report.restores,
+        steps_run=report.steps_run, replay_bit_exact=True, checkpoint_save_s=save_s,
+        checkpoint_restore_s=restore_s,
+        reckoned_flops=flops, reckoned_bf16_peak_share=flops / p50 / BF16_DENSE_FLOPS,
+        profiled_step=prof,
+        device_busy_share_of_p50_step=prof["device_busy_ms"] / (p50 * 1e3))
+    log("lm_train", **out)
+    return out
+
+
+def gin_train_phase(dev, cases=None, n_steps: int = GIN_TRAIN_STEPS) -> dict:
+    """Phase 34: GIN FULL at full_graph_sm and molecule, ``n_steps``
+    make_train_step steps with AdamWConfig(), twice from the same seed:
+    the same bits, the loss falling, ms a step."""
+    import torch
+    from repro_torch.models import gnn
+    from repro_torch.training import optim, train_loop
+
+    out = {}
+    for i, (name, cfg, a, cut) in enumerate(cases or gin_cases()):
+        if name == "minibatch_lg":
+            continue
+        t = {k: torch.as_tensor(a[k], device=dev) for k in GIN_ARRAYS if k in a}
+        t["n_graphs"] = a.get("n_graphs")
+        loss_fn = lambda p, b, cfg=cfg, t=t: gin_loss(p, cfg, t)
+        step = train_loop.make_train_step(loss_fn, train_loop.TrainStepConfig())
+        runs = []
+        for _ in range(2):
+            params = gnn.init_params(torch.Generator(device=dev).manual_seed(SEED + 40 + i),
+                                     cfg)
+            state, losses = (params, optim.init(params)), []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                state, m = step(state, None)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append((to_host(state), [float(x) for x in losses], wall))
+        (first, losses, wall), (second, losses2, _) = runs
+        if not all(torch.equal(x, y) for x, y in zip(first, second)) or losses != losses2:
+            raise AssertionError(f"gin_train {name}: two runs give other bits")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"gin_train {name}: the loss did not fall: {losses}")
+        out[name] = dict(ms_per_step=wall * 1e3 / n_steps, first_loss=losses[0],
+                         last_loss=losses[-1])
+        log("gin_train", cell=name, steps=n_steps, nodes=int(a["feats"].shape[0]),
+            edges=int(a["edge_src"].shape[0]), losses=losses, same_bits_twice=True,
+            ms_per_step=wall * 1e3 / n_steps, cut=cut)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4291,14 +4601,26 @@ def main() -> int:
                                   *(r["max_abs_err"] for r in moe_rows))
 
     # 32. the GIN model at the reference's three GNN cells --------------------------
-    gin_errs = gin_phase(dev)
+    gcases = gin_cases()
+    gin_errs = gin_phase(dev, gcases)
+
+    # 33-34. training on one card, nothing else resident (no hand kernel on
+    # this path: its count is read all the same) -------------------------------------
+    torch.cuda.empty_cache()
+    log("train_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
+    _build.reset_launches()
+    lm_train_phase(dev, smollm_360m.FULL)
+    gin_train_phase(dev, gcases)
+    torch.cuda.synchronize()
+    train_launches = dict(_build.launches)
+    del gcases
 
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *past_cap_launches, *sharded_paths, *lm_paths, *event_paths,
              pruned_launches, fig4_launches, table1_launches, oracle_launches,
-             sasrec_launches, recsys_launches, *moe_paths]
+             sasrec_launches, recsys_launches, *moe_paths, train_launches]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
             *event_rows, sharded_rows[1]]
     for row in rows:
@@ -4323,7 +4645,7 @@ def main() -> int:
         prune_20k=fig4_launches, baselines_20k=table1_launches,
         oracle=oracle_launches, sasrec_2stage=sasrec_launches,
         recsys_full=recsys_launches, moe_granite=moe_paths[:4],
-        moe_deepseek=moe_paths[4:], gin_max_rel_diff=gin_errs)
+        moe_deepseek=moe_paths[4:], gin_max_rel_diff=gin_errs, train=train_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,1 @@
+"""data layer of the PyTorch/CUDA port (twin of ``repro.data``)."""

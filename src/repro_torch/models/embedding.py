@@ -73,14 +73,48 @@ def init_table(gen: torch.Generator, cfg: MegaTableConfig,
     return table.mul_(cfg.dim ** -0.5)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` for ids in range, whose backward adds each row's
+    gradients in an order fixed by the ids: ``index_put_(accumulate=True)``
+    on CUDA (torch sorts the ids and adds each row's run in order) and
+    ``index_add_`` on the CPU (one id after another).  Autograd's own
+    backward of ``table[idx]`` adds float32 rows with atomics on the CPU
+    once the gradient passes 32,768 elements, in another order each run."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g = grad.reshape((flat.numel(),) + grad.shape[idx.dim():])
+        out = g.new_zeros((ctx.n_rows,) + g.shape[1:])
+        if g.is_cuda:
+            out.index_put_((flat,), g, accumulate=True)
+        else:
+            out.index_add_(0, flat, g)
+        return out, None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (``idx`` int64, every id in range) with a backward
+    that gives the same bits every run on either device."""
+    return _GatherRows.apply(table, idx)
+
+
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)``: ``ids.shape + (dim,)``; a negative
-    id wraps once, an id still out of range gives NaN."""
+    id wraps once, an id still out of range gives NaN.  Differentiable in
+    ``table`` (the NaN rows pass no gradient), the same bits every run."""
     n = table.shape[0]
     i = ids.long()
     i = torch.where(i < 0, i + n, i)
     ok = (i >= 0) & (i < n)
-    rows = table[i.clamp(0, n - 1)]
+    rows = gather_rows(table, i.clamp(0, n - 1))
     return rows.masked_fill_(~ok[..., None], float("nan"))
 
 

@@ -1,5 +1,5 @@
 """Shared neural building blocks: RMSNorm, LayerNorm, RoPE, flash
-attention, SwiGLU, the token-mean cross-entropy.
+attention, SwiGLU, the token-mean cross-entropy and its chunked form.
 
 Twin of ``repro/models/layers.py``: the same names, argument orders and
 layouts (``(b, s, heads, head_dim)`` activations), and the reference's
@@ -28,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -104,6 +105,10 @@ def flash_attention(
 
     No (sq, skv) tensor is materialised: the loop carries the (m, l, acc)
     running-softmax state per query position, one KV chunk at a time.
+    With ``causal`` a chunk updates only the query rows that see some of
+    it: for the others the reference's update is exact no-op arithmetic
+    (values and gradients the same, up to the sign of a zero), and
+    skipping it halves the work at long sequences.
     Query head ``i`` reads kv head ``i // (h // kh)`` (the reference's
     reshape); its callers pass K/V already expanded to ``h`` heads.
     """
@@ -123,26 +128,37 @@ def flash_attention(
     acc = torch.zeros((b, sq, kh, group, dh), dtype=torch.float32, device=dev)
     for c in range(n_chunks):
         lo = c * kv_chunk
+        # causal: the rows before r0 see none of this chunk, so for them the
+        # reference's step is exact no-op arithmetic (p = exp(-1e30 - m) is
+        # 0, corr = exp(0) is 1): only rows r0.. take it
+        r0 = min(max(lo - q_offset, 0), sq) if causal else 0
+        if r0 == sq:
+            break
         kb = k[:, lo:lo + kv_chunk].float()
         vb = v[:, lo:lo + kv_chunk].float()
         if kb.shape[1] < kv_chunk:   # the reference zero-pads the last chunk
             pad = (0, 0, 0, 0, 0, kv_chunk - kb.shape[1])
             kb, vb = F.pad(kb, pad), F.pad(vb, pad)
         kv_pos = lo + torch.arange(kv_chunk, device=dev)
-        s = torch.einsum("bqkgd,bjkd->bqkgj", qg, kb)   # (b, sq, kh, g, chunk)
+        s = torch.einsum("bqkgd,bjkd->bqkgj", qg[:, r0:], kb)   # (b, sq - r0, kh, g, chunk)
         if causal:
-            mask = kv_pos[None, :] <= q_pos[:, None]
+            mask = kv_pos[None, :] <= q_pos[r0:, None]
         else:
             mask = torch.ones((sq, kv_chunk), dtype=torch.bool, device=dev)
         mask = mask & (kv_pos < skv)[None, :]
         s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_r = m[:, r0:]
+        m_new = torch.maximum(m_r, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
+        corr = torch.exp(m_r - m_new)
+        l_new = l[:, r0:] * corr + p.sum(dim=-1)
         pv = torch.einsum("bqkgj,bjkd->bqkgd", p, vb)
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        acc_new = acc[:, r0:] * corr[..., None] + pv
+        if r0:
+            m_new = torch.cat([m[:, :r0], m_new], dim=1)
+            l_new = torch.cat([l[:, :r0], l_new], dim=1)
+            acc_new = torch.cat([acc[:, :r0], acc_new], dim=1)
+        m, l, acc = m_new, l_new, acc_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
@@ -154,12 +170,80 @@ def flash_attention(
 
 def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
                          mask: torch.Tensor) -> torch.Tensor:
-    """Token-mean CE (forward value).  logits (..., v) f32; labels/mask (...)."""
+    """Token-mean CE.  logits (..., v) f32; labels/mask (...).
+
+    The label is read as ``jnp.take_along_axis`` reads it: a label in
+    ``[-v, 0)`` wraps once, and one still outside ``[0, v)`` picks NaN
+    (so its row's loss is NaN, masked or not), without a host sync."""
     logits = logits.float()
+    v = logits.shape[-1]
+    lab = labels.long()
+    lab = torch.where(lab < 0, lab + v, lab)
+    ok = (lab >= 0) & (lab < v)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ll = torch.gather(logits, -1, lab.clamp(0, v - 1)[..., None])[..., 0]
+    ll = torch.where(ok, ll, torch.full_like(ll, float("nan")))
     nll = (lse - ll) * mask
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _xent_chunk(hb: torch.Tensor, lm_head: torch.Tensor, lb: torch.Tensor,
+                mb: torch.Tensor, n_valid_vocab: Optional[int]) -> torch.Tensor:
+    """One chunk's summed masked NLL: the reference's scan body."""
+    logits = (hb @ lm_head).float()                       # (b, chunk, v)
+    v = logits.shape[-1]
+    if n_valid_vocab is not None and n_valid_vocab < v:
+        bad = torch.arange(v, device=logits.device) >= n_valid_vocab
+        logits = logits.masked_fill(bad, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    # the reference's one-hot pick: a label outside [0, v) picks 0 (no
+    # wrap, no NaN) and carries no gradient; a gather gives the same sum
+    lab = lb.long()
+    ok = (lab >= 0) & (lab < v)
+    ll = torch.gather(logits, -1, lab.clamp(0, v - 1)[..., None])[..., 0]
+    ll = torch.where(ok, ll, torch.zeros_like(ll))
+    return torch.sum((lse - ll) * mb)
+
+
+def chunked_softmax_xent(
+    hidden: torch.Tensor,     # (b, s, d) final hidden states
+    lm_head: torch.Tensor,    # (d, v)
+    labels: torch.Tensor,     # (b, s) int
+    mask: torch.Tensor,       # (b, s)
+    chunk: int = 1024,
+    n_valid_vocab: Optional[int] = None,  # mask padded vocab columns
+) -> torch.Tensor:
+    """CE without materialising ``(b, s, v)`` logits: a loop over sequence
+    chunks, the sequence zero-padded to a multiple of ``chunk``.
+
+    Each chunk's ``(b, chunk, v)`` logits are reduced to their masked NLL
+    sum under ``torch.utils.checkpoint``, so autograd keeps only the
+    chunk's inputs and recomputes its logits in the backward pass, one
+    chunk at a time: at 4096 tokens and 49,152 columns, float32 logits
+    are 805 MB a sequence.  Columns from ``n_valid_vocab`` on are
+    ``-1e30``.
+    """
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        hb, lb, mb = hidden[:, sl], labels[:, sl], mask[:, sl]
+        if torch.is_grad_enabled():
+            nll = checkpoint(_xent_chunk, hb, lm_head, lb, mb, n_valid_vocab,
+                             use_reentrant=False)
+        else:
+            nll = _xent_chunk(hb, lm_head, lb, mb, n_valid_vocab)
+        total = total + nll
+        count = count + torch.sum(mb.float())
+    return total / torch.clamp(count, min=1.0)
 
 
 # ---------------------------------------------------------------------------

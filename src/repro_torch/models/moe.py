@@ -18,7 +18,9 @@ port), the same parameter tree and the same float order where it shows:
 
   * the router runs in float32 whatever the compute dtype; pad experts'
     logits are ``-1e30``; the top-k is ``lax.top_k``'s, ties to the lower
-    index (``counter.topk_dense``);
+    index, in its IEEE total order (``counter.topk_total``): a token whose
+    router row is NaN is served, NaN in its own output row only, and the
+    aux loss NaN, as in the reference;
   * the buffer is built by adding into zeros, as ``.at[dest].add`` does
     (``0 + -0.0`` is ``+0.0``); the dropped rows land in a drop slot past
     the end that is then cut off;
@@ -32,7 +34,10 @@ port), the same parameter tree and the same float order where it shows:
     order, one add at a time in the compute dtype: the order of the
     reference's sorted ``.at[st].add``, and deterministic on the card
     (``index_add_`` there adds with atomics, in another order each run);
-  * the shared experts are added after the routed output.
+  * the shared experts are added after the routed output;
+  * the dispatch and combine gathers (``x[st]``, ``y_flat[dest]``) go
+    through ``embedding.gather_rows``, whose backward adds a token's k
+    gradient rows in the same order every run, on either device.
 
 ``init_moe_params`` draws from an explicit ``torch.Generator`` through
 ``layers.dense_init`` with the reference's fan-in rule: an ``(E, d, ff)``
@@ -50,6 +55,7 @@ import torch
 
 from repro_torch.core import counter
 from repro_torch.models import layers
+from repro_torch.models.embedding import gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +119,7 @@ def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
         pad = torch.arange(e_pad, device=x.device) >= e
         logits = logits.masked_fill(pad, layers.NEG_INF)
     probs = torch.softmax(logits, dim=-1)[:, :e]
-    gate, sel = counter.topk_dense(probs, cfg.top_k)
+    gate, sel = counter.topk_total(probs, cfg.top_k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     return probs, gate, sel
 
@@ -164,7 +170,7 @@ def moe_ffn(
     # each kept row's dest is its own, so each takes one add; the drop
     # slot takes every dropped row and is cut off
     buf = torch.zeros((e_pad * cap + 1, d), dtype=cd, device=dev)
-    buf.index_add_(0, dest, x[st] * keep[:, None].to(cd))
+    buf.index_add_(0, dest, gather_rows(x, st) * keep[:, None].to(cd))
     buf = buf[:-1].reshape(e_pad, cap, d)
 
     # ---- batched expert FFN -------------------------------------------------
@@ -175,7 +181,7 @@ def moe_ffn(
 
     # ---- combine ------------------------------------------------------------
     y_flat = torch.cat([y.reshape(e_pad * cap, d), y.new_zeros((1, d))])
-    contrib = y_flat[dest] * (sg * keep.float())[:, None].to(cd)
+    contrib = gather_rows(y_flat, dest) * (sg * keep.float())[:, None].to(cd)
     # each token's k assignments by their place in the sorted order, which
     # is ascending expert id: the reference's scatter adds them so
     rank = torch.empty_like(order)

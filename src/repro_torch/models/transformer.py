@@ -12,9 +12,16 @@ kh, dh)``, ``dense0``'s K/V at layer 0.
 
 Differences from the reference, none of which changes a value:
 
-  * layers run as a Python loop over the stacked params; ``remat``,
-    ``unroll_layers`` and ``mesh`` are TPU compile knobs, accepted and
-    ignored;
+  * layers run as a Python loop over the stacked params; with ``remat``
+    each block runs under ``torch.utils.checkpoint`` (non-reentrant) when
+    autograd records, so the backward pass keeps each block's input and
+    recomputes the rest, the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``: a memory knob, the gradients the same bits with
+    it on and off.  ``unroll_layers`` and ``mesh`` are TPU compile knobs,
+    accepted and ignored;
+  * GQA expands K/V to the padded heads by ``expand`` (a broadcast whose
+    backward is a sum), where the reference gathers with ``jnp.take``:
+    the same values, and no scatter with atomics in the backward pass;
   * ``decode_step`` writes the new token's K/V into ``cache`` in place and
     returns the same dict (the reference returns a new cache; a 32k-token
     cache is tens of GB, so the port does not copy it), and takes
@@ -40,10 +47,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+from repro_torch.models.embedding import take_rows
 from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
 
 BACKENDS = ("pallas", "xla")
@@ -267,8 +276,16 @@ def _layers(params: Dict[str, Any], cfg: LMConfig):
     first = 1 if cfg.first_dense_ff else 0
     if first:
         yield 0, params["dense0"]
+    # one unbind a leaf (its backward stacks the layers' grads once),
+    # where a select a layer would add a full-size zero grad per layer
+    layer_of = _unbind(params["blocks"])
     for i in range(cfg.n_scan):
-        yield first + i, _layer(params["blocks"], i)
+        yield first + i, _layer(layer_of, i)
+
+
+def _unbind(blocks: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _unbind(v) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in blocks.items()}
 
 
 def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -298,16 +315,27 @@ def _qkv(p, x, cfg: LMConfig, positions: torch.Tensor, freqs: torch.Tensor):
     return q, k, v
 
 
+def _expand_kv(x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """``(b, s, kh, dh)`` -> ``(b, s, hp, dh)``: head ``i`` reads kv head
+    ``min(i // group, kh - 1)`` (the reference's ``jnp.take`` map), as a
+    broadcast: its backward sums, with no atomic scatter."""
+    b, s, kh, dh = x.shape
+    hp = cfg.n_heads_padded
+    group = cfg.n_heads // kh
+    out = x[:, :, :, None].expand(b, s, kh, group, dh).reshape(b, s, kh * group, dh)
+    if hp > kh * group:   # the heads past kh * group all read the last kv head
+        out = torch.cat([out, x[:, :, -1:].expand(b, s, hp - kh * group, dh)], dim=2)
+    return out
+
+
 def _expanded_attention(q, k, v, cfg: LMConfig, q_offset: int = 0):
-    """GQA -> full (padded) heads by a gather, then flash attention, with
-    the pad heads zeroed (the reference's ``_attention`` / ``block_kv``)."""
+    """GQA -> full (padded) heads, then flash attention, with the pad
+    heads zeroed (the reference's ``_attention`` / ``block_kv``)."""
     hp = cfg.n_heads_padded
     group = cfg.n_heads // cfg.n_kv_heads
     if group > 1 or hp != cfg.n_kv_heads:
-        h2kv = torch.clamp(torch.arange(hp, device=q.device) // group,
-                           max=cfg.n_kv_heads - 1)
-        k = k.index_select(2, h2kv)
-        v = v.index_select(2, h2kv)
+        k = _expand_kv(k, cfg)
+        v = _expand_kv(v, cfg)
     attn = layers.flash_attention(q, k, v, causal=True, q_offset=q_offset,
                                   kv_chunk=cfg.kv_chunk)
     if hp != cfg.n_heads:
@@ -333,7 +361,10 @@ def _ffn(p, x: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]
 
 
 def _embed(params, tokens: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    return params["embed"].to(cfg.compute_dtype)[tokens.long()]
+    """``jnp.take(embed.astype(cd), tokens, axis=0)``, cast before the
+    gather as the reference casts: ``-1`` wraps to the last row, an id
+    still outside the padded vocabulary is a NaN row."""
+    return take_rows(params["embed"].to(cfg.compute_dtype), tokens)
 
 
 def _logits(params, x_last: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -342,6 +373,14 @@ def _logits(params, x_last: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
         valid = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab_size
         logits = logits.masked_fill(~valid, layers.NEG_INF)
     return logits
+
+
+def _block(p, x: torch.Tensor, cfg: LMConfig, pos: torch.Tensor,
+           freqs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block of ``forward``: attention, then the FFN; ``(x, aux)``."""
+    q, k, v = _qkv(p, x, cfg, pos, freqs)
+    x = x + _out_proj(_expanded_attention(q, k, v, cfg), p["wo"].to(cfg.compute_dtype))
+    return _ffn(p, x, cfg)
 
 
 def forward(
@@ -358,14 +397,34 @@ def forward(
     freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
     pos = torch.arange(s, device=dev).expand(b, s)
     auxes = []
+    remat = cfg.remat and torch.is_grad_enabled()
     for _, p in _layers(params, cfg):
-        q, k, v = _qkv(p, x, cfg, pos, freqs)
-        x = x + _out_proj(_expanded_attention(q, k, v, cfg), p["wo"].to(cfg.compute_dtype))
-        x, aux = _ffn(p, x, cfg)
+        if remat:
+            x, aux = checkpoint(_block, p, x, cfg, pos, freqs, use_reentrant=False)
+        else:
+            x, aux = _block(p, x, cfg, pos, freqs)
         auxes.append(aux)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     # the reference sums the stacked blocks' aux, not dense0's (zero) one
     return x, torch.stack(auxes[cfg.n_layers - cfg.n_scan:]).sum()
+
+
+def loss_fn(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,      # (b, s)
+    labels: torch.Tensor,      # (b, s)
+    mask: torch.Tensor,        # (b, s)
+    cfg: LMConfig,
+    mesh=None,
+) -> torch.Tensor:
+    """Token-mean CE over the real vocabulary (chunked, the logits never
+    whole) plus the summed MoE aux loss."""
+    hidden, aux = forward(params, tokens, cfg)
+    head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
+    ce = layers.chunked_softmax_xent(hidden, head, labels, mask,
+                                     chunk=cfg.loss_chunk,
+                                     n_valid_vocab=cfg.vocab_size)
+    return ce + aux
 
 
 # ---------------------------------------------------------------------------

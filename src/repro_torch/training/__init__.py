@@ -1,0 +1,1 @@
+"""training layer of the PyTorch/CUDA port (twin of ``repro.training``)."""

@@ -1,0 +1,162 @@
+"""AdamW, LR schedules, global-norm clipping and rowwise AdaGrad.
+
+Twin of ``repro/training/optim.py``: the same ``AdamWConfig`` and its
+defaults, ``OptState(m, v, step)`` mirroring the parameter tree (``m`` and
+``v`` float32, ``step`` a 0-d int32 tensor), and the reference's
+arithmetic in its order: grads to float32, clip by the global norm,
+``step + 1``, the bias corrections, ``m``, ``v``, then ``p - lr * (mh /
+(sqrt(vh) + eps) + wd * p)``, every operation in float32.
+
+``apply_updates`` updates ``params``, ``m``, ``v`` and ``step`` in place
+and returns the same tensors: the counterpart of the reference's donated
+buffers (``jit(..., donate_argnums=0)``), so a full-width step holds one
+copy of its state.  ``rowwise_adagrad_update`` returns new tensors, as the
+reference's does.  ``abstract_state`` and ``state_logical`` wait for the
+mesh (``distribution``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.training import tree as tree_lib
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"     # 'cosine' | 'linear' | 'constant'
+    min_lr_frac: float = 0.1
+
+
+class OptState(NamedTuple):
+    m: PyTree
+    v: PyTree
+    step: torch.Tensor
+
+
+def init(params: PyTree) -> OptState:
+    """Zero moments in float32 on each parameter's device, step 0."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    dev = tree_lib.leaves(params)[0].device
+    return OptState(m=tree_lib.tree_map(zeros, params),
+                    v=tree_lib.tree_map(zeros, params),
+                    step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def state_from_reference(state, device: DeviceLike = None) -> OptState:
+    """The reference's ``OptState`` (its leaves as numpy arrays or jax
+    arrays) as the port's tensors on ``device``, so that both packages
+    step from the same state."""
+    dev = resolve_device(device)
+    conv = lambda a: torch.as_tensor(np.require(np.asarray(a), requirements="W"),
+                                     device=dev)
+    m, v, step = state
+    return OptState(tree_lib.tree_map(conv, m), tree_lib.tree_map(conv, v), conv(step))
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warm-up, then cosine, linear or constant decay to
+    ``min_lr_frac``; float32, on ``step``'s device."""
+    step_f = step.float()
+    warm = torch.clamp(step_f / _f32(max(cfg.warmup_steps, 1), step_f), max=1.0)
+    frac = torch.clamp(
+        (step_f - cfg.warmup_steps)
+        / _f32(max(cfg.total_steps - cfg.warmup_steps, 1), step_f),
+        0.0, 1.0,
+    )
+    if cfg.schedule == "cosine":
+        decay = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+            1 + torch.cos(math.pi * frac)
+        )
+    elif cfg.schedule == "linear":
+        decay = 1.0 - (1 - cfg.min_lr_frac) * frac
+    else:
+        decay = _f32(1.0, step_f)
+    return cfg.lr * warm * decay
+
+
+def global_norm(tree: PyTree) -> torch.Tensor:
+    total = 0
+    for x in tree_lib.leaves(tree):
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: PyTree, max_norm: float) -> Tuple[PyTree, torch.Tensor]:
+    norm = global_norm(grads)
+    # a 0-d tensor over a tensor: torch's float / tensor is a reciprocal
+    # times the float, not a division
+    scale = torch.clamp(_f32(max_norm, norm) / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_lib.tree_map(lambda g: g * scale, grads), norm
+
+
+def rowwise_adagrad_init(table: torch.Tensor) -> torch.Tensor:
+    """One float32 accumulator per embedding row."""
+    return torch.zeros((table.shape[0],), dtype=torch.float32, device=table.device)
+
+
+def rowwise_adagrad_update(
+    table: torch.Tensor, grad: torch.Tensor, accum: torch.Tensor, lr: float,
+    eps: float = 1e-8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(table', accum')``: the row's mean squared gradient added to its
+    accumulator, then ``table - lr * g / sqrt(accum + eps)``."""
+    g = grad.float()
+    accum = accum + torch.mean(g * g, dim=-1)
+    step = lr * g / torch.sqrt(accum + eps)[:, None]
+    return (table.float() - step).to(table.dtype), accum
+
+
+@torch.no_grad()
+def apply_updates(
+    params: PyTree,
+    grads: PyTree,
+    state: OptState,
+    cfg: AdamWConfig,
+) -> Tuple[PyTree, OptState, Dict[str, torch.Tensor]]:
+    """One AdamW step, in place.  Returns ``(params, state, metrics)``:
+    the same tensors, updated, and ``{"grad_norm", "lr"}`` as 0-d
+    tensors."""
+    grads = tree_lib.tree_map(lambda g: g.float(), grads)
+    if cfg.grad_clip > 0:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    else:
+        gnorm = global_norm(grads)
+    state.step.add_(1)
+    step = state.step
+    lr = schedule_lr(cfg, step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    step_f = step.float()
+    bc1 = 1 - torch.pow(_f32(b1, step_f), step_f)
+    bc2 = 1 - torch.pow(_f32(b2, step_f), step_f)
+    p_leaves = tree_lib.leaves(params)
+    for p, m, v, g in zip(p_leaves, tree_lib.leaves(state.m),
+                          tree_lib.leaves(state.v), tree_lib.leaves(grads)):
+        # b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g * g, each rounded
+        # as the reference rounds them
+        m.copy_(b1 * m + (1 - b1) * g)
+        v.copy_(b2 * v + (1 - b2) * g * g)
+        p32 = p.float()
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p32
+        p.copy_((p32 - lr * upd).to(p.dtype))
+    return params, state, {"grad_norm": gnorm, "lr": lr}

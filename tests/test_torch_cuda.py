@@ -62,7 +62,14 @@ temperature samples the CPU's tokens; the expert products'
 ``bmm(out_dtype=float32)`` and the CPU's upcast product each lie within
 the float32 dot-product error bound of the float64 product; GIN on the
 card gives the CPU's logits and losses within the same bound, and the
-same bits on a second call.
+same bits on a second call.  Training at SMOKE widths: three LM train
+steps (qwen and granite, two microbatches, remat), two recsys hybrid
+steps (rowwise AdaGrad on the table, AdamW on the rest) and three GIN
+steps give the CPU port's state within 2e-6 times max(1, the CPU's
+largest magnitude) and the same bits on a second card run;
+``rowwise_adagrad_update`` likewise; ``embedding.gather_rows``' backward
+on hot ids is the same bits twice and within the float32 summation bound
+of the float64 sums.
 """
 
 import dataclasses
@@ -1379,3 +1386,212 @@ def test_gin_on_card_matches_cpu_and_repeats(cuda_device):
         _within(got, want, cfg.name)
         _within(loss(card, args(cuda_device), cfg, cuda_device),
                 loss(host, args("cpu"), cfg, "cpu"), f"{cfg.name} loss")
+
+
+# ---------------------------------------------------------------------------
+# training on the card against the CPU port
+# ---------------------------------------------------------------------------
+
+
+def _train_state_within(got, want, what, rel=2e-6):
+    from repro_torch.training import tree
+
+    gn, gl = tree.flatten_with_names(got)
+    wn, wl = tree.flatten_with_names(want)
+    assert gn == wn, what
+    for name, g, w in zip(gn, gl, wl):
+        if not w.is_floating_point():
+            assert torch.equal(g.cpu(), w), f"{what} {name}"
+        else:
+            _within(g, w, f"{what} {name}", rel=rel)
+
+
+def _same_bits(a, b):
+    from repro_torch.training import tree
+
+    return all(torch.equal(x, y) for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def _lm_train(dev, cfg, params, n_steps=3, n_micro=2):
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.training import optim, train_loop
+
+    pipe = TokenPipeline(cfg.vocab_size, 4, 32, seed=1)
+    step = train_loop.make_train_step(
+        lambda p, b: transformer.loss_fn(p, b["tokens"], b["labels"], b["mask"], cfg),
+        train_loop.TrainStepConfig(n_micro=n_micro))
+    state, metrics = (params, optim.init(params)), []
+    for i in range(n_steps):
+        state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                for k, v in pipe(i).items()})
+        metrics.append(m)
+    return state, metrics
+
+
+@pytest.mark.parametrize("name", ["qwen2_5_3b", "granite_moe_3b_a800m"])
+def test_lm_train_steps_on_card_match_cpu(cuda_device, name):
+    """Three make_train_step steps (two microbatches, remat on) on the
+    card: parameters, moments, step and metrics within 2e-6 times max(1,
+    the CPU's largest magnitude) of the CPU port's; a second card run
+    gives the same bits (the backward's gathers add without atomics)."""
+    import dataclasses
+    import importlib
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    cfg = dataclasses.replace(mod.SMOKE, remat=True)
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    want, want_m = _lm_train("cpu", cfg, host)
+    got, got_m = _lm_train(cuda_device, cfg, _to(
+        transformer.init_params(torch.Generator().manual_seed(0), cfg), cuda_device))
+    again, _ = _lm_train(cuda_device, cfg, _to(
+        transformer.init_params(torch.Generator().manual_seed(0), cfg), cuda_device))
+    _train_state_within(got, want, name)
+    for g, w in zip(got_m, want_m):
+        for k in w:
+            _within(g[k], w[k], k)
+    assert _same_bits(got, again)
+
+
+def _hybrid_step(loss_fn, table_key):
+    """The reference's dlrm train cell: rowwise AdaGrad (lr 0.01) on the
+    table, AdamW on the rest."""
+    from repro_torch.training import microbatch, optim
+
+    grad_fn = microbatch.value_and_grad(loss_fn)
+
+    def step(state, b):
+        params, opt_state, accum = state
+        loss, grads = grad_fn(params, b)
+        table, accum = optim.rowwise_adagrad_update(params[table_key], grads[table_key],
+                                                    accum, lr=0.01)
+        dense, opt_state, metrics = optim.apply_updates(
+            {k: v for k, v in params.items() if k != table_key},
+            {k: v for k, v in grads.items() if k != table_key},
+            opt_state, optim.AdamWConfig())
+        metrics["loss"] = loss
+        return (dict(dense, **{table_key: table}), opt_state, accum), metrics
+
+    return step
+
+
+def _recsys_train(dev, name, n_steps=2):
+    import importlib
+
+    from repro_torch.data import pipeline
+    from repro_torch.models import dlrm, sequential_rec
+    from repro_torch.training import optim
+
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").SMOKE
+    gen = torch.Generator().manual_seed(5)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    if name == "dlrm_rm2":
+        params, key = dlrm.init_params(gen, cfg), "table"
+        pipe = pipeline.ClickLogPipeline(cfg.n_dense, cfg.feature_rows, 16, seed=4)
+        loss = lambda p, b: dlrm.bce_loss(p, t(b["dense"]), t(b["sparse"]), t(b["labels"]),
+                                          cfg)
+    elif cfg.kind == "bst":
+        params, key = sequential_rec.init_params(gen, cfg), "items"
+        pipe = pipeline.SeqRecPipeline(cfg.n_items, 6, cfg.seq_len, with_candidate=True,
+                                       seed=5)
+        loss = lambda p, b: sequential_rec.bst_loss(p, t(b["seq"]), t(b["candidate"]),
+                                                    t(b["labels"]), cfg)
+    else:
+        params, key = sequential_rec.init_params(gen, cfg), "items"
+        pipe = pipeline.SeqRecPipeline(cfg.n_items, 6, cfg.seq_len,
+                                       n_negatives=cfg.n_negatives, seed=6)
+        loss = lambda p, b: sequential_rec.sasrec_loss(p, t(b["seq"]), t(b["targets"]),
+                                                       t(b["negatives"]), cfg)
+    params = _to(params, dev)
+    state = (params, optim.init({k: v for k, v in params.items() if k != key}),
+             optim.rowwise_adagrad_init(params[key]))
+    step = _hybrid_step(loss, key)
+    for i in range(n_steps):
+        state, _ = step(state, pipe(i))
+    return state
+
+
+@pytest.mark.parametrize("name", ["sasrec", "bst", "dlrm_rm2"])
+def test_recsys_train_steps_on_card_match_cpu(cuda_device, name):
+    """Two hybrid steps (rowwise AdaGrad on the table, AdamW on the rest)
+    at SMOKE: the card's state within 2e-6 times max(1, the CPU's largest
+    magnitude) of the CPU port's, and the same bits twice."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    got = _recsys_train(cuda_device, name)
+    _train_state_within(got, _recsys_train("cpu", name), name)
+    assert _same_bits(got, _recsys_train(cuda_device, name))
+
+
+def _gin_train(dev, readout, n_steps=3):
+    import dataclasses
+
+    from repro_torch.configs import gin_tu
+    from repro_torch.graphs import gnn_data
+    from repro_torch.models import gnn
+    from repro_torch.training import optim, train_loop
+
+    t = lambda a: torch.as_tensor(a, device=dev)
+    if readout:
+        cfg = dataclasses.replace(gin_tu.SMOKE, d_in=16, n_classes=2, readout="sum")
+        g = gnn_data.molecule_batch(batch=16, d_feat=16, n_classes=2, seed=2)
+        loss = lambda p, b: gnn.graph_classification_loss(
+            p, t(g.feats), t(g.edge_src), t(g.edge_dst), t(g.graph_ids), t(g.labels), cfg, 16)
+    else:
+        cfg = gin_tu.SMOKE
+        g = gnn_data.planted_partition(600, 3000, 32, 3, seed=1)
+        loss = lambda p, b: gnn.node_classification_loss(
+            p, t(g.feats), t(g.edge_src), t(g.edge_dst), t(g.labels), t(g.train_mask), cfg)
+    params = _to(gnn.init_params(torch.Generator().manual_seed(3), cfg), dev)
+    step = train_loop.make_train_step(loss, train_loop.TrainStepConfig())
+    state = (params, optim.init(params))
+    for _ in range(n_steps):
+        state, _ = step(state, None)
+    return state
+
+
+@pytest.mark.parametrize("readout", [False, True], ids=["node", "molecules"])
+def test_gin_train_steps_on_card_match_cpu(cuda_device, readout):
+    got = _gin_train(cuda_device, readout)
+    _train_state_within(got, _gin_train("cpu", readout), "gin")
+    assert _same_bits(got, _gin_train(cuda_device, readout))
+
+
+def test_rowwise_adagrad_update_on_card_matches_cpu(cuda_device):
+    from repro_torch.training import optim
+
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn((1000, 64), generator=gen)
+    grads = [torch.randn((1000, 64), generator=gen) for _ in range(3)]
+    grads[1][10:20] = 0.0
+    host, card = (table, optim.rowwise_adagrad_init(table)), \
+        (table.to(cuda_device), optim.rowwise_adagrad_init(table.to(cuda_device)))
+    for g in grads:
+        host = optim.rowwise_adagrad_update(*host[:1], g, host[1], lr=0.01)
+        card = optim.rowwise_adagrad_update(card[0], g.to(cuda_device), card[1], lr=0.01)
+    _within(card[0], host[0], "table")
+    _within(card[1], host[1], "accumulator")
+
+
+def test_gather_rows_backward_is_the_same_bits_on_card(cuda_device):
+    """embedding.gather_rows' backward on heavily repeated ids: the same
+    bits twice on the card, and each sum within the float32 bound of any
+    summation order, (n - 1) 2**-24 sum |x| for a row of n terms, of the
+    float64 sum."""
+    from repro_torch.models import embedding
+
+    gen = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 50, (200_000,), generator=gen)
+    ids[:100_000] = 7                                   # one very hot row
+    grad = torch.randn((200_000, 96), generator=gen)
+    outs = []
+    for _ in range(2):
+        table = torch.zeros((50, 96), device=cuda_device, requires_grad=True)
+        rows = embedding.gather_rows(table, ids.to(cuda_device))
+        (g,) = torch.autograd.grad(rows, table, grad.to(cuda_device))
+        outs.append(g)
+    assert torch.equal(outs[0], outs[1])
+    exact = torch.zeros((50, 96), dtype=torch.float64).index_add_(0, ids, grad.double())
+    mags = torch.zeros((50, 96), dtype=torch.float64).index_add_(0, ids, grad.double().abs())
+    n = torch.bincount(ids, minlength=50).double()[:, None]
+    bound = (n - 1).clamp(min=0) * 2.0 ** -24 * mags
+    assert bool(((outs[0].cpu().double() - exact).abs() <= bound).all())

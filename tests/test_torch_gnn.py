@@ -213,3 +213,70 @@ def test_init_params_layout_matches_reference():
     assert sum(int(np.prod(s)) for s, _ in jax.tree_util.tree_leaves(
         want, is_leaf=lambda x: isinstance(x, tuple) and len(x) == 2
         and isinstance(x[1], str))) == cfg.param_count()
+
+
+def _nan_close(got, want, what):
+    """NaN where the reference's is, the rest within the bound."""
+    got = np.asarray(got.detach().float().numpy() if isinstance(got, torch.Tensor) else got)
+    want = np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want), err_msg=what)
+    ok = ~np.isnan(want)
+    _close(torch.from_numpy(np.where(ok, got, 0)), np.where(ok, want, 0), what)
+
+
+EDGE_LABELS = (-1, 0, "v", "-v-1")
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("label", EDGE_LABELS)
+def test_cross_entropy_logits_edge_labels_match_reference(label, masked):
+    """take_along_axis' edges: -1 wraps to the last class, v and -v-1 are
+    NaN picks, so their loss is NaN even under a zero mask (NaN * 0);
+    label 0 is an ordinary pick.  The value and the gradient wrt the
+    logits (finite: the NaN pick passes no gradient) as the reference's."""
+    rng = np.random.default_rng(1)
+    v = 5
+    logits = rng.normal(size=(4, v)).astype(np.float32)
+    labels = rng.integers(0, v, 4).astype(np.int32)
+    labels[2] = {"v": v, "-v-1": -v - 1}.get(label, label)
+    mask = np.ones(4, np.float32)
+    if masked:
+        mask[2] = 0.0
+    want, want_g = jax.jit(jax.value_and_grad(jlayers.cross_entropy_logits))(
+        logits, labels, mask)
+    x = torch.from_numpy(logits).requires_grad_(True)
+    got = layers.cross_entropy_logits(x, torch.from_numpy(labels), torch.from_numpy(mask))
+    (g,) = torch.autograd.grad(got, x)
+    _nan_close(got, float(want), "loss")
+    _nan_close(g, np.asarray(want_g), "gradient")
+    assert np.isnan(float(want)) == (label in ("v", "-v-1"))
+
+
+@pytest.mark.parametrize("label", EDGE_LABELS)
+@pytest.mark.parametrize("case", ["node", "molecules"])
+def test_gin_losses_with_edge_labels_match_reference(reference, case, label):
+    """Both GIN losses with one edge label (a -1 "ignore" label under a zero
+    train mask included): the reference's value, NaN included."""
+    cfg, g = CASES[case]
+    g = dict(g)
+    labels = np.asarray(g["labels"]).copy()
+    at = 1 if case == "molecules" else int(np.flatnonzero(g["mask"] == 0)[0])
+    labels[at] = {"v": cfg.n_classes, "-v-1": -cfg.n_classes - 1}.get(label, label)
+    g["labels"] = labels
+    params = reference[case]["params"]
+    args = (g["feats"], g["edge_src"], g["edge_dst"])
+    tcfg = port_config(cfg)
+    tp = layers.params_from_reference(params, CPU)
+    t = _port_inputs(g)
+    targs = (t["feats"], t["edge_src"], t["edge_dst"])
+    if cfg.readout == "sum":
+        n = g["n_graphs"]
+        want = jax.jit(lambda p: jgnn.graph_classification_loss(
+            p, *args, g["graph_ids"], labels, cfg, n))(params)
+        got = tgnn.graph_classification_loss(tp, *targs, t["graph_ids"], t["labels"],
+                                             tcfg, n)
+    else:
+        want = jax.jit(lambda p: jgnn.node_classification_loss(
+            p, *args, labels, g["mask"], cfg))(params)
+        got = tgnn.node_classification_loss(tp, *targs, t["labels"], t["mask"], tcfg)
+    _nan_close(got, float(want), f"{case} loss with label {label}")

@@ -56,7 +56,11 @@ def test_port_files_exist():
                  "configs/dlrm_rm2.py", "configs/dlrm_mlperf.py",
                  "models/moe.py", "models/gnn.py",
                  "configs/granite_moe_3b_a800m.py",
-                 "configs/deepseek_moe_16b.py", "configs/gin_tu.py"):
+                 "configs/deepseek_moe_16b.py", "configs/gin_tu.py",
+                 "training/optim.py", "training/microbatch.py",
+                 "training/train_loop.py", "training/checkpoint.py",
+                 "training/resilience.py", "training/compression.py",
+                 "training/tree.py", "data/pipeline.py"):
         assert twin in names
     for src in ("walk_steps_fused.cu", "visit_counter.cu", "embedding_bag.cu",
                 "walk_hop.cu", "decode_attention.cu", "walk_step.cu",
@@ -96,6 +100,11 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.models.moe, repro_torch.models.gnn\n"
         "import repro_torch.configs.granite_moe_3b_a800m\n"
         "import repro_torch.configs.deepseek_moe_16b, repro_torch.configs.gin_tu\n"
+        "import repro_torch.training, repro_torch.data\n"
+        "import repro_torch.training.optim, repro_torch.training.microbatch\n"
+        "import repro_torch.training.train_loop, repro_torch.training.checkpoint\n"
+        "import repro_torch.training.resilience, repro_torch.training.compression\n"
+        "import repro_torch.training.tree, repro_torch.data.pipeline\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -338,3 +338,68 @@ def test_greedy_takes_the_first_maximal_logit():
     assert got.dtype == torch.int32
     assert got.tolist() == np.asarray(
         jnp.argmax(jnp.asarray(logits.numpy()), axis=-1)).tolist() == [1, 0]
+
+
+# ---------------------------------------------------------------------------
+# token ids outside the vocabulary: read as jnp.take reads them
+# ---------------------------------------------------------------------------
+
+
+def oob_ids(v):
+    """The edge ids of a padded vocabulary of ``v`` rows: ``-1`` and
+    ``-v`` wrap once, ``v``, ``v + 3`` and ``-v - 1`` are past the table."""
+    return np.array([-1, 0, v - 1, v, v + 3, -v, -v - 1], np.int32)
+
+
+def oob_reference(jcfg, params, seed):
+    """The reference's forward hidden states, prefill logits, one decode
+    step's logits and greedy tokens, with one edge id in each row: the
+    last prompt position of row ``i`` holds ``oob_ids[i]``, which is also
+    row ``i``'s decode token."""
+    ids = oob_ids(jcfg.vocab_padded)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, jcfg.vocab_size, (ids.size, 4)).astype(np.int32)
+    toks[:, -1] = ids
+    max_seq = toks.shape[1] + 1
+    logits, cache = jax.jit(lambda p, t: jtf.prefill(p, t, jcfg, max_seq=max_seq))(
+        params, toks)
+    step_logits, _ = jax.jit(lambda p, c, t: jtf.decode_step(
+        p, c, t, jnp.asarray(toks.shape[1], jnp.int32), jcfg))(params, cache, ids)
+    return dict(
+        toks=toks, ids=ids,
+        hidden=np.asarray(jax.jit(lambda p, t: jtf.forward(p, t, jcfg)[0])(params, toks)),
+        prefill=np.asarray(logits), step=np.asarray(step_logits),
+        generated=np.asarray(jax.jit(lambda p, t: jdecode.generate(
+            p, t, jcfg, max_new_tokens=3))(params, toks)))
+
+
+def check_oob(ttf_mod, tdecode_mod, params, cfg, want, close):
+    """The port against ``oob_reference``: NaN exactly where the
+    reference's, finite values within ``close``, tokens equal."""
+    def same(got, ref, what):
+        got = got.detach().float().numpy()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref), err_msg=what)
+        ok = ~np.isnan(ref)
+        close(torch.from_numpy(np.where(ok, got, 0)), np.where(ok, ref, 0), what)
+
+    toks = torch.from_numpy(want["toks"])
+    nan_rows = np.isnan(want["prefill"]).any(-1)
+    assert nan_rows.tolist() == [False, False, False, True, True, False, True]
+    same(ttf_mod.forward(params, toks, cfg)[0], want["hidden"], "forward")
+    logits, cache = ttf_mod.prefill(params, toks, cfg, max_seq=toks.shape[1] + 1)
+    same(logits, want["prefill"], "prefill")
+    step, _ = ttf_mod.decode_step(params, cache, torch.from_numpy(want["ids"]),
+                                  toks.shape[1], cfg)
+    same(step, want["step"], "decode_step")
+    got = tdecode_mod.generate(params, toks, cfg, max_new_tokens=3)
+    np.testing.assert_array_equal(got.numpy(), want["generated"])
+
+
+def test_out_of_vocabulary_ids_match_reference(reference):
+    """Ids -1, 0, V-1, V, V+3, -V, -V-1 (V the padded vocabulary) in
+    forward, prefill, decode_step and generate: -1 and -V wrap, the rest
+    past the table give NaN logits, as jnp.take's fill gives them."""
+    case = "padded_vocab"
+    r, cfg, params = _port(reference, case)
+    want = oob_reference(CASES[case], r["params"], seed=7)
+    check_oob(ttf, tdecode, params, cfg, want, _close)

@@ -371,3 +371,47 @@ def test_generate_matches_reference(reference, case):
                            max_new_tokens=NEW_TOKENS)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), r["generated"])
+
+
+# ---------------------------------------------------------------------------
+# NaN router rows and out-of-vocabulary ids: served as the reference serves
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["routed", "shared2_padded"])
+def test_moe_ffn_serves_a_nan_token_as_reference(ffn_reference, case):
+    """One token's row all NaN: the reference's lax.top_k orders NaN first
+    and serves it; the port's router (counter.topk_total) does too.  The
+    NaN stays in that token's output row, the aux loss is NaN, and the
+    finite rows equal the reference's and keep the bits the port gives
+    them with the NaN row zeroed (no capacity binds here)."""
+    r = ffn_reference[case]
+    jcfg, cfg = r["cfg"], port_moe(r["cfg"])
+    x = r["x"].copy()
+    x[3] = np.nan
+    y_ref, aux_ref = jax.jit(lambda p, x: jmoe.moe_ffn(x, p, jcfg))(r["params"], x)
+    y_ref = np.asarray(y_ref)
+    params = layers.params_from_reference(r["params"], CPU)
+    y, aux = tmoe.moe_ffn(torch.from_numpy(x), params, cfg)
+    assert np.isnan(y_ref[3]).all() and np.isnan(float(aux_ref))
+    assert torch.isnan(y[3]).all() and torch.isnan(aux)
+    finite = np.ones(x.shape[0], bool)
+    finite[3] = False
+    assert np.isfinite(y_ref[finite]).all()
+    _close(y[finite], y_ref[finite], "finite rows")
+    x0 = x.copy()
+    x0[3] = 0.0
+    y0, _ = tmoe.moe_ffn(torch.from_numpy(x0), params, cfg)
+    assert torch.equal(y[finite], y0[finite])
+
+
+def test_moe_out_of_vocabulary_ids_match_reference(reference):
+    """Ids -1, 0, V-1, V, V+3, -V, -V-1 in the MoE decoder's forward,
+    prefill, decode_step and generate (granite SMOKE): NaN where the
+    reference's jnp.take fills, the NaN tokens routed and served."""
+    from test_torch_lm import check_oob, oob_reference
+
+    case = "granite_smoke"
+    r, cfg, params = _port(reference, case)
+    want = oob_reference(LM_CASES[case], r["params"], seed=8)
+    check_oob(ttf, tdecode, params, cfg, want, _close)
