@@ -343,12 +343,35 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              graphs of 30 nodes): 20 make_train_step steps with
              AdamWConfig() each, twice from one seed: the same bits, the
              loss falling, ms a step.
+35. dist     after phase 34, nothing else resident: the distribution layer
+             (launch/mesh.py, distribution/sharding.py).  Expert-parallel
+             MoE decode through decode.generate(mesh=) on a local
+             ("data", "model") mesh of (1, 4), the padded experts a
+             leading model-shard dim on the card (granite 12 a shard):
+             granite_moe_3b_a800m.FULL in float32, 32 greedy tokens equal
+             to phase 30's unsharded ones and the largest logit difference
+             of each step of a lockstep run (EP beside unsharded); then in
+             bf16, decode ms a step (p50 of 64, in turns unsharded, EP, EP,
+             unsharded) beside the unsharded p50, the EP generate's
+             decode-attention launches; then deepseek_moe_16b.FULL the same
+             in bf16 when its reckoned peak (moe_reckon_gb) stays under
+             76 GB.  compressed_psum over a local data axis of 4 on
+             SmolLM-360M's gradient tree (365,753,280 seeded floats a
+             shard, 5.85 GB in all): ms a call (p50 of 3) beside its byte
+             bound, every leaf within one quantisation step of the float64
+             mean, final_norm and blocks/wk equal to the CPU port's bit for
+             bit.  train_loop.jit_train_step over an NCCL process group of
+             one rank (a TCP store on localhost): LM_TRAIN_RULES with
+             ZeRO-1, SmolLM-360M FULL at phase 33's shape and seed, 2
+             steps; the parameters and optimizer state equal phase 33's
+             after its first 2 one-device steps bit for bit.  The phase's
+             seconds.
 
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
 13, 14, 18, 19 and 19b, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, whose
-models launch no hand kernel, 30 and 31, and 33-34, whose training path
-reaches none); the kernels line sums them, and every one of its nine kernels
+models launch no hand kernel, 30 and 31, 33-34, whose training path
+reaches none, and 35's expert-parallel decode paths); the kernels line sums them, and every one of its nine kernels
 (the eight TPU kernels' and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
 kernels (ptxas -v).  The profiled
@@ -2619,28 +2642,12 @@ def moe_reckon_gb(cfg, dtype, batch: int, prompt_len: int, max_seq: int) -> dict
                 peak_gb=gb(weights + cache + max(prefill, draw)))
 
 
-def moe_model(dev, cfg, seed: int, prompt_len: int, lm_batch: int, new_tokens: int,
-              what: str) -> tuple:
-    """One MoE config on the card: float32 (kernel path == plain path,
-    greedy and sampled, the card's gumbel noise == the CPU port's), then
-    bf16 (prefill, decode p50, tokens/s, a profiled step, the attention
-    kernel at layer 0 beside SDPA).  Returns (attention row, launches of
-    the four driven paths)."""
+def moe_f32_config(cfg, lm_batch: int, prompt_len: int, max_seq: int) -> tuple:
+    """The float32 config at full depth when the reckoning fits, else cut:
+    ``(config, reckoning, cut or None)``."""
     import torch
-    from repro_torch.core import prng
-    from repro_torch.models import transformer
 
-    f32 = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
-    max_seq = prompt_len + new_tokens
-    gen = lambda: torch.Generator(device=dev).manual_seed(seed)
-    prompt = torch.randint(0, cfg.vocab_size, (lm_batch, prompt_len), dtype=torch.int32,
-                           generator=torch.Generator(device=dev).manual_seed(seed + 1),
-                           device=dev)
-    key = prng.key(seed + 2, dev)
-    sample = dict(temperature=MOE_TEMPERATURE, key=key)
-
-    # float32 at full depth when the reckoning fits, else cut
-    cfg32 = dataclasses.replace(cfg, **f32)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32, cache_dtype=torch.float32)
     reckon = moe_reckon_gb(cfg32, torch.float32, lm_batch, prompt_len, max_seq)
     cut = None
     while reckon["peak_gb"] > MOE_F32_LIMIT_GB:
@@ -2648,6 +2655,27 @@ def moe_model(dev, cfg, seed: int, prompt_len: int, lm_batch: int, new_tokens: i
         reckon = moe_reckon_gb(cfg32, torch.float32, lm_batch, prompt_len, max_seq)
         cut = (f"float32 depth {cfg32.n_layers} of {cfg.n_layers}: the reckoned "
                f"peak at full depth passes {MOE_F32_LIMIT_GB} GB")
+    return cfg32, reckon, cut
+
+
+def moe_model(dev, cfg, seed: int, prompt_len: int, lm_batch: int, new_tokens: int,
+              what: str) -> tuple:
+    """One MoE config on the card: float32 (kernel path == plain path,
+    greedy and sampled, the card's gumbel noise == the CPU port's), then
+    bf16 (prefill, decode p50, tokens/s, a profiled step, the attention
+    kernel at layer 0 beside SDPA).  Returns (attention row, launches of
+    the four driven paths, the float32 greedy tokens)."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import transformer
+
+    max_seq = prompt_len + new_tokens
+    gen = lambda: torch.Generator(device=dev).manual_seed(seed)
+    prompt = moe_prompt(dev, cfg, seed, lm_batch, prompt_len)
+    key = prng.key(seed + 2, dev)
+    sample = dict(temperature=MOE_TEMPERATURE, key=key)
+
+    cfg32, reckon, cut = moe_f32_config(cfg, lm_batch, prompt_len, max_seq)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -2724,7 +2752,7 @@ def moe_model(dev, cfg, seed: int, prompt_len: int, lm_batch: int, new_tokens: i
     del served, cache, out, q, k, v
     torch.cuda.empty_cache()
     return attn_row, [greedy_launches, sampled_launches, bf16_launches,
-                      sampled_bf16_launches]
+                      sampled_bf16_launches], greedy
 
 
 def route_keying_cost(step, cfg, prof: dict) -> dict:
@@ -2765,18 +2793,33 @@ def route_keying_cost(step, cfg, prof: dict) -> dict:
 def moe_phases(dev, granite, deepseek, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
                new_tokens=LM_NEW_TOKENS) -> tuple:
     """Phases 30-31 (see the module docstring): ``(attention rows, launch
-    counts of every driven path)``; each path must launch the attention
-    kernel."""
-    rows, paths = [], []
+    counts of every driven path, {config name: (seed, float32 greedy
+    tokens)})``; each path must launch the attention kernel."""
+    rows, paths, greedy = [], [], {}
     for i, (cfg, what) in enumerate(((granite, "moe_granite"),
                                      (deepseek, "moe_deepseek"))):
-        row, p = moe_model(dev, cfg, SEED + 10 * (i + 1), prompt_len, lm_batch,
-                           new_tokens, what)
+        seed = moe_seed(i)
+        row, p, toks = moe_model(dev, cfg, seed, prompt_len, lm_batch, new_tokens, what)
         rows.append(row)
         paths += p
+        greedy[cfg.name] = (seed, toks.cpu())
     if any(p["decode_attention"] == 0 for p in paths):
         raise AssertionError(f"an MoE phase never launched decode_attention: {paths}")
-    return rows, paths
+    return rows, paths, greedy
+
+
+def moe_seed(i: int) -> int:
+    """The seed of phase 30 (granite, ``i`` 0) or 31 (deepseek, 1): its
+    weights, and its prompt from ``seed + 1``."""
+    return SEED + 10 * (i + 1)
+
+
+def moe_prompt(dev, cfg, seed: int, lm_batch: int, prompt_len: int):
+    import torch
+
+    return torch.randint(0, cfg.vocab_size, (lm_batch, prompt_len), dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                         device=dev)
 
 
 def gin_cases(scale: float = 1.0) -> list:
@@ -3993,6 +4036,13 @@ TRAIN_CKPT_EVERY = 4
 TRAIN_FAIL_AT = {6: 1}           # one injected failure before step 6
 GIN_TRAIN_STEPS = 20
 BF16_DENSE_FLOPS = 989e12        # H100 SXM, NVIDIA data sheet, dense
+# phase 35: the ("data", "model") local mesh of expert-parallel decode
+# (granite's 48 padded experts 12 a shard, deepseek's 64 16 a shard), the
+# data shards of compressed_psum, and the ZeRO-1 steps held to phase 33's
+EP_MESH = (1, 4)
+PSUM_SHARDS = 4
+PSUM_CPU_LEAVES = ("final_norm", "blocks/wk")   # the slice also run on the CPU
+DIST_TRAIN_STEPS = 2
 
 
 def train_reckon_gb(cfg, batch: int, seq: int, n_micro: int) -> dict:
@@ -4033,10 +4083,11 @@ def train_batch_size(cfg, seq: int, n_micro: int, limit_gb: float = TRAIN_LIMIT_
 
 
 def to_host(state) -> list:
-    """The state's leaves copied to the host, in the checkpoint's order."""
+    """The state's leaves copied to the host, in the checkpoint's order (a
+    copy even of host tensors: the state is updated in place)."""
     from repro_torch.training import tree
 
-    return [x.detach().cpu() for x in tree.leaves(state)]
+    return [x.detach().to("cpu", copy=True) for x in tree.leaves(state)]
 
 
 def same_bits(state, host: list) -> bool:
@@ -4057,8 +4108,10 @@ def train_flops(cfg, tokens: int, seq: int) -> float:
 
 
 def lm_train_phase(dev, cfg, seq: int = TRAIN_SEQ, batch=None, n_steps: int = TRAIN_STEPS,
-                   n_micro: int = TRAIN_MICRO) -> dict:
-    """Phase 33 (see the module docstring).  Returns the phase's numbers."""
+                   n_micro: int = TRAIN_MICRO, keep_after: int = DIST_TRAIN_STEPS) -> dict:
+    """Phase 33 (see the module docstring).  Returns the phase's numbers,
+    and under ``"kept"`` the state after ``keep_after`` steps on the host
+    (phase 35 starts from the same seed and batches)."""
     import tempfile
 
     import torch
@@ -4085,13 +4138,15 @@ def lm_train_phase(dev, cfg, seq: int = TRAIN_SEQ, batch=None, n_steps: int = TR
     state = fresh()
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
-    metrics, step_s = [], []
+    metrics, step_s, kept = [], [], None
     for i in range(n_steps):
         t = time.perf_counter()
         state, m = step(state, to_dev(pipe(i)))
         m = {k: float(v) for k, v in m.items()}          # reads the card
         step_s.append(time.perf_counter() - t)
         metrics.append(m)
+        if i + 1 == keep_after:
+            kept = to_host(state)
     peak = torch.cuda.max_memory_allocated()
     for i, m in enumerate(metrics):
         if not all(np.isfinite(v) for v in m.values()):
@@ -4155,6 +4210,7 @@ def lm_train_phase(dev, cfg, seq: int = TRAIN_SEQ, batch=None, n_steps: int = TR
         profiled_step=prof,
         device_busy_share_of_p50_step=prof["device_busy_ms"] / (p50 * 1e3))
     log("lm_train", **out)
+    out["kept"] = kept
     return out
 
 
@@ -4198,6 +4254,301 @@ def gin_train_phase(dev, cases=None, n_steps: int = GIN_TRAIN_STEPS) -> dict:
             edges=int(a["edge_src"].shape[0]), losses=losses, same_bits_twice=True,
             ms_per_step=wall * 1e3 / n_steps, cut=cut)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 35: the distribution layer on one card
+# ---------------------------------------------------------------------------
+
+
+def decode_ms(params, cfg, prompt, toks, n: int, mesh=None) -> list:
+    """Prefill, then ``n`` decode steps fed ``toks``' generated tokens, each
+    step's wall ms (host clock, synchronised)."""
+    from repro_torch.models import transformer
+
+    s0 = prompt.shape[1]
+    _, cache = transformer.prefill(params, prompt, cfg, max_seq=s0 + n, mesh=mesh)
+    return [wall_ms(lambda i=i: transformer.decode_step(
+        params, cache, toks[:, s0 + i], s0 + i, cfg, mesh)) for i in range(n)]
+
+
+def lockstep_mesh(params, cfg, prompt, n_new: int, mesh) -> list:
+    """Prefill and decode with ``mesh`` and without, side by side, both fed
+    the mesh path's greedy token: the largest |logit difference| of each
+    step; the tokens must agree at every step."""
+    import torch
+    from repro_torch.models import transformer
+
+    s0 = prompt.shape[1]
+    le, cache_e = transformer.prefill(params, prompt, cfg, max_seq=s0 + n_new, mesh=mesh)
+    lu, cache_u = transformer.prefill(params, prompt, cfg, max_seq=s0 + n_new)
+    diffs = [float((le - lu).abs().max())]
+    for i in range(n_new - 1):
+        cur = torch.argmax(le, dim=-1).to(torch.int32)
+        if not torch.equal(cur, torch.argmax(lu, dim=-1).to(torch.int32)):
+            raise AssertionError(f"{cfg.name}: EP and unsharded tokens differ at step {i}")
+        le, cache_e = transformer.decode_step(params, cache_e, cur, s0 + i, cfg, mesh)
+        lu, cache_u = transformer.decode_step(params, cache_u, cur, s0 + i, cfg)
+        if not bool(torch.isfinite(le).all()):
+            raise AssertionError(f"{cfg.name}: EP step {i} logits not finite")
+        diffs.append(float((le - lu).abs().max()))
+    return diffs
+
+
+def ep_generate(params, cfg, prompt, n_new: int, mesh, what: str) -> tuple:
+    """``decode.generate`` with ``mesh``: the tokens, their launches and
+    wall seconds; the tokens in range."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving import decode
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    toks = decode.generate(params, prompt, cfg, max_new_tokens=n_new, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(_build.launches)
+    new = toks[:, prompt.shape[1]:]
+    if toks.shape != (prompt.shape[0], prompt.shape[1] + n_new) or \
+            int(new.min()) < 0 or int(new.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{what}: EP tokens out of shape or range")
+    if launches["decode_attention"] == 0:
+        raise AssertionError(f"{what}: EP decode never launched decode_attention")
+    return toks, launches, wall
+
+
+def ep_bf16(dev, cfg, seed: int, lm_batch: int, prompt_len: int, new_tokens: int,
+            mesh, what: str) -> tuple:
+    """bf16 decode through the expert-parallel route beside the unsharded
+    one, timed in turns (unsharded, EP, EP, unsharded): p50 a step of each,
+    the EP generate's launches.  Returns (numbers, launches)."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serving import decode
+
+    max_seq = prompt_len + new_tokens
+    reckon = moe_reckon_gb(cfg, cfg.compute_dtype, lm_batch, prompt_len, max_seq)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                     dtype=cfg.compute_dtype)
+    prompt = moe_prompt(dev, cfg, seed, lm_batch, prompt_len)
+    toks, launches, wall = ep_generate(params, cfg, prompt, new_tokens, mesh, what)
+    plain = decode.generate(params, prompt, cfg, max_new_tokens=new_tokens)
+    agree = float((toks[:, prompt_len:] == plain[:, prompt_len:]).float().mean())
+    runs = {"unsharded": [], "ep": []}
+    for path in ("unsharded", "ep", "ep", "unsharded"):
+        runs[path] += decode_ms(params, cfg, prompt, toks, new_tokens,
+                                mesh if path == "ep" else None)
+    p50 = {k: float(np.percentile(v, 50)) for k, v in runs.items()}
+    out = dict(model=cfg.name, compute_dtype="bfloat16", mesh=list(EP_MESH),
+               experts_a_shard=cfg.moe.n_experts_padded // EP_MESH[1], reckoned=reckon,
+               batch=lm_batch, prompt=prompt_len, new_tokens=new_tokens,
+               ep_decode_p50_ms=p50["ep"], unsharded_decode_p50_ms=p50["unsharded"],
+               ep_over_unsharded=p50["ep"] / p50["unsharded"], decode_ms=runs,
+               ep_generate_s=wall, tokens_agreeing_with_unsharded=agree,
+               attention_launches=launches["decode_attention"], resident_gb=gb(resident),
+               peak_gb=gb(torch.cuda.max_memory_allocated()))
+    del params
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def ep_phase(dev, granite, deepseek, greedy: dict, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
+             new_tokens=LM_NEW_TOKENS) -> list:
+    """Phase 35a: MoE decode through expert parallelism on a local (1, 4)
+    mesh: granite FULL in float32 (the tokens equal to phase 30's
+    unsharded ones, the logit differences of a lockstep run), then bf16
+    (p50 a step beside the unsharded p50), then deepseek FULL in bf16 when
+    its reckoned peak leaves room.  Returns the launches of every EP path."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+
+    mesh = mesh_lib.local_mesh(EP_MESH, ("data", "model"), device=dev)
+    seed, want = greedy[granite.name]
+    max_seq = prompt_len + new_tokens
+    cfg32, reckon, cut = moe_f32_config(granite, lm_batch, prompt_len, max_seq)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(seed), cfg32)
+    prompt = moe_prompt(dev, granite, seed, lm_batch, prompt_len)
+    toks, f32_launches, wall = ep_generate(params, cfg32, prompt, new_tokens, mesh,
+                                           "ep_granite f32")
+    if not torch.equal(toks.cpu(), want):
+        raise AssertionError("ep_granite f32: EP tokens differ from phase 30's unsharded ones")
+    torch.cuda.synchronize()
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    diffs = lockstep_mesh(params, cfg32, prompt, new_tokens, mesh)
+    lock_launches = dict(_build.launches)
+    log("ep_granite_f32", model=granite.name, mesh=list(EP_MESH), axes=["data", "model"],
+        n_layers=cfg32.n_layers, cut=cut, reckoned=reckon, batch=lm_batch,
+        prompt=prompt_len, new_tokens=new_tokens, tokens_equal_phase30=True,
+        max_logit_diff_per_step=diffs, generate_s=wall, launches=f32_launches,
+        resident_gb=gb(resident), peak_gb=gb(torch.cuda.max_memory_allocated()))
+    del params
+    torch.cuda.empty_cache()
+    paths = [f32_launches, lock_launches]
+    bf16, launches = ep_bf16(dev, granite, seed, lm_batch, prompt_len, new_tokens, mesh,
+                             "ep_granite bf16")
+    log("ep_granite_bf16", **bf16)
+    paths.append(launches)
+    seed, _ = greedy[deepseek.name]
+    reckon = moe_reckon_gb(deepseek, deepseek.compute_dtype, lm_batch, prompt_len, max_seq)
+    if reckon["peak_gb"] < MOE_F32_LIMIT_GB:
+        bf16, launches = ep_bf16(dev, deepseek, seed, lm_batch, prompt_len, new_tokens,
+                                 mesh, "ep_deepseek bf16")
+        log("ep_deepseek_bf16", **bf16)
+        paths.append(launches)
+    else:
+        log("ep_deepseek_bf16", skipped=f"reckoned peak {reckon['peak_gb']} GB")
+    return paths
+
+
+def psum_phase(dev, cfg, n_shards: int = PSUM_SHARDS, cpu_leaves=PSUM_CPU_LEAVES) -> dict:
+    """Phase 35b: ``compressed_psum`` over a local data axis of
+    ``n_shards`` on ``cfg``'s gradient tree (seeded gradients and
+    residuals, every leaf ``(n_shards, ...)``): ms a call (p50 of 3), the
+    largest error against the float64 mean within one quantisation step,
+    and the leaves ``cpu_leaves`` equal to the CPU port's bit for bit."""
+    import torch
+    from repro_torch.core.distributed import LocalFabric
+    from repro_torch.models import transformer
+    from repro_torch.training import compression, tree
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    draw = lambda p, scale: torch.randn((n_shards,) + tuple(p.shape), generator=gen,
+                                        device=dev) * scale
+    grads = tree.tree_map(lambda p: draw(p, 1e-3), params)
+    resid = tree.tree_map(lambda p: draw(p, 1e-6), params)
+    del params
+    names, g_leaves = tree.flatten_with_names(grads)
+    per_shard = sum(x[0].numel() for x in g_leaves)
+    fabric = LocalFabric(n_shards, device=dev)
+    ms, box = [], {}
+    for _ in range(3):
+        box.clear()
+        ms.append(wall_ms(lambda: box.setdefault(
+            "out", compression.compressed_psum(grads, resid, fabric))))
+    reduced, new_r = box.pop("out")
+    worst = 0.0
+    r_leaves = tree.leaves(resid)
+    for name, g, r, red in zip(names, g_leaves, r_leaves, tree.leaves(reduced)):
+        eff = g.double() + r.double()
+        step = float(eff.abs().max()) / 127
+        err = float((red.double() - eff.mean(0)).abs().max())
+        if not err <= step:
+            raise AssertionError(f"compressed_psum {name}: error {err} over one step {step}")
+        worst = max(worst, err / step)
+        del eff
+    cpu_fabric = LocalFabric(n_shards, device="cpu")
+    keys = ["/".join(f"['{k}']" for k in leaf.split("/")) for leaf in cpu_leaves]
+    idx = [names.index(k) for k in keys]
+    sub_g = {k: g_leaves[i].cpu() for k, i in zip(keys, idx)}
+    sub_r = {k: r_leaves[i].cpu() for k, i in zip(keys, idx)}
+    c_red, c_res = compression.compressed_psum(sub_g, sub_r, cpu_fabric)
+    card_red, card_res = tree.leaves(reduced), tree.leaves(new_r)
+    for k, i in zip(keys, idx):
+        if not (torch.equal(card_red[i].cpu(), c_red[k]) and torch.equal(card_res[i].cpu(),
+                                                                           c_res[k])):
+            raise AssertionError(f"compressed_psum {k}: the card's bits differ from the CPU's")
+    n_bytes = sum(4 * x.numel() for x in g_leaves) * 2 + sum(4 * x.numel() for x in g_leaves) \
+        + sum(4 * x[0].numel() for x in g_leaves)
+    result = dict(shards=n_shards, floats_a_shard=per_shard, leaves=len(g_leaves),
+                  grads_gb=gb(4 * n_shards * per_shard), ms=ms,
+                  p50_ms=float(np.percentile(ms, 50)),
+                  bytes_bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                  largest_error_in_steps=worst, cpu_bits_equal=list(cpu_leaves),
+                  resident_gb=gb(resident), peak_gb=gb(torch.cuda.max_memory_allocated()))
+    log("compressed_psum", **result)
+    del grads, resid, reduced, new_r, g_leaves, r_leaves, card_red, card_res
+    torch.cuda.empty_cache()
+    return result
+
+
+def zero1_phase(dev, cfg, kept: list, batch: int, seq: int = TRAIN_SEQ,
+                n_micro: int = TRAIN_MICRO, n_steps: int = DIST_TRAIN_STEPS,
+                backend: str = "nccl") -> dict:
+    """Phase 35c: ``jit_train_step`` over a process group of one rank (a
+    TCP store on localhost), ``LM_TRAIN_RULES`` with ZeRO-1, from phase
+    33's seed and batches: after ``n_steps`` the parameters and optimizer
+    state equal ``kept`` (phase 33's one-device state) bit for bit."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distribution import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.training import optim, train_loop
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tdist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                             world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        mesh = mesh_lib.process_group_mesh((1, 1), ("data", "model"), device=dev)
+        params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+        psh, osh = train_loop.state_shardings(transformer.param_logical(cfg),
+                                              sharding.LM_TRAIN_RULES, mesh, zero1=True,
+                                              params_abs=params)
+        bsh = train_loop.batch_shardings(
+            {k: ("batch", "seq") for k in ("tokens", "labels", "mask")},
+            sharding.LM_TRAIN_RULES, mesh)
+        step = train_loop.jit_train_step(train_loop.make_train_step(
+            lambda p, b: transformer.loss_fn(p, b["tokens"], b["labels"], b["mask"], cfg,
+                                             mesh=mesh),
+            train_loop.TrainStepConfig(adamw=optim.AdamWConfig(), n_micro=n_micro)),
+            psh, osh, bsh)
+        state = train_loop.place((params, optim.init(params)), (psh, osh))
+        del params
+        pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=SEED)
+        step_s, losses = [], []
+        for i in range(n_steps):
+            t = time.perf_counter()
+            state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                    for k, v in pipe(i).items()})
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t)
+        full = train_loop.gather_state(state)
+        if not same_bits(full, kept):
+            raise AssertionError("zero1: the one-rank mesh steps differ from phase 33's bits")
+        out = dict(backend=backend, world_size=1, mesh=[1, 1], rules="LM_TRAIN_RULES",
+                   zero1=True, model=cfg.name, seq=seq, global_batch=batch, n_micro=n_micro,
+                   steps=n_steps, losses=losses, step_s=step_s,
+                   equal_to_one_device_bits=True, resident_gb=gb(resident),
+                   peak_gb=gb(torch.cuda.max_memory_allocated()))
+        del state, full
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log("zero1_train", **out)
+    return out
+
+
+def dist_phase(dev, granite, deepseek, smollm, greedy: dict, kept: list, batch: int) -> list:
+    """Phase 35 (see the module docstring): returns the EP paths' launches."""
+    t = time.perf_counter()
+    paths = ep_phase(dev, granite, deepseek, greedy)
+    psum_phase(dev, smollm)
+    zero1_phase(dev, smollm, kept, batch)
+    log("dist", seconds=time.perf_counter() - t)
+    return paths
 
 
 def main() -> int:
@@ -4595,8 +4946,8 @@ def main() -> int:
     # 30-31. MoE LM serving at full width, nothing else resident ------------------
     torch.cuda.empty_cache()
     log("moe_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
-    moe_rows, moe_paths = moe_phases(dev, granite_moe_3b_a800m.FULL,
-                                     deepseek_moe_16b.FULL)
+    moe_rows, moe_paths, moe_greedy = moe_phases(dev, granite_moe_3b_a800m.FULL,
+                                                 deepseek_moe_16b.FULL)
     attn_row["max_abs_err"] = max(attn_row["max_abs_err"],
                                   *(r["max_abs_err"] for r in moe_rows))
 
@@ -4609,18 +4960,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("train_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
     _build.reset_launches()
-    lm_train_phase(dev, smollm_360m.FULL)
+    trained = lm_train_phase(dev, smollm_360m.FULL)
     gin_train_phase(dev, gcases)
     torch.cuda.synchronize()
     train_launches = dict(_build.launches)
     del gcases
+
+    # 35. the distribution layer: expert-parallel MoE decode, compressed_psum,
+    # ZeRO-1 steps over NCCL, nothing else resident ------------------------------
+    torch.cuda.empty_cache()
+    log("dist_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
+    dist_paths = dist_phase(dev, granite_moe_3b_a800m.FULL, deepseek_moe_16b.FULL,
+                            smollm_360m.FULL, moe_greedy, trained.pop("kept"),
+                            trained["global_batch"])
 
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *past_cap_launches, *sharded_paths, *lm_paths, *event_paths,
              pruned_launches, fig4_launches, table1_launches, oracle_launches,
-             sasrec_launches, recsys_launches, *moe_paths, train_launches]
+             sasrec_launches, recsys_launches, *moe_paths, train_launches, *dist_paths]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
             *event_rows, sharded_rows[1]]
     for row in rows:
@@ -4645,7 +5004,8 @@ def main() -> int:
         prune_20k=fig4_launches, baselines_20k=table1_launches,
         oracle=oracle_launches, sasrec_2stage=sasrec_launches,
         recsys_full=recsys_launches, moe_granite=moe_paths[:4],
-        moe_deepseek=moe_paths[4:], gin_max_rel_diff=gin_errs, train=train_launches)
+        moe_deepseek=moe_paths[4:], gin_max_rel_diff=gin_errs, train=train_launches,
+        dist_ep=dist_paths)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@
 Twin of ``repro/configs/granite_moe_3b_a800m.py``: ``FULL`` and ``SMOKE``
 with the reference's values field for field.  Heads are padded to 32,
 the vocabulary to 49,168 and the experts to 48 (pad experts are
-router-masked and receive no tokens); ``ep_shard_map`` is carried and,
-with no mesh, ignored."""
+router-masked and receive no tokens); ``ep_shard_map`` is carried: with a
+mesh the MoE blocks take the expert-parallel route, 12 experts a shard
+over 4 'model' shards."""
 
 import torch
 

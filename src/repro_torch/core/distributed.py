@@ -163,7 +163,14 @@ class LocalFabric:
         return buf.transpose(0, 1).contiguous()
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        return x.sum(0, dtype=x.dtype)
+        """The shards' sum; floats added as a chain in shard order (the
+        order of XLA's CPU all-reduce), integers in any order."""
+        if not x.is_floating_point():
+            return x.sum(0, dtype=x.dtype)
+        out = x[0].clone()
+        for i in range(1, x.shape[0]):
+            out = out + x[i]
+        return out
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         return x.amax(0)

@@ -77,6 +77,14 @@ def _init_mlp(gen: torch.Generator, dims: Sequence[int]) -> Dict[str, torch.Tens
     return p
 
 
+def _mlp_logical(dims: Sequence[int]) -> Dict[str, Tuple]:
+    p = {}
+    for i in range(len(dims) - 1):
+        p[f"w{i}"] = ("mlp_in", "mlp_out")
+        p[f"b{i}"] = ("mlp_out",)
+    return p
+
+
 def _mlp_fwd(p: Dict[str, torch.Tensor], x: torch.Tensor, n: int,
              final_act: bool) -> torch.Tensor:
     for i in range(n):
@@ -92,6 +100,14 @@ def init_params(gen: torch.Generator, cfg: DLRMConfig) -> Dict[str, Any]:
         "table": embedding.init_table(gen, cfg.table, dtype=cfg.table_dtype),
         "bot": _init_mlp(gen, cfg.bot_mlp),
         "top": _init_mlp(gen, (cfg.top_in,) + cfg.top_mlp),
+    }
+
+
+def param_logical(cfg: DLRMConfig) -> Dict[str, Any]:
+    return {
+        "table": embedding.table_logical(),
+        "bot": _mlp_logical(cfg.bot_mlp),
+        "top": _mlp_logical((cfg.top_in,) + cfg.top_mlp),
     }
 
 

@@ -73,6 +73,10 @@ def init_table(gen: torch.Generator, cfg: MegaTableConfig,
     return table.mul_(cfg.dim ** -0.5)
 
 
+def table_logical() -> Tuple[str, str]:
+    return ("rows", "dim")
+
+
 class _GatherRows(torch.autograd.Function):
     """``table[idx]`` for ids in range, whose backward adds each row's
     gradients in an order fixed by the ids: ``index_put_(accumulate=True)``

@@ -72,6 +72,20 @@ def init_params(gen: torch.Generator, cfg: GINConfig) -> Dict[str, Any]:
     }
 
 
+def param_logical(cfg: GINConfig) -> Dict[str, Any]:
+    return {
+        "encoder": {"w": ("feat", "hidden"), "b": ("hidden",)},
+        "layers": {
+            "w1": ("layers", "hidden", "hidden"),
+            "b1": ("layers", "hidden"),
+            "w2": ("layers", "hidden", "hidden"),
+            "b2": ("layers", "hidden"),
+            "eps": ("layers",),
+        },
+        "head": {"w": ("hidden", None), "b": (None,)},
+    }
+
+
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """``jax.ops.segment_sum(data, segment_ids, num_segments)``: each

@@ -212,6 +212,7 @@ def chunked_softmax_xent(
     mask: torch.Tensor,       # (b, s)
     chunk: int = 1024,
     n_valid_vocab: Optional[int] = None,  # mask padded vocab columns
+    count: Optional[torch.Tensor] = None,  # the normaliser's token count
 ) -> torch.Tensor:
     """CE without materialising ``(b, s, v)`` logits: a loop over sequence
     chunks, the sequence zero-padded to a multiple of ``chunk``.
@@ -221,7 +222,8 @@ def chunked_softmax_xent(
     chunk's inputs and recomputes its logits in the backward pass, one
     chunk at a time: at 4096 tokens and 49,152 columns, float32 logits
     are 805 MB a sequence.  Columns from ``n_valid_vocab`` on are
-    ``-1e30``.
+    ``-1e30``.  The NLL sum is divided by ``max(count, 1)``: the mask's
+    count, or ``count`` where a caller sums shares of a larger batch.
     """
     b, s, d = hidden.shape
     chunk = min(chunk, s)
@@ -232,7 +234,7 @@ def chunked_softmax_xent(
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    own_count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(n):
         sl = slice(c * chunk, (c + 1) * chunk)
         hb, lb, mb = hidden[:, sl], labels[:, sl], mask[:, sl]
@@ -242,8 +244,10 @@ def chunked_softmax_xent(
         else:
             nll = _xent_chunk(hb, lm_head, lb, mb, n_valid_vocab)
         total = total + nll
-        count = count + torch.sum(mb.float())
-    return total / torch.clamp(count, min=1.0)
+        own_count = own_count + torch.sum(mb.float())
+    if count is None:
+        count = own_count
+    return total / torch.clamp(count.reshape(()), min=1.0)
 
 
 # ---------------------------------------------------------------------------

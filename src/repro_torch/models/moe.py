@@ -14,7 +14,7 @@ gating, dispatched in the "dropping" formulation:
 
 The same ``MoEConfig`` (``pad_experts_to`` and ``ep_shard_map`` carried:
 without a mesh the reference ignores ``ep_shard_map``, and so does the
-port), the same parameter tree and the same float order where it shows:
+port; with one, ``transformer`` takes ``moe_ffn_sharded``), the same parameter tree and the same float order where it shows:
 
   * the router runs in float32 whatever the compute dtype; pad experts'
     logits are ``-1e30``; the top-k is ``lax.top_k``'s, ties to the lower
@@ -42,8 +42,13 @@ port), the same parameter tree and the same float order where it shows:
 ``init_moe_params`` draws from an explicit ``torch.Generator`` through
 ``layers.dense_init`` with the reference's fan-in rule: an ``(E, d, ff)``
 expert tensor has fan-in ``E``, so its standard deviation is ``E**-0.5``.
-That quirk is the reference's and is kept.  The expert-parallel
-``moe_ffn_sharded`` is not ported (it needs a mesh).
+That quirk is the reference's and is kept.
+
+``moe_ffn_sharded`` is the expert-parallel form over a
+``launch.mesh.Mesh``: each 'model' shard keeps its own experts'
+assignments of the routing every shard computes alike, and one sum of
+the ``(t_local, d)`` partial outputs over 'model' combines them (see the
+section below).
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ class MoEConfig:
     # physical expert padding (granite: 40 -> 48); pad experts' router
     # logits are masked, so they receive no tokens
     pad_experts_to: Optional[int] = None
-    # expert-parallel dispatch over a mesh; no mesh here, so ignored
+    # expert-parallel dispatch (moe_ffn_sharded) when a mesh is given
     ep_shard_map: bool = False
 
     @property
@@ -97,6 +102,21 @@ def init_moe_params(gen: torch.Generator, d_model: int,
         p["shared_gate"] = layers.dense_init(gen, (d_model, ff_sh), device=dev)
         p["shared_up"] = layers.dense_init(gen, (d_model, ff_sh), device=dev)
         p["shared_down"] = layers.dense_init(gen, (ff_sh, d_model), device=dev)
+    return p
+
+
+def moe_param_specs(cfg: MoEConfig) -> Dict[str, Tuple]:
+    """Logical axis names per parameter (leading 'layers' added by the LM)."""
+    p = {
+        "router": ("embed", "experts"),
+        "w_gate": ("experts", "embed", "expert_mlp"),
+        "w_up": ("experts", "embed", "expert_mlp"),
+        "w_down": ("experts", "expert_mlp", "embed"),
+    }
+    if cfg.n_shared > 0:
+        p["shared_gate"] = ("embed", "mlp")
+        p["shared_up"] = ("embed", "mlp")
+        p["shared_down"] = ("mlp", "embed")
     return p
 
 
@@ -143,6 +163,26 @@ def dispatch(sel: torch.Tensor, t: int, cfg: MoEConfig):
     return order, dest, keep, cap
 
 
+def load_balance_aux(probs: torch.Tensor, sel: torch.Tensor,
+                     cfg: MoEConfig) -> torch.Tensor:
+    """Switch-style load-balance loss of ``t`` routed tokens."""
+    t, e = probs.shape
+    dev = probs.device
+    density = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, sel[:, 0].long(), torch.ones(t, dtype=torch.float32, device=dev)) / t
+    density_proxy = probs.mean(dim=0)
+    return cfg.router_aux_weight * e * torch.sum(density * density_proxy)
+
+
+def token_order(order: torch.Tensor, t: int, k: int) -> torch.Tensor:
+    """``(t, k)``: each token's k assignments by their place in the sorted
+    order, which is ascending expert id: the reference's scatter adds a
+    token's contributions in that order."""
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * k, device=order.device)
+    return torch.sort(rank.reshape(t, k), dim=1).values
+
+
 def moe_ffn(
     x: torch.Tensor,                 # (t, d) flattened tokens
     params: Dict[str, torch.Tensor],
@@ -157,11 +197,7 @@ def moe_ffn(
 
     # ---- routing ----------------------------------------------------------
     probs, gate, sel = route(x, params["router"], cfg)
-    # Switch-style load-balance aux loss
-    density = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, sel[:, 0].long(), torch.ones(t, dtype=torch.float32, device=dev)) / t
-    density_proxy = probs.mean(dim=0)
-    aux = cfg.router_aux_weight * e * torch.sum(density * density_proxy)
+    aux = load_balance_aux(probs, sel, cfg)
 
     # ---- sort-based dispatch ------------------------------------------------
     order, dest, keep, cap = dispatch(sel, t, cfg)
@@ -182,11 +218,7 @@ def moe_ffn(
     # ---- combine ------------------------------------------------------------
     y_flat = torch.cat([y.reshape(e_pad * cap, d), y.new_zeros((1, d))])
     contrib = gather_rows(y_flat, dest) * (sg * keep.float())[:, None].to(cd)
-    # each token's k assignments by their place in the sorted order, which
-    # is ascending expert id: the reference's scatter adds them so
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(t * k, device=dev)
-    rank = torch.sort(rank.reshape(t, k), dim=1).values
+    rank = token_order(order, t, k)
     out = torch.zeros((t, d), dtype=cd, device=dev)
     for j in range(k):
         out = out + contrib[rank[:, j]]
@@ -197,4 +229,136 @@ def moe_ffn(
         us = x @ params["shared_up"].to(cd)
         out = out + layers.swiglu(gs, us) @ params["shared_down"].to(cd)
 
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel dispatch over a mesh
+#
+# The tokens are sharded over the data axes and replicated over 'model', so
+# expert parallelism moves no token: each model shard routes its local
+# tokens, keeps the assignments to its own experts, runs them, and one sum
+# of the (t_local, d) partial outputs over 'model' combines the shards.
+# ---------------------------------------------------------------------------
+
+
+def _expert_slice(w: torch.Tensor, shard_ids: torch.Tensor, e_loc: int) -> torch.Tensor:
+    """The local shards' experts of ``w`` (every expert's weights)."""
+    if shard_ids.numel() * e_loc == w.shape[0]:      # every shard is local
+        return w
+    return w.unflatten(0, (-1, e_loc))[shard_ids.long()].flatten(0, 1)
+
+
+def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig,
+                shard_ids: torch.Tensor, e_loc: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One data shard's tokens ``x`` (t_loc, d) through the model shards
+    ``shard_ids`` (the local ones: every shard on a local mesh, this rank's
+    on a process group), each owning experts ``[m * e_loc, (m + 1) *
+    e_loc)``.  Returns the partial outputs ``(S_local, t_loc, d)``, to be
+    summed over 'model', and the shard's aux loss.
+
+    Each shard sees the full routing: the capacity is ``cfg.capacity(t_loc)``
+    and an assignment's position counts every expert's, as the reference's
+    ``local_fn`` counts; a shard keeps its own experts' assignments.  Its
+    partial adds each token's k assignments in ascending expert id, the
+    others' as ``0 * (gate * 0)`` (zero, or NaN for a NaN gate), as the
+    reference adds them from its drop slot."""
+    t, d = x.shape
+    k = cfg.top_k
+    cd, dev = x.dtype, x.device
+    s_l = shard_ids.numel()
+    probs, gate, sel = route(x, params["router"], cfg)
+    aux = load_balance_aux(probs, sel, cfg)
+
+    order, dest_g, keep, cap = dispatch(sel, t, cfg)
+    st = order // k
+    sg = gate.reshape(-1)[order]
+    owner = sel.reshape(-1).long()[order] // e_loc            # (t * k,)
+    match = owner[None, :] == shard_ids.long()[:, None]      # (S_l, t * k)
+    mine = match.any(0)
+    sidx = match.int().argmax(0)
+    kept = keep & mine
+    # the global buffer row moved to the local shard's block (the same row
+    # on a local mesh, where the local shards are all of them)
+    block = e_loc * cap
+    dest = torch.where(kept, dest_g + (sidx - owner) * block, s_l * block)
+    buf = torch.zeros((s_l * block + 1, d), dtype=cd, device=dev)
+    buf.index_add_(0, dest, gather_rows(x, st) * kept[:, None].to(cd))
+    buf = buf[:-1].reshape(s_l * e_loc, cap, d)
+
+    w = {n: _expert_slice(params[n], shard_ids, e_loc).to(cd)
+         for n in ("w_gate", "w_up", "w_down")}
+    g = expert_matmul(buf, w["w_gate"])
+    u = expert_matmul(buf, w["w_up"])
+    h = layers.swiglu(g, u).to(cd)
+    y = expert_matmul(h, w["w_down"]).to(cd)                  # (S_l * e_loc, cap, d)
+
+    y_flat = torch.cat([y.reshape(s_l * block, d), y.new_zeros((1, d))])
+    contrib = gather_rows(y_flat, dest) * (sg * kept.float())[:, None].to(cd)
+    # another shard's assignment: its drop slot's zero row times (gate * 0)
+    other = ((sg * 0.0)[:, None].to(cd) * torch.zeros((), dtype=cd, device=dev))
+    own = torch.where(mine, sidx, -1)
+    shard = torch.arange(s_l, device=dev)[:, None]
+    rank = token_order(order, t, k)
+    partial = torch.zeros((s_l, t, d), dtype=cd, device=dev)
+    for j in range(k):
+        a = rank[:, j]
+        is_own = (own[a][None, :] == shard)[..., None]        # (S_l, t, 1)
+        partial = partial + torch.where(is_own, contrib[a][None], other[a][None])
+    return partial, aux
+
+
+def moe_ffn_sharded(
+    x: torch.Tensor,                 # (t, d) tokens
+    params: Dict[str, torch.Tensor],
+    cfg: MoEConfig,
+    mesh,
+    model_axis: str = "model",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EP MoE over ``mesh`` (``launch.mesh.Mesh``), experts owned by the
+    'model' shards; ``cfg.n_experts_padded`` must divide over them, and
+    ``params`` holds every expert.  Shared experts are not handled here
+    (the caller adds them).  Returns ``(out (t, d), aux)``, ``aux`` the
+    mean over the data shards.
+
+    On a local mesh ``x`` is every token, split over the data axes in
+    blocks of rows (major to minor); the model shards are a leading dim of
+    each data block's partials, summed as a chain in shard order.  On a
+    process-group mesh ``x`` is this rank's data block and the sum is the
+    'model' group's all-reduce; that form serves (no autograd through the
+    collective)."""
+    e_pad = cfg.n_experts_padded
+    n_model = mesh.shape[model_axis]
+    if e_pad % n_model:
+        raise ValueError(f"{e_pad} experts do not divide over {n_model} model shards")
+    e_loc = e_pad // n_model
+    d_axes = tuple(a for a in mesh.axis_names if a != model_axis)
+    n_data = mesh.axis_size(d_axes)
+    model = mesh.fabric(model_axis)
+    if mesh.kind == "local":
+        t = x.shape[0]
+        if t % n_data:
+            raise ValueError(f"{t} tokens do not split over {n_data} data shards")
+        t_loc = t // n_data
+        outs, auxes = [], []
+        for i in range(n_data):
+            partial, aux = ep_partials(x[i * t_loc:(i + 1) * t_loc], params, cfg,
+                                       model.shard_ids, e_loc)
+            outs.append(model.psum(partial))
+            auxes.append(aux)
+        out, aux = torch.cat(outs), torch.stack(auxes)
+    else:
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in params.values())):
+            raise NotImplementedError(
+                "expert parallelism over a process group serves only: autograd "
+                "does not run through the 'model' all-reduce")
+        partial, aux = ep_partials(x, params, cfg, model.shard_ids, e_loc)
+        out, aux = model.psum(partial), aux[None]
+    if d_axes:      # pmean: the sum over the data shards over their count
+        aux = mesh.fabric(d_axes).psum(aux) / torch.tensor(
+            float(n_data), dtype=aux.dtype, device=aux.device)
+    else:
+        aux = aux[0]
     return out, aux

@@ -120,6 +120,31 @@ def init_params(gen: torch.Generator, cfg: SeqRecConfig) -> Dict[str, Any]:
     return p
 
 
+def param_logical(cfg: SeqRecConfig) -> Dict[str, Any]:
+    blk = {
+        "ln1_w": ("layers", None), "ln1_b": ("layers", None),
+        "wq": ("layers", "dim", "dim"), "wk": ("layers", "dim", "dim"),
+        "wv": ("layers", "dim", "dim"), "wo": ("layers", "dim", "dim"),
+        "ln2_w": ("layers", None), "ln2_b": ("layers", None),
+        "w1": ("layers", "dim", "mlp_out"), "b1": ("layers", "mlp_out"),
+        "w2": ("layers", "mlp_out", "dim"), "b2": ("layers", "dim"),
+    }
+    p: Dict[str, Any] = {
+        "items": embedding.table_logical(),
+        "pos": ("seq", "dim"),
+        "blocks": blk,
+        "final_ln_w": (None,),
+        "final_ln_b": (None,),
+    }
+    if cfg.kind == "bst":
+        dims = _head_dims(cfg)
+        p["head"] = {}
+        for i in range(len(dims) - 1):
+            p["head"][f"w{i}"] = ("mlp_in", "mlp_out")
+            p["head"][f"b{i}"] = ("mlp_out",)
+    return p
+
+
 # ---------------------------------------------------------------------------
 # Transformer encoder over item sequences
 # ---------------------------------------------------------------------------

@@ -17,8 +17,13 @@ Differences from the reference, none of which changes a value:
     autograd records, so the backward pass keeps each block's input and
     recomputes the rest, the reference's ``jax.checkpoint`` with
     ``nothing_saveable``: a memory knob, the gradients the same bits with
-    it on and off.  ``unroll_layers`` and ``mesh`` are TPU compile knobs,
-    accepted and ignored;
+    it on and off.  ``unroll_layers`` is a TPU compile knob, accepted and
+    ignored;
+  * ``mesh`` (a ``launch.mesh.Mesh``) reaches the MoE blocks: with
+    ``ep_shard_map`` they take ``moe.moe_ffn_sharded`` (experts owned by
+    'model' shards, the reference's expert-parallel route), and
+    ``loss_fn`` over a process-group mesh returns this rank's share of
+    the global loss (``train_loop.jit_train_step``);
   * GQA expands K/V to the padded heads by ``expand`` (a broadcast whose
     backward is a sum), where the reference gathers with ``jnp.take``:
     the same values, and no scatter with atomics in the backward pass;
@@ -53,7 +58,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.embedding import take_rows
-from repro_torch.models.moe import MoEConfig, init_moe_params, moe_ffn
+from repro_torch.models.moe import (
+    MoEConfig, init_moe_params, moe_ffn, moe_ffn_sharded, moe_param_specs,
+)
 
 BACKENDS = ("pallas", "xla")
 # matrices the reference casts to compute_dtype at each use; the norm
@@ -234,6 +241,46 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
     return params
 
 
+def _block_logical(cfg: LMConfig) -> Dict[str, Tuple]:
+    p = {
+        "ln1": ("layers", None),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        # KV projections are tiny (d x kh x dh): not FSDP-sharded
+        "wk": ("layers", "embed_kv", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed_kv", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "ln2": ("layers", None),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = ("layers", "heads", "head_dim")
+        p["bk"] = ("layers", "kv_heads", "head_dim")
+        p["bv"] = ("layers", "kv_heads", "head_dim")
+    if cfg.moe is not None:
+        p["moe"] = {k: ("layers",) + v for k, v in moe_param_specs(cfg.moe).items()}
+    else:
+        p["w_gate"] = ("layers", "embed", "mlp")
+        p["w_up"] = ("layers", "embed", "mlp")
+        p["w_down"] = ("layers", "mlp", "embed")
+    return p
+
+
+def param_logical(cfg: LMConfig) -> Dict[str, Any]:
+    """Logical axes of ``init_params``' tree (``distribution/sharding.py``).
+    The embedding is sharded on vocab only; ``dense0`` is one unstacked
+    block, so its tuples drop the leading 'layers'."""
+    tree: Dict[str, Any] = {
+        "embed": ("vocab", None),
+        "blocks": _block_logical(cfg),
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = (None, "vocab")
+    if cfg.first_dense_ff:
+        dense_cfg = dataclasses.replace(cfg, moe=None, d_ff=cfg.first_dense_ff)
+        tree["dense0"] = {k: v[1:] for k, v in _block_logical(dense_cfg).items()}
+    return tree
+
+
 # the reference's tree as the port's tensors (shared with the recsys models)
 params_from_reference = layers.params_from_reference
 
@@ -344,15 +391,37 @@ def _expanded_attention(q, k, v, cfg: LMConfig, q_offset: int = 0):
     return attn
 
 
-def _ffn(p, x: torch.Tensor, cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def _use_ep(cfg: LMConfig, mesh, n_tokens: int) -> bool:
+    """The expert-parallel route: ``ep_shard_map`` set and a mesh given,
+    and the tokens split over the data axes (decode at a batch that does
+    not divide them takes ``moe_ffn``, as the reference does).  A
+    process-group rank holds its own data block already."""
+    if not cfg.moe.ep_shard_map or mesh is None:
+        return False
+    if mesh.kind == "process_group":
+        return True
+    return n_tokens % mesh.axis_size([a for a in mesh.axis_names if a != "model"]) == 0
+
+
+def _ffn(p, x: torch.Tensor, cfg: LMConfig, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The FFN half of a block: ``(x + ffn(x), aux loss)``.  MoE when the
     block holds ``moe`` (the reference's test), on the flattened ``b * s``
-    tokens, whose count sets the capacity."""
+    tokens, whose count sets the capacity (a data shard's count on the
+    expert-parallel route, whose shared experts are dense products
+    outside it)."""
     cd = cfg.compute_dtype
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None and "moe" in p:
         b, s, d = h.shape
-        out, aux = moe_ffn(h.reshape(b * s, d), p["moe"], cfg.moe)
+        flat = h.reshape(b * s, d)
+        if _use_ep(cfg, mesh, b * s):
+            out, aux = moe_ffn_sharded(flat, p["moe"], cfg.moe, mesh)
+            if cfg.moe.n_shared > 0:
+                gs = flat @ p["moe"]["shared_gate"].to(cd)
+                us = flat @ p["moe"]["shared_up"].to(cd)
+                out = out + layers.swiglu(gs, us) @ p["moe"]["shared_down"].to(cd)
+        else:
+            out, aux = moe_ffn(flat, p["moe"], cfg.moe)
         return x + out.reshape(b, s, d), aux
     g = h @ p["w_gate"].to(cd)
     u = h @ p["w_up"].to(cd)
@@ -376,11 +445,11 @@ def _logits(params, x_last: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
 
 
 def _block(p, x: torch.Tensor, cfg: LMConfig, pos: torch.Tensor,
-           freqs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+           freqs: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block of ``forward``: attention, then the FFN; ``(x, aux)``."""
     q, k, v = _qkv(p, x, cfg, pos, freqs)
     x = x + _out_proj(_expanded_attention(q, k, v, cfg), p["wo"].to(cfg.compute_dtype))
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg, mesh)
 
 
 def forward(
@@ -400,9 +469,9 @@ def forward(
     remat = cfg.remat and torch.is_grad_enabled()
     for _, p in _layers(params, cfg):
         if remat:
-            x, aux = checkpoint(_block, p, x, cfg, pos, freqs, use_reentrant=False)
+            x, aux = checkpoint(_block, p, x, cfg, pos, freqs, mesh, use_reentrant=False)
         else:
-            x, aux = _block(p, x, cfg, pos, freqs)
+            x, aux = _block(p, x, cfg, pos, freqs, mesh)
         auxes.append(aux)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     # the reference sums the stacked blocks' aux, not dense0's (zero) one
@@ -418,12 +487,25 @@ def loss_fn(
     mesh=None,
 ) -> torch.Tensor:
     """Token-mean CE over the real vocabulary (chunked, the logits never
-    whole) plus the summed MoE aux loss."""
-    hidden, aux = forward(params, tokens, cfg)
+    whole) plus the summed MoE aux loss.
+
+    With a process-group ``mesh`` the rows are this rank's and the result
+    is its share of the global loss: its CE sum over the token count
+    summed over the data ranks, plus its aux over their number; the shares
+    add up to the loss over the data axes (``train_loop.jit_train_step``
+    adds them)."""
+    hidden, aux = forward(params, tokens, cfg, mesh=mesh)
     head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
+    count = None
+    if mesh is not None and mesh.kind == "process_group":
+        d_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        n_data = mesh.axis_size(d_axes)
+        if d_axes:
+            count = mesh.fabric(d_axes).psum(mask.float().sum()[None])
+        aux = aux / torch.tensor(float(n_data), device=aux.device)
     ce = layers.chunked_softmax_xent(hidden, head, labels, mask,
                                      chunk=cfg.loss_chunk,
-                                     n_valid_vocab=cfg.vocab_size)
+                                     n_valid_vocab=cfg.vocab_size, count=count)
     return ce + aux
 
 
@@ -440,6 +522,11 @@ def init_kv_cache(
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def kv_cache_logical() -> Dict[str, Tuple]:
+    ax = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax}
 
 
 def decode_step(
@@ -480,7 +567,7 @@ def decode_step(
         if hp != cfg.n_heads:   # pad heads contribute zeros
             attn = F.pad(attn, (0, 0, 0, hp - cfg.n_heads))
         x = x + _out_proj(attn[:, None].to(cd), p["wo"].to(cd))
-        x, _ = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg, mesh)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x[:, 0], cfg), cache
 
@@ -507,7 +594,7 @@ def prefill(
     for i, p in _layers(params, cfg):
         q, k, v = _qkv(p, x, cfg, pos, freqs)
         x = x + _out_proj(_expanded_attention(q, k, v, cfg), p["wo"].to(cfg.compute_dtype))
-        x, _ = _ffn(p, x, cfg)
+        x, _ = _ffn(p, x, cfg, mesh)
         cache["k"][i, :, :s] = k.to(cfg.cache_dtype)
         cache["v"][i, :, :s] = v.to(cfg.cache_dtype)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)

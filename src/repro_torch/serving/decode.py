@@ -36,11 +36,15 @@ def generate(
     key: Optional[torch.Tensor] = None,
     *,
     backend: str = "pallas",
+    mesh=None,
 ) -> torch.Tensor:
-    """Returns (b, s0 + max_new_tokens) generated token ids."""
+    """Returns (b, s0 + max_new_tokens) generated token ids.  ``mesh``
+    (port only, a ``launch.mesh.Mesh``) reaches the MoE blocks of prefill
+    and every decode step: the expert-parallel route of configs with
+    ``ep_shard_map``."""
     b, s0 = prompt.shape
     max_seq = s0 + max_new_tokens
-    logits, cache = tf.prefill(params, prompt, cfg, max_seq=max_seq)
+    logits, cache = tf.prefill(params, prompt, cfg, max_seq=max_seq, mesh=mesh)
 
     tokens = [prompt.to(torch.int32)]
     cur = _sample(logits, temperature, key, 0)
@@ -48,7 +52,7 @@ def generate(
         tokens.append(cur[:, None])
         if i == max_new_tokens - 1:
             break
-        logits, cache = tf.decode_step(params, cache, cur, s0 + i, cfg,
+        logits, cache = tf.decode_step(params, cache, cur, s0 + i, cfg, mesh,
                                        backend=backend)
         cur = _sample(logits, temperature, key, i + 1)
     return torch.cat(tokens, dim=1)

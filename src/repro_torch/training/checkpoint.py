@@ -17,8 +17,16 @@ so each package restores the other's float32 / int32 checkpoints.
 bf16 leaves: numpy has no bfloat16 without ``ml_dtypes``, so a bf16 leaf
 is stored as its 16 bits (an int16 array) and its name listed under
 ``meta.json``'s ``"bfloat16"``; the port reads it back bit for bit (the
-reference would read the integers).  ``restore(..., device=)`` takes the
-place of the reference's ``shardings=``.
+reference would read the integers).
+
+Meshes: a DTensor leaf (``train_loop.place``) is saved whole, gathered
+over its ranks (every rank calls ``save``; the process of global rank 0
+writes, and the others return at once: synchronise before another
+process reads it), so a checkpoint does not depend on the mesh it came
+from.
+``restore(..., shardings=)`` places the restored leaves on another mesh,
+each rank keeping its block (the reference's elastic restart);
+``device=`` is the one-device form.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ PyTree = Any
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if hasattr(t, "full_tensor"):      # a DTensor: gathered whole
+            t = t.full_tensor()
         if t.dtype == torch.bfloat16:
             t = t.view(torch.int16)
         return t.cpu().numpy()
@@ -48,15 +58,16 @@ def _host(leaf) -> np.ndarray:
 
 def save(ckpt_dir: str, step: int, tree: PyTree, keep_last: int = 3) -> str:
     """Atomically persist ``tree`` as step ``step``. Returns the final path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    names, leaves = tree_lib.flatten_with_names(tree)
+    arrays = {f"a{i}": _host(leaf) for i, leaf in enumerate(leaves)}
+    if not _writer():
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    names, leaves = tree_lib.flatten_with_names(tree)
-    arrays = {f"a{i}": _host(leaf) for i, leaf in enumerate(leaves)}
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     meta = {"step": step, "names": names}
     bf16 = [n for n, leaf in zip(names, leaves)
@@ -77,6 +88,13 @@ def save(ckpt_dir: str, step: int, tree: PyTree, keep_last: int = 3) -> str:
 
     _gc(ckpt_dir, keep_last)
     return final
+
+
+def _writer() -> bool:
+    """One process writes: global rank 0 of a started process group."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def _gc(ckpt_dir: str, keep_last: int) -> None:
@@ -104,10 +122,13 @@ def restore(
     like: PyTree,
     step: Optional[int] = None,
     device: DeviceLike = None,
+    shardings: Optional[PyTree] = None,
 ) -> Tuple[PyTree, int]:
-    """Restore into the structure, dtypes and devices of ``like`` (its
-    leaves tensors), or onto ``device``.  Refuses a checkpoint whose names
-    or shapes differ from ``like``'s."""
+    """Restore into the structure and dtypes of ``like`` (its leaves
+    tensors, whole or DTensors) on each leaf's device, or onto ``device``,
+    or placed by ``shardings`` (a tree of ``NamedSharding`` matching
+    ``like``: DTensors on its process-group mesh, on the mesh's device).
+    Refuses a checkpoint whose names or shapes differ from ``like``'s."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -134,6 +155,14 @@ def restore(
             t = torch.from_numpy(np.require(arr, requirements="W"))
             if names[i] in bf16:
                 t = t.view(torch.bfloat16)
-            dev = device if device is not None else leaf.device
+            if shardings is not None:
+                dev = tree_lib.leaves(shardings)[i].mesh.device
+            else:
+                dev = device if device is not None else leaf.device
             restored.append(t.to(device=dev, dtype=leaf.dtype))
-    return tree_lib.unflatten(like, restored), step
+    tree = tree_lib.unflatten(like, restored)
+    if shardings is not None:
+        from repro_torch.training.train_loop import place
+
+        tree = place(tree, shardings)
+    return tree, step

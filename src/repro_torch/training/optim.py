@@ -11,8 +11,8 @@ arithmetic in its order: grads to float32, clip by the global norm,
 and returns the same tensors: the counterpart of the reference's donated
 buffers (``jit(..., donate_argnums=0)``), so a full-width step holds one
 copy of its state.  ``rowwise_adagrad_update`` returns new tensors, as the
-reference's does.  ``abstract_state`` and ``state_logical`` wait for the
-mesh (``distribution``).
+reference's does.  ``state_logical`` mirrors the parameters' logical
+axes for the sharding rules; ``abstract_state`` waits for the dry run.
 """
 
 from __future__ import annotations
@@ -57,6 +57,12 @@ def init(params: PyTree) -> OptState:
     return OptState(m=tree_lib.tree_map(zeros, params),
                     v=tree_lib.tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def state_logical(param_logical_tree: PyTree) -> OptState:
+    """Logical axes for the optimizer state: the params' for ``m`` and
+    ``v``; ``step`` a scalar, replicated (the reference's ``((),)``)."""
+    return OptState(m=param_logical_tree, v=param_logical_tree, step=((),))
 
 
 def state_from_reference(state, device: DeviceLike = None) -> OptState:
@@ -137,26 +143,40 @@ def apply_updates(
     """One AdamW step, in place.  Returns ``(params, state, metrics)``:
     the same tensors, updated, and ``{"grad_norm", "lr"}`` as 0-d
     tensors."""
+    grads, hyper = prepare_step(grads, state.step, cfg)
+    for p, m, v, g in zip(tree_lib.leaves(params), tree_lib.leaves(state.m),
+                          tree_lib.leaves(state.v), tree_lib.leaves(grads)):
+        adamw_leaf(p, m, v, g, hyper, cfg)
+    return params, state, {"grad_norm": hyper["grad_norm"], "lr": hyper["lr"]}
+
+
+def prepare_step(grads: PyTree, step: torch.Tensor, cfg: AdamWConfig):
+    """The step's shared half: the grads in float32, clipped by their
+    global norm; ``step + 1`` in place; the learning rate and the bias
+    corrections.  Returns ``(grads, hyper)``."""
     grads = tree_lib.tree_map(lambda g: g.float(), grads)
     if cfg.grad_clip > 0:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     else:
         gnorm = global_norm(grads)
-    state.step.add_(1)
-    step = state.step
-    lr = schedule_lr(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
+    step.add_(1)
     step_f = step.float()
-    bc1 = 1 - torch.pow(_f32(b1, step_f), step_f)
-    bc2 = 1 - torch.pow(_f32(b2, step_f), step_f)
-    p_leaves = tree_lib.leaves(params)
-    for p, m, v, g in zip(p_leaves, tree_lib.leaves(state.m),
-                          tree_lib.leaves(state.v), tree_lib.leaves(grads)):
-        # b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g * g, each rounded
-        # as the reference rounds them
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * g * g)
-        p32 = p.float()
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p32
-        p.copy_((p32 - lr * upd).to(p.dtype))
-    return params, state, {"grad_norm": gnorm, "lr": lr}
+    return grads, dict(
+        grad_norm=gnorm, lr=schedule_lr(cfg, step),
+        bc1=1 - torch.pow(_f32(cfg.beta1, step_f), step_f),
+        bc2=1 - torch.pow(_f32(cfg.beta2, step_f), step_f))
+
+
+def adamw_leaf(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+               hyper: Dict[str, torch.Tensor], cfg: AdamWConfig) -> None:
+    """One leaf's AdamW update, in place (``p`` may be a block of a
+    larger tensor: every operation is elementwise)."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    # b1 * m + (1 - b1) * g and b2 * v + (1 - b2) * g * g, each rounded
+    # as the reference rounds them
+    m.copy_(b1 * m + (1 - b1) * g)
+    v.copy_(b2 * v + (1 - b2) * g * g)
+    p32 = p.float()
+    upd = (m / hyper["bc1"]) / (torch.sqrt(v / hyper["bc2"]) + cfg.eps) \
+        + cfg.weight_decay * p32
+    p.copy_((p32 - hyper["lr"] * upd).to(p.dtype))

@@ -92,11 +92,13 @@ def run_resilient(
     start_step: int = 0,
     failure_hook: Optional[Callable[[int], None]] = None,
     straggler_hook: Optional[Callable[[int, float], None]] = None,
+    state_shardings: Optional[PyTree] = None,
     device: DeviceLike = None,
 ) -> tuple:
     """Drive ``step_fn`` for ``n_steps`` with checkpoint / restore.  Returns
-    ``(final_state, RunReport)``.  A restore puts the state on ``device``,
-    or on each leaf's own device."""
+    ``(final_state, RunReport)``.  A restore places the state by
+    ``state_shardings`` (a mesh's ``NamedSharding`` tree), or puts it on
+    ``device``, or on each leaf's own device."""
     report = RunReport()
     step = start_step
 
@@ -133,7 +135,8 @@ def run_resilient(
             if report.restores >= cfg.max_restores:
                 raise
             report.restores += 1
-            state, step = checkpoint.restore(cfg.ckpt_dir, state, device=device)
+            state, step = checkpoint.restore(cfg.ckpt_dir, state, device=device,
+                                             shardings=state_shardings)
     checkpoint.save(cfg.ckpt_dir, step, state, cfg.keep_last)
     return state, report
 

@@ -1,23 +1,50 @@
 """Train-step factory: loss -> microbatched grads -> AdamW -> metrics.
 
-Twin of ``repro/training/train_loop.py`` on one device.  ``make_train_step``
-packages the reference's step: ``microbatch.accumulated_grads``, then
+Twin of ``repro/training/train_loop.py``.  ``make_train_step`` packages
+the reference's step on one device: ``microbatch.accumulated_grads``, then
 ``optim.apply_updates`` (in place, the counterpart of the reference's
 donated state), with the mean loss added to the metrics.  The step runs
-eagerly on the device of the parameters.  ``TrainStepConfig`` keeps the
-reference's fields; ``zero1`` and ``donate`` are read by the mesh
-functions (``state_shardings``, ``jit_train_step``, ``batch_shardings``),
-which wait for the port's distribution layer.
+eagerly on the device of the parameters.
+
+The mesh half resolves shardings from the logical rule table
+(``distribution/sharding.py``): ``state_shardings`` (optionally ZeRO-1:
+the moments sharded over 'data' on top of the parameter sharding) and
+``batch_shardings``, as ``NamedSharding`` trees whose specs equal the
+reference's.  There is no jit: ``jit_train_step`` returns a step over a
+process-group mesh whose state is DTensors in those placements.  Each
+step:
+
+  1. gathers every parameter whole (leaves placed on 'model' too: FSDP
+     style; tensor-parallel products are a later item);
+  2. takes this rank's rows of every microbatch (the batch dim split over
+     its sharding's axes, each microbatch split as GSPMD splits it) and
+     runs ``accumulated_grads`` on them; the loss must return this rank's
+     share of the global loss (``transformer.loss_fn`` with the mesh
+     normalises by the token count summed over the data ranks);
+  3. all-reduces the loss and grads over the data axes, leaf by leaf in
+     the tree's order;
+  4. clips by the global norm and updates this rank's ZeRO-1 block of
+     ``m``, ``v`` and the parameters (``optim.adamw_leaf``, elementwise);
+  5. all-gathers the updated blocks over 'data' back to each parameter's
+     placement, in place.
+
+At world size 1 every collective adds nothing, and the step gives
+``make_train_step``'s bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.distribution.sharding import (
+    NamedSharding, P, PartitionSpec, RuleSet, map_logical,
+)
+from repro_torch.launch.mesh import Mesh, data_axes
 from repro_torch.training import microbatch, optim
+from repro_torch.training import tree as tree_lib
 
 PyTree = Any
 
@@ -50,4 +77,178 @@ def make_train_step(
         metrics["loss"] = loss
         return (new_params, new_opt), metrics
 
+    # read by jit_train_step, which runs the same step over a mesh
+    train_step.loss_fn, train_step.config = loss_fn, cfg
     return train_step
+
+
+def _zero1_spec(spec: PartitionSpec, mesh: Mesh, shape=None) -> PartitionSpec:
+    """Add 'data' sharding to the largest unsharded *divisible* dim (the
+    first such dim without ``shape``); unchanged when 'data' is used or no
+    dim qualifies."""
+    parts = list(spec)
+    used = set()
+    for p in parts:
+        if p is None:
+            continue
+        for a in (p if isinstance(p, tuple) else (p,)):
+            used.add(a)
+    if "data" in used or not parts:
+        return spec
+    n_data = mesh.shape.get("data", 1)
+    candidates = [
+        i for i, p in enumerate(parts)
+        if p is None
+        and (shape is None or (len(shape) > i and shape[i] % n_data == 0))
+    ]
+    if not candidates:
+        return spec
+    if shape is not None:
+        i = max(candidates, key=lambda j: shape[j])
+    else:
+        i = candidates[0]
+    parts[i] = "data"
+    return P(*parts)
+
+
+def state_shardings(
+    param_logical: PyTree,
+    rules: RuleSet,
+    mesh: Mesh,
+    zero1: bool = False,
+    params_abs: Optional[PyTree] = None,
+) -> Tuple[PyTree, optim.OptState]:
+    """(param shardings, OptState shardings) from logical axes.
+
+    Pass ``params_abs`` (leaves with ``.shape``: tensors, meta tensors) so
+    ZeRO-1 only shards divisible dims."""
+    # walked along the logical tree (a spec is a tuple too)
+    param_sh = map_logical(lambda names: NamedSharding(mesh, rules.spec(names, mesh)),
+                           param_logical)
+    if not zero1:
+        opt_sh = param_sh
+    elif params_abs is not None:
+        opt_sh = map_logical(lambda names, s, p: NamedSharding(
+            mesh, _zero1_spec(s.spec, mesh, tuple(p.shape))), param_logical, param_sh,
+            params_abs)
+    else:
+        opt_sh = map_logical(lambda names, s: NamedSharding(mesh, _zero1_spec(s.spec, mesh)),
+                             param_logical, param_sh)
+    return param_sh, optim.OptState(m=opt_sh, v=opt_sh, step=NamedSharding(mesh, P()))
+
+
+def batch_shardings(batch_logical: PyTree, rules: RuleSet, mesh: Mesh):
+    return map_logical(lambda names: NamedSharding(mesh, rules.spec(names, mesh)),
+                       batch_logical)
+
+
+def place(tree: PyTree, shardings: PyTree) -> PyTree:
+    """``tree``'s whole tensors (the same on every rank) as DTensors in
+    ``shardings``' placements: each rank keeps its block, refused where a
+    dim does not divide."""
+    names, leaves = tree_lib.flatten_with_names(tree)
+    sh = tree_lib.leaves(shardings)
+    if len(sh) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves but {len(sh)} shardings")
+    return tree_lib.unflatten(tree, [s.distribute(x, n) for n, x, s in zip(names, leaves, sh)])
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def gather_state(tree: PyTree) -> PyTree:
+    """Every leaf whole (a collective over the placements' ranks)."""
+    return tree_lib.tree_map(_full, tree)
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _rank_rows(x: torch.Tensor, sharding: NamedSharding, n_micro: int,
+               name: str) -> torch.Tensor:
+    """This rank's rows of every microbatch of ``x``: microbatch ``i`` is
+    rows ``[i * bm, (i + 1) * bm)``, split over the batch dim's axes."""
+    if any(p is not None for p in sharding.spec[1:]):
+        raise ValueError(f"batch leaf {name}: only the batch dim may be sharded "
+                         f"({sharding.spec})")
+    n = sharding.shards(0)
+    if n == 1:
+        return x
+    bm = x.shape[0] // n_micro
+    if x.shape[0] % n_micro or bm % n:
+        raise ValueError(f"batch leaf {name}: {x.shape[0]} rows do not split into "
+                         f"{n_micro} microbatches over {n} data shards")
+    rows = sharding.block((bm,) + tuple(x.shape[1:]))[0]
+    return torch.cat([x[i * bm:(i + 1) * bm][rows] for i in range(n_micro)])
+
+
+def jit_train_step(
+    train_step: Callable,
+    param_sharding: PyTree,
+    opt_sharding: optim.OptState,
+    batch_sharding: PyTree,
+    donate: bool = True,
+):
+    """``train_step`` (from ``make_train_step``) over the process-group
+    mesh of the shardings: ``step((params, opt_state), batch) -> (state',
+    metrics)``, the state DTensors in ``param_sharding`` / ``opt_sharding``
+    (``place`` puts a whole state there), ``batch`` the whole global batch
+    on every rank (see the module docstring).  ``donate`` updates the
+    given state in place; without it the step updates a copy."""
+    loss_fn, cfg = train_step.loss_fn, train_step.config
+    mesh = tree_lib.leaves(param_sharding)[0].mesh
+    if mesh.kind != "process_group":
+        raise ValueError("jit_train_step runs over a process-group mesh")
+    d_axes = data_axes(mesh)
+    reduce = mesh.fabric(d_axes) if d_axes else None
+    zero = mesh.fabric("data") if "data" in mesh.axis_names else None
+    p_specs = [s.spec for s in tree_lib.leaves(param_sharding)]
+    o_sh = tree_lib.leaves(opt_sharding.m)
+
+    def all_reduce(x: torch.Tensor) -> torch.Tensor:
+        return x if reduce is None else reduce.psum(x[None])
+
+    def step(state, batch):
+        if not donate:
+            state = tree_lib.tree_map(lambda x: x.clone(), state)
+        params, opt = state
+        full = gather_state(params)
+        b_names, b_leaves = tree_lib.flatten_with_names(batch)
+        local = tree_lib.unflatten(batch, [
+            _rank_rows(x, s, cfg.n_micro, n) for n, x, s in
+            zip(b_names, b_leaves, tree_lib.leaves(batch_sharding))])
+        loss, grads = microbatch.accumulated_grads(loss_fn, full, local, cfg.n_micro)
+        with torch.no_grad():
+            loss = all_reduce(loss.reshape(1))[0] if reduce is not None else loss
+            grads = tree_lib.tree_map(all_reduce, grads)
+            grads, hyper = optim.prepare_step(grads, _local(opt.step), cfg.adamw)
+            for p, pf, m, v, g, pspec, osh in zip(
+                    tree_lib.leaves(params), tree_lib.leaves(full),
+                    tree_lib.leaves(opt.m), tree_lib.leaves(opt.v),
+                    tree_lib.leaves(grads), p_specs, o_sh):
+                blk = osh.block(pf.shape)
+                region = pf[blk]
+                optim.adamw_leaf(region, _local(m), _local(v), g[blk], hyper, cfg.adamw)
+                _write_back(p, region, pspec, osh.spec, zero)
+        metrics = {"grad_norm": hyper["grad_norm"], "lr": hyper["lr"], "loss": loss}
+        return (params, opt), metrics
+
+    return step
+
+
+def _write_back(p, region: torch.Tensor, pspec, ospec, zero) -> None:
+    """The updated ZeRO-1 block into the parameter's own block: as is, or
+    all-gathered over 'data' along the dim ZeRO-1 split."""
+    dims = [i for i, (a, b) in enumerate(zip(pspec, ospec)) if a != b]
+    if dims:
+        parts = zero.all_gather(region[None].contiguous())
+        region = torch.cat(list(parts.unbind(0)), dim=dims[0])
+    local = _local(p)
+    if local.data_ptr() != region.data_ptr():   # (a one-rank gather may alias)
+        local.copy_(region)

@@ -35,22 +35,25 @@ def _is_container(node) -> bool:
     return isinstance(node, (dict, list, tuple))
 
 
+def _flatten(node, path: List[str], names: List[str], leaves: List[Any]) -> None:
+    if node is None:
+        return
+    if _is_container(node):
+        for entry, _, child in _children(node):
+            _flatten(child, path + [entry], names, leaves)
+        return
+    names.append("/".join(path))
+    leaves.append(node)
+
+
 def flatten_with_names(tree: PyTree) -> Tuple[List[str], List[Any]]:
     """``(names, leaves)`` in jax's leaf order."""
+    # module-level recursion: a nested recursive function would hold its
+    # own cell and the leaf list in a reference cycle, keeping the leaves
+    # (device memory) alive until the cyclic collector runs
     names: List[str] = []
     leaves: List[Any] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        if _is_container(node):
-            for entry, _, child in _children(node):
-                walk(child, path + [entry])
-            return
-        names.append("/".join(path))
-        leaves.append(node)
-
-    walk(tree, [])
+    _flatten(tree, [], names, leaves)
     return names, leaves
 
 
@@ -80,19 +83,19 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     return fn(tree, *rest)
 
 
+def _unflatten(node, it):
+    if node is None:
+        return None
+    if not _is_container(node):
+        return next(it)
+    return _rebuild(node, [(k, _unflatten(c, it)) for _, k, c in _children(node)])
+
+
 def unflatten(like: PyTree, new_leaves: List[Any]) -> PyTree:
     """A tree of ``like``'s structure holding ``new_leaves`` in jax's leaf
     order (the order of ``flatten_with_names(like)``)."""
     it = iter(new_leaves)
-
-    def walk(node):
-        if node is None:
-            return None
-        if not _is_container(node):
-            return next(it)
-        return _rebuild(node, [(k, walk(c)) for _, k, c in _children(node)])
-
-    out = walk(like)
+    out = _unflatten(like, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree holds")
     return out

@@ -69,7 +69,11 @@ steps give the CPU port's state within 2e-6 times max(1, the CPU's
 largest magnitude) and the same bits on a second card run;
 ``rowwise_adagrad_update`` likewise; ``embedding.gather_rows``' backward
 on hot ids is the same bits twice and within the float32 summation bound
-of the float64 sums.
+of the float64 sums.  The distribution layer: expert-parallel decode on a
+local (1, 4) and (2, 2) mesh on the card gives the unsharded greedy
+tokens (the attention kernel launched) and the CPU mesh run's hidden
+states within the same bound; ``compressed_psum`` over four local shards
+gives the CPU port's reduced values and residuals bit for bit.
 """
 
 import dataclasses
@@ -1595,3 +1599,63 @@ def test_gather_rows_backward_is_the_same_bits_on_card(cuda_device):
     n = torch.bincount(ids, minlength=50).double()[:, None]
     bound = (n - 1).clamp(min=0) * 2.0 ** -24 * mags
     assert bool(((outs[0].cpu().double() - exact).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("name", ["granite_moe_3b_a800m", "deepseek_moe_16b"])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_ep_decode_on_card_equals_unsharded(cuda_device, name, shape):
+    """Expert-parallel decode (``ep_shard_map``, a local mesh on the card)
+    at SMOKE in float32, the attention kernel launched: on (1, 4) the
+    greedy tokens of the unsharded path (one data shard routes and drops
+    as the unsharded layer does); on (2, 2) each data shard has its own
+    capacity, as in the reference, so the tokens are the CPU's (2, 2)
+    run's; the mesh's hidden states within 2e-6 times max(1, magnitude)
+    of the CPU's mesh run."""
+    import importlib
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    cfg = dataclasses.replace(mod.SMOKE, cache_dtype=torch.float32,
+                              moe=dataclasses.replace(mod.SMOKE.moe, ep_shard_map=True))
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    card = _to(host, cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32)).to(cuda_device)
+    mesh = mesh_lib.local_mesh(shape, device=cuda_device)
+    if shape[0] == 1:
+        want = decode.generate(card, toks, cfg, max_new_tokens=6)
+    else:
+        want = decode.generate(host, toks.cpu(), cfg, max_new_tokens=6,
+                               mesh=mesh_lib.local_mesh(shape, device="cpu"))
+    _build.reset_launches()
+    got = decode.generate(card, toks, cfg, max_new_tokens=6, mesh=mesh)
+    torch.cuda.synchronize()
+    assert _build.launches["decode_attention"] > 0
+    assert torch.equal(got.cpu(), want.cpu())
+    h_gpu, aux_gpu = transformer.forward(card, toks, cfg, mesh=mesh)
+    h_cpu, aux_cpu = transformer.forward(host, toks.cpu(), cfg,
+                                         mesh=mesh_lib.local_mesh(shape, device="cpu"))
+    _within(h_gpu, h_cpu, "hidden")
+    _within(aux_gpu, aux_cpu, "aux")
+
+
+def test_compressed_psum_on_card_equals_cpu(cuda_device):
+    """``compressed_psum`` over ``LocalFabric(4)`` on the card: the
+    reduced values and residuals of the CPU port bit for bit (true float32
+    divisions, the residual one rounding of a float64 difference)."""
+    from repro_torch.training import compression
+
+    gen = torch.Generator().manual_seed(3)
+    grads = {"a": torch.randn((4, 1000), generator=gen) * 3,
+             "b": torch.randn((4, 64, 33), generator=gen) * 1e-3,
+             "c": torch.zeros((4, 7))}
+    resid = {k: torch.randn(v.shape, generator=gen) * 1e-4 for k, v in grads.items()}
+    red_c, res_c = compression.compressed_psum(
+        grads, resid, distributed.LocalFabric(4, device="cpu"))
+    red_g, res_g = compression.compressed_psum(
+        _to(grads, cuda_device), _to(resid, cuda_device),
+        distributed.LocalFabric(4, device=cuda_device))
+    for k in grads:
+        assert torch.equal(red_g[k].cpu(), red_c[k]), k
+        assert torch.equal(res_g[k].cpu(), res_c[k]), k

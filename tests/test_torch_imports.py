@@ -60,7 +60,8 @@ def test_port_files_exist():
                  "training/optim.py", "training/microbatch.py",
                  "training/train_loop.py", "training/checkpoint.py",
                  "training/resilience.py", "training/compression.py",
-                 "training/tree.py", "data/pipeline.py"):
+                 "training/tree.py", "data/pipeline.py", "launch/mesh.py",
+                 "distribution/sharding.py"):
         assert twin in names
     for src in ("walk_steps_fused.cu", "visit_counter.cu", "embedding_bag.cu",
                 "walk_hop.cu", "decode_attention.cu", "walk_step.cu",
@@ -105,6 +106,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.training.train_loop, repro_torch.training.checkpoint\n"
         "import repro_torch.training.resilience, repro_torch.training.compression\n"
         "import repro_torch.training.tree, repro_torch.data.pipeline\n"
+        "import repro_torch.launch.mesh, repro_torch.distribution.sharding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -133,6 +135,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distributed.LocalFabric(2)
+    from repro_torch.launch import mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.local_mesh((1, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_host_mesh()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
