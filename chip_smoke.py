@@ -4515,7 +4515,7 @@ def zero1_phase(dev, cfg, kept: list, batch: int, seq: int = TRAIN_SEQ,
                                              mesh=mesh),
             train_loop.TrainStepConfig(adamw=optim.AdamWConfig(), n_micro=n_micro)),
             psh, osh, bsh)
-        state = train_loop.place((params, optim.init(params)), (psh, osh))
+        state = sharding.place((params, optim.init(params)), (psh, osh))
         del params
         pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=SEED)
         step_s, losses = [], []
@@ -4525,7 +4525,7 @@ def zero1_phase(dev, cfg, kept: list, batch: int, seq: int = TRAIN_SEQ,
                                     for k, v in pipe(i).items()})
             losses.append(float(m["loss"]))
             step_s.append(time.perf_counter() - t)
-        full = train_loop.gather_state(state)
+        full = sharding.gather_state(state)
         if not same_bits(full, kept):
             raise AssertionError("zero1: the one-rank mesh steps differ from phase 33's bits")
         out = dict(backend=backend, world_size=1, mesh=[1, 1], rules="LM_TRAIN_RULES",

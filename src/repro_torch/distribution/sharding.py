@@ -23,9 +23,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 from repro_torch.launch.mesh import Mesh
+from repro_torch.training import tree as tree_lib
 
 Axes = Union[None, str, Tuple[str, ...]]
 
@@ -261,3 +262,26 @@ PIXIE_RULES = RuleSet({
 def param_shardings(logical_tree, rules: RuleSet, mesh: Mesh):
     """Tree of ``NamedSharding`` from a tree of logical-name tuples."""
     return map_logical(lambda names: rules.sharding(names, mesh), logical_tree)
+
+
+def place(tree: Any, shardings: Any) -> Any:
+    """``tree``'s whole tensors (the same on every rank) as DTensors in
+    ``shardings``' placements (a tree of ``NamedSharding`` matching
+    ``tree``): each rank keeps its block, refused where a dim does not
+    divide."""
+    names, leaves = tree_lib.flatten_with_names(tree)
+    sh = tree_lib.leaves(shardings)
+    if len(sh) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves but {len(sh)} shardings")
+    return tree_lib.unflatten(tree, [s.distribute(x, n) for n, x, s in zip(names, leaves, sh)])
+
+
+def _full(x):
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def gather_state(tree: Any) -> Any:
+    """Every leaf whole (a collective over the placements' ranks)."""
+    return tree_lib.tree_map(_full, tree)

@@ -183,6 +183,30 @@ def token_order(order: torch.Tensor, t: int, k: int) -> torch.Tensor:
     return torch.sort(rank.reshape(t, k), dim=1).values
 
 
+def expert_contrib(x: torch.Tensor, st: torch.Tensor, dest: torch.Tensor,
+                   keep: torch.Tensor, sg: torch.Tensor, w: Dict[str, torch.Tensor],
+                   cap: int) -> torch.Tensor:
+    """The experts' half of the FFN over the assignments in sorted order:
+    token ``st``, buffer row ``dest``, kept or not, gate ``sg``.  The
+    ``(n_e * cap + 1, d)`` buffer is built by adding each kept token row at
+    its ``dest`` (each kept row's dest is its own, so each takes one add;
+    the drop slot, the last row, takes every dropped row and is cut off),
+    the ``n_e`` experts of ``w`` run as three batched products, and each
+    assignment's output row is read back times its gate (zero where
+    dropped).  Returns ``(t * k, d)`` contributions."""
+    d, cd = x.shape[1], x.dtype
+    n_e = w["w_gate"].shape[0]
+    buf = torch.zeros((n_e * cap + 1, d), dtype=cd, device=x.device)
+    buf.index_add_(0, dest, gather_rows(x, st) * keep[:, None].to(cd))
+    buf = buf[:-1].reshape(n_e, cap, d)
+    g = expert_matmul(buf, w["w_gate"].to(cd))
+    u = expert_matmul(buf, w["w_up"].to(cd))
+    h = layers.swiglu(g, u).to(cd)
+    y = expert_matmul(h, w["w_down"].to(cd)).to(cd)       # (n_e, cap, d)
+    y_flat = torch.cat([y.reshape(n_e * cap, d), y.new_zeros((1, d))])
+    return gather_rows(y_flat, dest) * (sg * keep.float())[:, None].to(cd)
+
+
 def moe_ffn(
     x: torch.Tensor,                 # (t, d) flattened tokens
     params: Dict[str, torch.Tensor],
@@ -190,8 +214,7 @@ def moe_ffn(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (t, d), aux_loss scalar)."""
     t, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    e_pad = cfg.n_experts_padded
+    k = cfg.top_k
     cd = x.dtype
     dev = x.device
 
@@ -199,25 +222,12 @@ def moe_ffn(
     probs, gate, sel = route(x, params["router"], cfg)
     aux = load_balance_aux(probs, sel, cfg)
 
-    # ---- sort-based dispatch ------------------------------------------------
+    # ---- sort-based dispatch, batched expert FFN ----------------------------
     order, dest, keep, cap = dispatch(sel, t, cfg)
-    st = order // k                                    # token of each assignment
-    sg = gate.reshape(-1)[order]
-    # each kept row's dest is its own, so each takes one add; the drop
-    # slot takes every dropped row and is cut off
-    buf = torch.zeros((e_pad * cap + 1, d), dtype=cd, device=dev)
-    buf.index_add_(0, dest, gather_rows(x, st) * keep[:, None].to(cd))
-    buf = buf[:-1].reshape(e_pad, cap, d)
-
-    # ---- batched expert FFN -------------------------------------------------
-    g = expert_matmul(buf, params["w_gate"].to(cd))
-    u = expert_matmul(buf, params["w_up"].to(cd))
-    h = layers.swiglu(g, u).to(cd)
-    y = expert_matmul(h, params["w_down"].to(cd)).to(cd)   # (e_pad, cap, d)
+    contrib = expert_contrib(x, order // k, dest, keep, gate.reshape(-1)[order],
+                             params, cap)
 
     # ---- combine ------------------------------------------------------------
-    y_flat = torch.cat([y.reshape(e_pad * cap, d), y.new_zeros((1, d))])
-    contrib = gather_rows(y_flat, dest) * (sg * keep.float())[:, None].to(cd)
     rank = token_order(order, t, k)
     out = torch.zeros((t, d), dtype=cd, device=dev)
     for j in range(k):
@@ -283,19 +293,9 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
     # on a local mesh, where the local shards are all of them)
     block = e_loc * cap
     dest = torch.where(kept, dest_g + (sidx - owner) * block, s_l * block)
-    buf = torch.zeros((s_l * block + 1, d), dtype=cd, device=dev)
-    buf.index_add_(0, dest, gather_rows(x, st) * kept[:, None].to(cd))
-    buf = buf[:-1].reshape(s_l * e_loc, cap, d)
-
-    w = {n: _expert_slice(params[n], shard_ids, e_loc).to(cd)
+    w = {n: _expert_slice(params[n], shard_ids, e_loc)
          for n in ("w_gate", "w_up", "w_down")}
-    g = expert_matmul(buf, w["w_gate"])
-    u = expert_matmul(buf, w["w_up"])
-    h = layers.swiglu(g, u).to(cd)
-    y = expert_matmul(h, w["w_down"]).to(cd)                  # (S_l * e_loc, cap, d)
-
-    y_flat = torch.cat([y.reshape(s_l * block, d), y.new_zeros((1, d))])
-    contrib = gather_rows(y_flat, dest) * (sg * kept.float())[:, None].to(cd)
+    contrib = expert_contrib(x, st, dest, kept, sg, w, cap)
     # another shard's assignment: its drop slot's zero row times (gate * 0)
     other = ((sg * 0.0)[:, None].to(cd) * torch.zeros((), dtype=cd, device=dev))
     own = torch.where(mine, sidx, -1)

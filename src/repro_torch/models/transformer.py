@@ -56,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import data_axes
 from repro_torch.models import layers
 from repro_torch.models.embedding import take_rows
 from repro_torch.models.moe import (
@@ -421,6 +422,14 @@ def _ffn(p, x: torch.Tensor, cfg: LMConfig, mesh=None) -> Tuple[torch.Tensor, to
                 us = flat @ p["moe"]["shared_up"].to(cd)
                 out = out + layers.swiglu(gs, us) @ p["moe"]["shared_down"].to(cd)
         else:
+            if (mesh is not None and mesh.kind == "process_group"
+                    and mesh.axis_size(data_axes(mesh)) > 1):
+                # moe_ffn on a rank's rows would cap and average over them,
+                # where the reference routes over the global batch
+                raise NotImplementedError(
+                    "a MoE block without ep_shard_map over a process group with "
+                    "several data ranks: routing over the global batch is not "
+                    "ported (see ROADMAP.md, Queue 1)")
             out, aux = moe_ffn(flat, p["moe"], cfg.moe)
         return x + out.reshape(b, s, d), aux
     g = h @ p["w_gate"].to(cd)
@@ -498,7 +507,7 @@ def loss_fn(
     head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
     count = None
     if mesh is not None and mesh.kind == "process_group":
-        d_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        d_axes = data_axes(mesh)
         n_data = mesh.axis_size(d_axes)
         if d_axes:
             count = mesh.fabric(d_axes).psum(mask.float().sum()[None])

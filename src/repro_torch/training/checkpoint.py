@@ -19,11 +19,11 @@ is stored as its 16 bits (an int16 array) and its name listed under
 ``meta.json``'s ``"bfloat16"``; the port reads it back bit for bit (the
 reference would read the integers).
 
-Meshes: a DTensor leaf (``train_loop.place``) is saved whole, gathered
-over its ranks (every rank calls ``save``; the process of global rank 0
-writes, and the others return at once: synchronise before another
-process reads it), so a checkpoint does not depend on the mesh it came
-from.
+Meshes: a DTensor leaf (``sharding.place``) is saved whole, gathered
+over its ranks, so a checkpoint does not depend on the mesh it came from.
+Under a started process group every rank calls ``save``: the process of
+global rank 0 writes, and every rank returns after a barrier, once the
+step and ``LATEST`` are in place, so any rank may restore it next.
 ``restore(..., shardings=)`` places the restored leaves on another mesh,
 each rank keeping its block (the reference's elastic restart);
 ``device=`` is the one-device form.
@@ -38,8 +38,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike
+from repro_torch.distribution import sharding
 from repro_torch.training import tree as tree_lib
 
 PyTree = Any
@@ -61,8 +63,17 @@ def save(ckpt_dir: str, step: int, tree: PyTree, keep_last: int = 3) -> str:
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     names, leaves = tree_lib.flatten_with_names(tree)
     arrays = {f"a{i}": _host(leaf) for i, leaf in enumerate(leaves)}
-    if not _writer():
-        return final
+    started = dist.is_available() and dist.is_initialized()
+    try:
+        if not started or dist.get_rank() == 0:
+            _write(ckpt_dir, final, step, names, leaves, arrays, keep_last)
+    finally:
+        if started:
+            dist.barrier()
+    return final
+
+
+def _write(ckpt_dir, final, step, names, leaves, arrays, keep_last) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -87,14 +98,6 @@ def save(ckpt_dir: str, step: int, tree: PyTree, keep_last: int = 3) -> str:
     os.replace(latest_tmp, os.path.join(ckpt_dir, "LATEST"))
 
     _gc(ckpt_dir, keep_last)
-    return final
-
-
-def _writer() -> bool:
-    """One process writes: global rank 0 of a started process group."""
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
 
 
 def _gc(ckpt_dir: str, keep_last: int) -> None:
@@ -162,7 +165,5 @@ def restore(
             restored.append(t.to(device=dev, dtype=leaf.dtype))
     tree = tree_lib.unflatten(like, restored)
     if shardings is not None:
-        from repro_torch.training.train_loop import place
-
-        tree = place(tree, shardings)
+        tree = sharding.place(tree, shardings)
     return tree, step

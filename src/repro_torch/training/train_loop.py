@@ -1,18 +1,19 @@
 """Train-step factory: loss -> microbatched grads -> AdamW -> metrics.
 
 Twin of ``repro/training/train_loop.py``.  ``make_train_step`` packages
-the reference's step on one device: ``microbatch.accumulated_grads``, then
-``optim.apply_updates`` (in place, the counterpart of the reference's
-donated state), with the mean loss added to the metrics.  The step runs
-eagerly on the device of the parameters.
+the reference's step on one device (``TrainStep``):
+``microbatch.accumulated_grads``, then AdamW (``optim.prepare_step`` and
+``optim.adamw_leaf`` on each leaf, in place, the counterpart of the
+reference's donated state), with the mean loss added to the metrics.  The
+step runs eagerly on the device of the parameters.
 
 The mesh half resolves shardings from the logical rule table
 (``distribution/sharding.py``): ``state_shardings`` (optionally ZeRO-1:
 the moments sharded over 'data' on top of the parameter sharding) and
 ``batch_shardings``, as ``NamedSharding`` trees whose specs equal the
 reference's.  There is no jit: ``jit_train_step`` returns a step over a
-process-group mesh whose state is DTensors in those placements.  Each
-step:
+process-group mesh whose state is DTensors in those placements, through
+the same step body (``TrainStep.run``).  Each step:
 
   1. gathers every parameter whole (leaves placed on 'model' too: FSDP
      style; tensor-parallel products are a later item);
@@ -40,7 +41,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.distribution.sharding import (
-    NamedSharding, P, PartitionSpec, RuleSet, map_logical,
+    NamedSharding, P, PartitionSpec, RuleSet, gather_state, map_logical,
 )
 from repro_torch.launch.mesh import Mesh, data_axes
 from repro_torch.training import microbatch, optim
@@ -57,29 +58,54 @@ class TrainStepConfig:
     donate: bool = True
 
 
+class TrainStep:
+    """``make_train_step``'s step: ``step((params, opt_state), batch) ->
+    (state', metrics)`` on one device.  ``jit_train_step`` runs the same
+    body (``run``) over a mesh with its own reduction and leaf update."""
+
+    def __init__(self, loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
+                 config: TrainStepConfig):
+        self.loss_fn, self.config = loss_fn, config
+
+    def __call__(self, state, batch):
+        params, opt_state = state
+        p, m, v = (tree_lib.leaves(t) for t in (params, opt_state.m, opt_state.v))
+
+        def update(i, g, hyper):
+            optim.adamw_leaf(p[i], m[i], v[i], g, hyper, self.config.adamw)
+
+        return (params, opt_state), self.run(params, batch, opt_state.step, update)
+
+    def run(self, params: PyTree, batch: PyTree, step: torch.Tensor,
+            update: Callable, reduce: Optional[Callable] = None):
+        """The step body: the mean loss and grads of ``loss_fn`` at
+        ``params`` over ``batch``'s microbatches; ``reduce`` (a sum over
+        the data ranks) on the loss, then on each grad in the tree's
+        order; the grads clipped and ``step`` counted
+        (``optim.prepare_step``); then ``update(i, grad, hyper)`` for each
+        leaf ``i``.  Returns ``{"grad_norm", "lr", "loss"}``."""
+        cfg = self.config
+        loss, grads = microbatch.accumulated_grads(self.loss_fn, params, batch,
+                                                   cfg.n_micro)
+        with torch.no_grad():
+            if reduce is not None:
+                loss = reduce(loss)
+                grads = tree_lib.tree_map(reduce, grads)
+            grads, hyper = optim.prepare_step(grads, step, cfg.adamw)
+            for i, g in enumerate(tree_lib.leaves(grads)):
+                update(i, g, hyper)
+        return {"grad_norm": hyper["grad_norm"], "lr": hyper["lr"], "loss": loss}
+
+
 def make_train_step(
     loss_fn: Callable[[PyTree, PyTree], torch.Tensor],
     cfg: TrainStepConfig,
-) -> Callable:
+) -> TrainStep:
     """Returns ``train_step((params, opt_state), batch) -> (state',
     metrics)``; ``state'`` holds the same tensors, updated in place, and
     ``metrics`` is ``{"grad_norm", "lr", "loss"}`` as 0-d tensors on the
     device (reading one synchronises)."""
-
-    def train_step(state, batch):
-        params, opt_state = state
-        loss, grads = microbatch.accumulated_grads(
-            loss_fn, params, batch, cfg.n_micro
-        )
-        new_params, new_opt, metrics = optim.apply_updates(
-            params, grads, opt_state, cfg.adamw
-        )
-        metrics["loss"] = loss
-        return (new_params, new_opt), metrics
-
-    # read by jit_train_step, which runs the same step over a mesh
-    train_step.loss_fn, train_step.config = loss_fn, cfg
-    return train_step
+    return TrainStep(loss_fn, cfg)
 
 
 def _zero1_spec(spec: PartitionSpec, mesh: Mesh, shape=None) -> PartitionSpec:
@@ -142,28 +168,6 @@ def batch_shardings(batch_logical: PyTree, rules: RuleSet, mesh: Mesh):
                        batch_logical)
 
 
-def place(tree: PyTree, shardings: PyTree) -> PyTree:
-    """``tree``'s whole tensors (the same on every rank) as DTensors in
-    ``shardings``' placements: each rank keeps its block, refused where a
-    dim does not divide."""
-    names, leaves = tree_lib.flatten_with_names(tree)
-    sh = tree_lib.leaves(shardings)
-    if len(sh) != len(leaves):
-        raise ValueError(f"{len(leaves)} leaves but {len(sh)} shardings")
-    return tree_lib.unflatten(tree, [s.distribute(x, n) for n, x, s in zip(names, leaves, sh)])
-
-
-def _full(x: torch.Tensor) -> torch.Tensor:
-    from torch.distributed.tensor import DTensor
-
-    return x.full_tensor() if isinstance(x, DTensor) else x
-
-
-def gather_state(tree: PyTree) -> PyTree:
-    """Every leaf whole (a collective over the placements' ranks)."""
-    return tree_lib.tree_map(_full, tree)
-
-
 def _local(x: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
@@ -189,7 +193,7 @@ def _rank_rows(x: torch.Tensor, sharding: NamedSharding, n_micro: int,
 
 
 def jit_train_step(
-    train_step: Callable,
+    train_step: TrainStep,
     param_sharding: PyTree,
     opt_sharding: optim.OptState,
     batch_sharding: PyTree,
@@ -198,10 +202,14 @@ def jit_train_step(
     """``train_step`` (from ``make_train_step``) over the process-group
     mesh of the shardings: ``step((params, opt_state), batch) -> (state',
     metrics)``, the state DTensors in ``param_sharding`` / ``opt_sharding``
-    (``place`` puts a whole state there), ``batch`` the whole global batch
-    on every rank (see the module docstring).  ``donate`` updates the
-    given state in place; without it the step updates a copy."""
-    loss_fn, cfg = train_step.loss_fn, train_step.config
+    (``sharding.place`` puts a whole state there), ``batch`` the whole
+    global batch on every rank (see the module docstring).  ``donate``
+    updates the given state in place; without it the step updates a
+    copy."""
+    if not isinstance(train_step, TrainStep):
+        raise TypeError("jit_train_step runs a step made by make_train_step, got "
+                        f"{type(train_step).__name__}")
+    cfg = train_step.config
     mesh = tree_lib.leaves(param_sharding)[0].mesh
     if mesh.kind != "process_group":
         raise ValueError("jit_train_step runs over a process-group mesh")
@@ -212,7 +220,7 @@ def jit_train_step(
     o_sh = tree_lib.leaves(opt_sharding.m)
 
     def all_reduce(x: torch.Tensor) -> torch.Tensor:
-        return x if reduce is None else reduce.psum(x[None])
+        return reduce.psum(x.reshape(1, *(x.shape or (1,)))).reshape(x.shape)
 
     def step(state, batch):
         if not donate:
@@ -223,20 +231,17 @@ def jit_train_step(
         local = tree_lib.unflatten(batch, [
             _rank_rows(x, s, cfg.n_micro, n) for n, x, s in
             zip(b_names, b_leaves, tree_lib.leaves(batch_sharding))])
-        loss, grads = microbatch.accumulated_grads(loss_fn, full, local, cfg.n_micro)
-        with torch.no_grad():
-            loss = all_reduce(loss.reshape(1))[0] if reduce is not None else loss
-            grads = tree_lib.tree_map(all_reduce, grads)
-            grads, hyper = optim.prepare_step(grads, _local(opt.step), cfg.adamw)
-            for p, pf, m, v, g, pspec, osh in zip(
-                    tree_lib.leaves(params), tree_lib.leaves(full),
-                    tree_lib.leaves(opt.m), tree_lib.leaves(opt.v),
-                    tree_lib.leaves(grads), p_specs, o_sh):
-                blk = osh.block(pf.shape)
-                region = pf[blk]
-                optim.adamw_leaf(region, _local(m), _local(v), g[blk], hyper, cfg.adamw)
-                _write_back(p, region, pspec, osh.spec, zero)
-        metrics = {"grad_norm": hyper["grad_norm"], "lr": hyper["lr"], "loss": loss}
+        p, pf, m, v = (tree_lib.leaves(t) for t in (params, full, opt.m, opt.v))
+
+        def update(i, g, hyper):
+            # this rank's ZeRO-1 block of the leaf, then back to its placement
+            blk = o_sh[i].block(pf[i].shape)
+            region = pf[i][blk]
+            optim.adamw_leaf(region, _local(m[i]), _local(v[i]), g[blk], hyper, cfg.adamw)
+            _write_back(p[i], region, p_specs[i], o_sh[i].spec, zero)
+
+        metrics = train_step.run(full, local, _local(opt.step), update,
+                                 reduce=all_reduce if reduce is not None else None)
         return (params, opt), metrics
 
     return step

@@ -20,7 +20,13 @@
     local form;
   * a checkpoint saved from 4 gloo ranks (and one from the reference's 4
     devices) restored onto 2 ranks with ``shardings=``, as
-    ``tests/test_distributed.py`` restores onto another mesh.
+    ``tests/test_distributed.py`` restores onto another mesh; and
+    ``resilience.run_resilient(state_shardings=)`` over 2 gloo ranks with
+    failures at step 0 and at a checkpoint step, each rank restoring the
+    same steps and ending with the bits of the run without failures;
+  * the refusals: a MoE block off the expert-parallel route over a
+    process group with several data ranks, and a ``jit_train_step`` given
+    a step that ``make_train_step`` did not make.
 
 The reference's calls need several devices, which JAX fixes when it
 starts: they run once per module in a subprocess with four fake CPU
@@ -406,6 +412,36 @@ def test_generate_with_mesh_equals_unsharded(ref, case):
     assert torch.equal(got, want)
 
 
+def test_moe_without_ep_over_process_group_is_refused():
+    """A MoE block off the expert-parallel route over a process group with
+    several data ranks would route, cap and average the aux over a rank's
+    rows, where the reference routes over the global batch: refused.  With
+    one data rank the rank holds the global batch, and the forward is the
+    unsharded one."""
+    cfg = port_config(lm_config("granite_ep"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_shard_map=False))
+    params = ttf.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8), dtype=np.int32))
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match="global batch"):
+            ttf.forward(params, tokens, cfg,
+                        mesh=tmesh.Mesh((2, 2), ("data", "model"), kind="process_group",
+                                        device=CPU))
+        h0, aux0 = ttf.forward(params, tokens, cfg)
+        h1, aux1 = ttf.forward(params, tokens, cfg,
+                               mesh=tmesh.Mesh((1, 2), ("data", "model"),
+                                               kind="process_group", device=CPU))
+    assert torch.equal(h1, h0) and torch.equal(aux1, aux0)
+
+
+def test_jit_train_step_takes_a_make_train_step_step():
+    from repro_torch.training import train_loop
+
+    with pytest.raises(TypeError, match="make_train_step"):
+        train_loop.jit_train_step(lambda state, batch: (state, {}), {}, None, {})
+
+
 # ---------------------------------------------------------------------------
 # compressed_psum
 # ---------------------------------------------------------------------------
@@ -494,7 +530,7 @@ if K["task"] == "train":
     step = train_loop.jit_train_step(train_loop.make_train_step(
         lambda p, b: tf.loss_fn(p, b["tokens"], b["labels"], b["mask"], cfg, mesh=mesh),
         train_loop.TrainStepConfig(n_micro=K["n_micro"])), psh, osh, bsh)
-    state = train_loop.place((params, optim.init(params)), (psh, osh))
+    state = sharding.place((params, optim.init(params)), (psh, osh))
     out["local_shapes"] = {n: list(x.to_local().shape)
                            for n, x in zip(*tree.flatten_with_names(state))}
     metrics = []
@@ -504,7 +540,7 @@ if K["task"] == "train":
         state, m = step(state, batch)
         metrics.append({n: float(v) for n, v in m.items()})
     out["metrics"] = metrics
-    names, leaves = tree.flatten_with_names(train_loop.gather_state(state))
+    names, leaves = tree.flatten_with_names(sharding.gather_state(state))
     arrays = {n: x.numpy() for n, x in zip(names, leaves)}
     # expert parallelism over the process group (serving: no autograd)
     n_exp, pad, top_k, cf = K["moe_case"]
@@ -519,6 +555,61 @@ if K["task"] == "train":
         y, aux = moe.moe_ffn_sharded(x[i * t_loc:(i + 1) * t_loc], p, cfg_m, mesh)
     arrays["moe/y"], arrays["moe/aux"] = y.numpy(), aux.numpy()
     np.savez(os.path.join(K["dir"], f"rank{rank}.npz"), **arrays)
+elif K["task"] == "resilient":
+    import time
+    from repro_torch.training import resilience
+
+    mesh = M.process_group_mesh((world, 1), ("data", "model"), device=cpu)
+    rules, n_rows, n_steps = sharding.LM_TRAIN_RULES, 8, 4
+    # w: ZeRO-1 splits its moments over 'data'; b: placed on 'model' only
+    psh, osh = train_loop.state_shardings(
+        {"w": ("embed_kv", "mlp"), "b": ("mlp",)}, rules, mesh, zero1=True,
+        params_abs={"w": torch.empty(8, 4), "b": torch.empty(4)})
+    bsh = train_loop.batch_shardings({"x": ("batch", "embed_kv"),
+                                      "y": ("batch", "embed_kv")}, rules, mesh)
+    g = torch.Generator().manual_seed(0)
+    w0, b0 = torch.randn(8, 4, generator=g), torch.randn(4, generator=g)
+    xs, ys = torch.randn(n_steps, n_rows, 8, generator=g), torch.randn(n_steps, n_rows, 4,
+                                                                       generator=g)
+
+    def loss(p, b):      # this rank's share of the global mean squared error
+        return ((b["x"] @ p["w"] + p["b"] - b["y"]) ** 2).sum() / (n_rows * 4)
+
+    step = train_loop.jit_train_step(train_loop.make_train_step(
+        loss, train_loop.TrainStepConfig(adamw=optim.AdamWConfig(lr=1e-2, warmup_steps=0))),
+        psh, osh, bsh)
+
+    def run(ckpt_dir, fail_at):
+        params = {"w": w0.clone(), "b": b0.clone()}
+        state = sharding.place((params, optim.init(params)), (psh, osh))
+        state, report = resilience.run_resilient(
+            step, lambda i: {"x": xs[i], "y": ys[i]}, state, n_steps,
+            resilience.ResilienceConfig(ckpt_dir=ckpt_dir, ckpt_every=2),
+            failure_hook=resilience.make_scheduled_failures(fail_at),
+            state_shardings=(psh, osh))
+        names, leaves = tree.flatten_with_names(sharding.gather_state(state))
+        return report, {n: x.numpy().tobytes().hex() for n, x in zip(names, leaves)}
+
+    _, out["clean"] = run(os.path.join(K["dir"], "clean"), {})
+    # rank 0 writes slowly: a rank that read LATEST before the write was
+    # in place would fail at step 0 or restore an older step at step 2
+    restored, restore, savez = [], checkpoint.restore, np.savez
+
+    def recording_restore(*a, **kw):
+        got = restore(*a, **kw)
+        restored.append(got[1])
+        return got
+
+    def slow_savez(*a, **kw):
+        time.sleep(0.5)
+        return savez(*a, **kw)
+
+    checkpoint.restore = recording_restore
+    if rank == 0:
+        np.savez = slow_savez
+    report, out["failed"] = run(os.path.join(K["dir"], "failed"), {0: 1, 2: 1})
+    checkpoint.restore, np.savez = restore, savez
+    out["restored"], out["restores"] = restored, report.restores
 elif K["task"] == "ckpt_save":
     mesh = M.process_group_mesh((world,), ("model",), device=cpu)
     sh = sharding.NamedSharding(mesh, sharding.P("model", None))
@@ -577,7 +668,9 @@ def runs(tmp_path_factory):
         jobs[shape] = (sub, _spawn(shape[0] * shape[1],
                                    dict(common, task="train", shape=shape, dir=str(sub)), d))
     save = _spawn(4, dict(task="ckpt_save", ckpt=str(d / "ckpt_port")), d)
-    res = {"save": _collect(save)}
+    (d / "resilient").mkdir()
+    resilient = _spawn(2, dict(task="resilient", dir=str(d / "resilient")), d)
+    res = {"save": _collect(save), "resilient": _collect(resilient)}
     ref_out, err = reference.communicate(timeout=540)
     assert reference.returncode == 0, err[-3000:]
     restore = _spawn(2, dict(task="ckpt_restore", port=str(d / "ckpt_port"),
@@ -662,6 +755,18 @@ def test_checkpoint_from_four_ranks_restores_onto_two(gloo):
             assert r["step"] == 3 and r["placements"] == "(Shard(dim=0),)"
             np.testing.assert_array_equal(r["local"], want[4 * rank:4 * rank + 4])
             np.testing.assert_array_equal(r["full"], want)
+
+
+def test_run_resilient_over_gloo_restores_one_step_on_every_rank(gloo):
+    """run_resilient(state_shardings=) over 2 gloo ranks (a ZeRO-1
+    jit_train_step), failures at step 0 and at checkpoint step 2, rank 0
+    writing slowly: every rank restores steps 0 and 2 and ends with the
+    bits of the run without failures."""
+    outs = gloo["resilient"]
+    for o in outs:
+        assert o["restores"] == 2 and o["restored"] == [0, 2]
+        assert o["failed"] == outs[0]["failed"]
+        assert o["failed"] == o["clean"]
 
 
 def test_checkpoint_restore_shardings_needs_a_process_group(tmp_path):
