@@ -366,12 +366,48 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              steps; the parameters and optimizer state equal phase 33's
              after its first 2 one-device steps bit for bit.  The phase's
              seconds.
+36. launch   after phase 35, nothing resident: the launch layer
+             (configs/registry.py, launch/cells.py, dryrun.py,
+             hlo_analysis.py).  (a) and (b) are host processes (fake
+             tensors, no card) started when the phase starts, after every
+             phase that times the host, so no time printed before them
+             shares the host with them.  (a) python -m
+             repro_torch.launch.dryrun --all --mesh single --subprocess
+             --jobs 7 (seven worker processes sharing the cells, the
+             longest first): every one of the 42 production cells
+             (11 archs of the registry, their shape cells, the (16, 16)
+             mesh) traced as rank 0's program on fake tensors over a fake
+             process group of 256 ranks, all "ok", one line a cell (GB a
+             rank beside the card's 80, FLOPs by dtype, bytes, collective
+             bytes by kind and axis, the three roofline terms, the dominant
+             one, seconds; reckoned on H100 SXM5 data-sheet constants,
+             never measured), then the cells ok out of 42 and those over
+             80 GB a rank (a finding, not a failure); no real kernel
+             launches while it runs.  (b) the dry run on a one-rank mesh at
+             the shapes the card ran: phase 33's lm_train (SmolLM-360M,
+             seq 4096, its global batch, 4 microbatches), whose reckoned
+             peak must lie within 25% of phase 33's measured
+             max_memory_allocated (printed beside it and beside
+             train_reckon_gb), its counted FLOPs beside the 6 N plus
+             attention reckoning; and qwen2.5-3b decode_32k at phase 19b's
+             batch of 16 beside that phase's measured peak.  (c) while (a)
+             and (b) run, two cells built by launch/cells.py on a one-rank
+             NCCL mesh with real tensors: pixie serve_200m_replicated (the
+             FULL walk, its shape params set to phase 4's 20k-pin graph,
+             one 5-pin query of 8 slots) and qwen2.5-3b decode_32k at
+             batch 4 (seeded bf16 weights and cache, position 32,767),
+             each equal to the direct module calls (walk.pixie_walk_events
+             + recommend_from_events; transformer.decode_step) bit for bit.
+             (c) prints no time.  The phase's seconds.
 
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
 13, 14, 18, 19 and 19b, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, whose
 models launch no hand kernel, 30 and 31, 33-34, whose training path
-reaches none, and 35's expert-parallel decode paths); the kernels line sums them, and every one of its nine kernels
+reaches none, 35's expert-parallel decode paths, and 36's two real cells:
+walk_steps_fused from the replicated Pixie cell, decode_attention from
+the decode cell; the dry run launches nothing); the kernels line sums
+them, and every one of its nine kernels
 (the eight TPU kernels' and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
 kernels (ptxas -v).  The profiled
@@ -392,6 +428,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -414,10 +451,17 @@ CHASE_L2_INTS = 2**22              # and one that L2 holds: 16 MiB
 CHASE_READS = 100_000
 REQUEST_PINS = (8, 3, 1, 5, 8, 2) * 4  # pins per full-width request
 OPEN_LOOP_REQUESTS = 200
+# card measurements a later phase sets its reckonings beside
+MEASURED: dict = {}
+
+
+_T0 = time.perf_counter()
 
 
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the script's seconds so far."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -2567,6 +2611,7 @@ def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
         max_logit_diff=float((logits_k - logits_p).abs().max()),
         launches=long_launches, profiled_step=long_prof,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    MEASURED["decode_32k_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del lcache, served, q, k, v, logits_k, logits_p
     torch.cuda.empty_cache()
 
@@ -4551,6 +4596,249 @@ def dist_phase(dev, granite, deepseek, smollm, greedy: dict, kept: list, batch: 
     return paths
 
 
+# ---------------------------------------------------------------------------
+# 36. launch: the dry run of every production cell, and two cells on the card
+# ---------------------------------------------------------------------------
+
+LAUNCH_JOBS = 7                 # dry-run worker processes (the host has 8 cores)
+LAUNCH_TRAIN_TOL = 0.25         # the lm_train reckoned peak against measured
+LAUNCH_DECODE_BATCH = 4         # the qwen decode cell run on the card
+LAUNCH_SLOTS = 8                # the replicated Pixie cell's query slots
+CARD_GB = 80.0
+
+
+def dryrun_proc(log_path: str, out: str, *args) -> subprocess.Popen:
+    """``python -m repro_torch.launch.dryrun ... --out out`` in a process of
+    its own at the lowest CPU priority (CPU only: fake tensors), its output
+    to ``log_path``."""
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    with open(log_path, "w") as log_f:
+        return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                                 "--out", out], env=env, stdout=log_f,
+                                stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
+
+
+def read_records(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def rank_gb(rec: dict) -> float:
+    ma = rec["memory_analysis"]
+    return (ma["argument_size"] + ma["temp_size"]) / 1e9
+
+
+def nccl_one_rank(dev, backend: str = "nccl"):
+    """A process group of one rank (NCCL: a TCP store on localhost) and its
+    (1, 1) mesh."""
+    import datetime
+    import socket
+
+    import torch.distributed as tdist
+    from repro_torch.launch import mesh as mesh_lib
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tdist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=1,
+                             rank=0, timeout=datetime.timedelta(seconds=300))
+    return mesh_lib.process_group_mesh((1, 1), ("data", "model"), device=dev)
+
+
+def real_cells(dev, card: str) -> dict:
+    """Phase 36c: the pixie_replicated cell (FULL walk, shape params set to
+    phase 4's 20k-pin graph) and a qwen2.5-3b decode_32k cell (FULL at
+    batch 4, seeded bf16 weights) built by launch/cells.py on a one-rank
+    NCCL mesh and run with real tensors; each equal to the direct module
+    calls bit for bit.  Returns their launches."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_arch
+    from repro_torch.core import prng, walk
+    from repro_torch.core.graph import CSR, PinBoardGraph
+    from repro_torch.graphs import synthetic
+    from repro_torch.kernels import _build
+    from repro_torch.launch import cells
+    from repro_torch.models import transformer
+
+    mesh = nccl_one_rank(dev)
+    launches = {}
+    try:
+        # the replicated Pixie cell on phase 4's graph
+        sg = synthetic.generate(synthetic.SyntheticGraphConfig(
+            n_pins=20_000, n_boards=2_000, n_topics=16, n_langs=4, seed=7), device=dev)
+        g = sg.graph
+        spec = get_arch("pixie")
+        shape = dataclasses.replace(spec.shapes[1], params=dict(
+            n_pins=g.n_pins, n_boards=g.n_boards, n_edges=g.n_edges, n_slots=LAUNCH_SLOTS))
+        cell = cells.build_cell(spec, shape, mesh)
+        rng = np.random.default_rng(SEED + 36)
+        pins = rng.choice(synthetic.top_degree_pins(sg, 256), 5, replace=False)
+        qp = torch.full((1, LAUNCH_SLOTS), -1, dtype=torch.int32, device=dev)
+        qw = torch.zeros((1, LAUNCH_SLOTS), dtype=torch.float32, device=dev)
+        qp[0, :5] = torch.as_tensor(pins.astype(np.int32), device=dev)
+        qw[0, :5] = torch.as_tensor(rng.uniform(0.1, 1.0, 5).astype(np.float32), device=dev)
+        feat = torch.zeros((1,), dtype=torch.int32, device=dev)
+        key = prng.key(SEED, dev)
+        arrays = (g.p2b.offsets.int(), g.p2b.targets, g.b2p.offsets.int(), g.b2p.targets)
+        _build.reset_launches()
+        scores, ids = cell.fn(*cells.place(cell, arrays + (qp, qw, feat, key)))
+        torch.cuda.synchronize()
+        launches["pixie_replicated"] = dict(_build.launches)
+        direct_graph = PinBoardGraph(p2b=CSR(*arrays[:2]), b2p=CSR(*arrays[2:]),
+                                     n_pins=g.n_pins, n_boards=g.n_boards, max_pin_degree=4096)
+        wcfg = dataclasses.replace(spec.config.walk, count_boards=False)
+        res = walk.pixie_walk_events(direct_graph, qp[0], qw[0], feat[0],
+                                     prng.split(key, 1)[0], wcfg)
+        want_s, want_i = walk.recommend_from_events(res, LAUNCH_SLOTS, g.n_pins, qp[0],
+                                                    wcfg.top_k)
+        if not (torch.equal(scores[0].view(torch.int32), want_s.view(torch.int32))
+                and torch.equal(ids[0], want_i)):
+            raise AssertionError("launch: the pixie_replicated cell differs from the direct call")
+        if launches["pixie_replicated"]["walk_steps_fused"] == 0:
+            raise AssertionError("launch: the pixie cell never launched walk_steps_fused")
+        check_result(scores[0].cpu().numpy(), ids[0].cpu().numpy(), wcfg.top_k, g.n_pins,
+                     "launch pixie cell")
+        log("launch_cell", cell="pixie/serve_200m_replicated", card=card,
+            params=shape.params, walk="FULL (n_steps 200000, 8192 walkers, top 1000)",
+            identical_to_direct_call=True, launches=launches["pixie_replicated"])
+        del sg, g, arrays, direct_graph, res
+
+        # a qwen2.5-3b decode_32k cell at batch 4, seeded bf16 weights
+        spec = get_arch("qwen2.5-3b")
+        cfg = spec.config
+        shape = dataclasses.replace(spec.shapes[2], params=dict(
+            spec.shapes[2].params, global_batch=LAUNCH_DECODE_BATCH))
+        seq = shape.params["seq_len"]
+        cell = cells.build_cell(spec, shape, mesh)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 36)
+        params = transformer.init_params(gen, cfg, dtype=torch.bfloat16)
+        cache = transformer.init_kv_cache(cfg, LAUNCH_DECODE_BATCH, seq, device=dev)
+        for t_ in cache.values():
+            t_.normal_(generator=gen)
+        toks = torch.randint(0, cfg.vocab_size, (LAUNCH_DECODE_BATCH,), dtype=torch.int32,
+                             generator=gen, device=dev)
+        pos = torch.tensor(seq - 1, dtype=torch.int32, device=dev)
+        placed = cells.place(cell, (params, cache, toks, pos))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        logits, new_cache = cell.fn(*placed)
+        torch.cuda.synchronize()
+        launches["qwen_decode"] = dict(_build.launches)
+        del placed
+        want, want_cache = transformer.decode_step(params, cache, toks, seq - 1, cfg)
+        if not (torch.equal(logits, want)
+                and all(torch.equal(new_cache[k], want_cache[k]) for k in ("k", "v"))):
+            raise AssertionError("launch: the qwen decode cell differs from decode_step")
+        if launches["qwen_decode"]["decode_attention"] != cfg.n_layers:
+            raise AssertionError(f"launch: the decode cell launched "
+                                 f"{launches['qwen_decode']['decode_attention']} attentions")
+        log("launch_cell", cell="qwen2.5-3b/decode_32k", card=card, batch=LAUNCH_DECODE_BATCH,
+            seq_len=seq, pos=seq - 1, weights="seeded bf16", identical_to_direct_call=True,
+            launches=launches["qwen_decode"], peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del params, cache, logits, new_cache, want, want_cache
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def start_dry_runs(train_batch: int) -> dict:
+    """Phase 36's (a) and (b) started as host processes (fake tensors, no
+    card), to trace while 36c uses the card; (b)'s lm_train cell at phase
+    33's global batch ``train_batch``."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    path = {k: os.path.join(tmp, f"{k}.jsonl") for k in ("single", "train", "decode")}
+    procs = {
+        "single": dryrun_proc(path["single"] + ".log", path["single"], "--all", "--mesh",
+                              "single", "--subprocess", "--jobs", str(LAUNCH_JOBS)),
+        "train": dryrun_proc(path["train"] + ".log", path["train"], "--arch", "smollm-360m",
+                             "--shape", "train_4k", "--mesh", "one", "--n-micro",
+                             str(TRAIN_MICRO), "--params", json.dumps(
+                                 {"seq_len": TRAIN_SEQ, "global_batch": train_batch})),
+        "decode": dryrun_proc(path["decode"] + ".log", path["decode"], "--arch", "qwen2.5-3b",
+                              "--shape", "decode_32k", "--mesh", "one", "--params",
+                              json.dumps({"global_batch": DECODE_32K["batch"]})),
+    }
+    return {"path": path, "procs": procs}
+
+
+def launch_phase(dev, trained: dict) -> list:
+    """Phase 36 (see the module docstring): returns the real cells'
+    launches."""
+    import torch
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    # (a) and (b) trace on the host once every phase that times the host is
+    # done; (c) runs on the card meanwhile and times nothing
+    dry = start_dry_runs(trained["global_batch"])
+    path, procs = dry["path"], dry["procs"]
+    cell_launches = real_cells(dev, card)
+    after_cells = dict(_build.launches)
+    for name, proc in procs.items():
+        proc.wait(timeout=900)
+        if proc.returncode != 0:
+            with open(path[name] + ".log") as f:
+                raise AssertionError(f"launch: the dry run ({name}) failed:\n{f.read()[-3000:]}")
+    if dict(_build.launches) != after_cells:
+        raise AssertionError("launch: a kernel launched during the dry run")
+    keep = Path("chiprun_out")
+    if keep.is_dir():
+        for name in path:
+            shutil.copy(path[name], keep / f"dryrun_{name}.jsonl")
+
+    # (a) every single-pod cell, reckoned on H100 data-sheet constants
+    recs = read_records(path["single"])
+    bad = [f"{r['arch']}/{r['shape']}" for r in recs if r["status"] != "ok"]
+    if len(recs) != 42 or bad:
+        raise AssertionError(f"launch: {len(recs)} dry-run records, failed: {bad}")
+    for r in sorted(recs, key=lambda r: (r["arch"], r["shape"])):
+        log("dryrun_cell", cell=f"{r['arch']}/{r['shape']}", mesh=r["mesh"],
+            n_chips=r["n_chips"], form=r["form"], card=card, gb_per_rank=rank_gb(r),
+            card_gb=CARD_GB, flops_by_dtype=r["flops_by_dtype"], hbm_bytes=r["hbm_bytes"],
+            collectives=r["collectives"], coll_by_axis=r["coll_by_axis"],
+            t_compute_s=r["t_compute_s"], t_memory_s=r["t_memory_s"],
+            t_collective_s=r["t_collective_s"], dominant=r["dominant"],
+            fake_kernel_calls=r["kernels"], seconds=r["seconds"],
+            terms="reckoned from H100 SXM5 data-sheet constants, not measured")
+    over = sorted(f"{r['arch']}/{r['shape']}" for r in recs if rank_gb(r) > CARD_GB)
+    log("dryrun_summary", mesh="single (16, 16)", card=card, cells_ok=len(recs),
+        cells=len(recs), over_80gb_a_rank=over,
+        dominant={d: sum(r["dominant"] == d for r in recs)
+                  for d in ("compute", "memory", "collective")},
+        real_launches_during_dry_run=0)
+
+    # (b) reckoned against measured, one-rank meshes at the card's shapes
+    (tr,) = read_records(path["train"])
+    (dc,) = read_records(path["decode"])
+    reckoned, measured = tr["peak_bytes"] / 1e9, trained["peak_gb"]
+    off = reckoned / measured - 1
+    log("dryrun_vs_card", cell="smollm-360m/train_4k", mesh="one (1, 1)", card=card,
+        seq_len=TRAIN_SEQ, global_batch=trained["global_batch"], n_micro=TRAIN_MICRO,
+        reckoned_peak_gb=reckoned, measured_peak_gb=measured,
+        train_reckon_gb=trained["reckoned"]["peak_gb"], reckoned_off=off,
+        counted_flops=tr["flops"], counted_flops_by_dtype=tr["flops_by_dtype"],
+        model_flops_6n_plus_attention=trained["reckoned_flops"],
+        counted_over_model=tr["flops"] / trained["reckoned_flops"])
+    if abs(off) > LAUNCH_TRAIN_TOL:
+        raise AssertionError(f"launch: lm_train reckoned peak {reckoned:.3f} GB is "
+                             f"{off:+.1%} from the measured {measured:.3f} GB")
+    log("dryrun_vs_card", cell="qwen2.5-3b/decode_32k", mesh="one (1, 1)", card=card,
+        global_batch=DECODE_32K["batch"], reckoned_peak_gb=dc["peak_bytes"] / 1e9,
+        measured_peak_gb=MEASURED.get("decode_32k_peak_gb"),
+        note="the cell gathers float32 parameters and casts them at each use; phase "
+             "19b decodes with the weights cast to bf16 once")
+    log("launch", seconds=time.perf_counter() - t0, card=card)
+    return [cell_launches["pixie_replicated"], cell_launches["qwen_decode"]]
+
+
 def main() -> int:
     import torch
 
@@ -4974,12 +5262,19 @@ def main() -> int:
                             smollm_360m.FULL, moe_greedy, trained.pop("kept"),
                             trained["global_batch"])
 
+    # 36. launch: the dry run of every production cell on this host, set
+    # beside phases 33 and 19b; two cells on the card, nothing else resident
+    torch.cuda.empty_cache()
+    log("launch_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
+    launch_paths = launch_phase(dev, trained)
+
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *past_cap_launches, *sharded_paths, *lm_paths, *event_paths,
              pruned_launches, fig4_launches, table1_launches, oracle_launches,
-             sasrec_launches, recsys_launches, *moe_paths, train_launches, *dist_paths]
+             sasrec_launches, recsys_launches, *moe_paths, train_launches, *dist_paths,
+             *launch_paths]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
             *event_rows, sharded_rows[1]]
     for row in rows:
@@ -5005,7 +5300,7 @@ def main() -> int:
         oracle=oracle_launches, sasrec_2stage=sasrec_launches,
         recsys_full=recsys_launches, moe_granite=moe_paths[:4],
         moe_deepseek=moe_paths[4:], gin_max_rel_diff=gin_errs, train=train_launches,
-        dist_ep=dist_paths)
+        dist_ep=dist_paths, launch_cells=launch_paths)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

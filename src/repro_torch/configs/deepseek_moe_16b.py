@@ -2,11 +2,12 @@
 expert-ff=1408 vocab=102400 — 2 shared + 64 routed experts top-6,
 fine-grained segmentation; layer 0 is a dense FFN (d_ff=10944).
 
-Twin of ``repro/configs/deepseek_moe_16b.py``: ``FULL`` and ``SMOKE``
+Twin of ``repro/configs/deepseek_moe_16b.py``: ``FULL``, ``SMOKE`` and ``spec()``
 with the reference's values field for field."""
 
 import torch
 
+from repro_torch.configs.registry import LM_SHAPES, ArchSpec, register
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
 
@@ -41,3 +42,15 @@ SMOKE = LMConfig(
     remat=False,
     compute_dtype=torch.float32,
 )
+
+
+@register("deepseek-moe-16b")
+def spec() -> ArchSpec:
+    return ArchSpec(
+        name="deepseek-moe-16b",
+        family="lm",
+        source=SOURCE,
+        config=FULL,
+        smoke_config=SMOKE,
+        shapes=LM_SHAPES,
+    )

@@ -1,7 +1,7 @@
 """granite-moe-3b-a800m [hf:ibm-granite/granite-3.0-3b-a800m-base]:
 32L d=1536 24H (GQA kv=8) expert-ff=512 vocab=49155, MoE 40 experts top-8.
 
-Twin of ``repro/configs/granite_moe_3b_a800m.py``: ``FULL`` and ``SMOKE``
+Twin of ``repro/configs/granite_moe_3b_a800m.py``: ``FULL``, ``SMOKE`` and ``spec()``
 with the reference's values field for field.  Heads are padded to 32,
 the vocabulary to 49,168 and the experts to 48 (pad experts are
 router-masked and receive no tokens); ``ep_shard_map`` is carried: with a
@@ -10,6 +10,7 @@ over 4 'model' shards."""
 
 import torch
 
+from repro_torch.configs.registry import LM_SHAPES, ArchSpec, register
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
 
@@ -46,3 +47,16 @@ SMOKE = LMConfig(
     remat=False,
     compute_dtype=torch.float32,
 )
+
+
+@register("granite-moe-3b-a800m")
+def spec() -> ArchSpec:
+    return ArchSpec(
+        name="granite-moe-3b-a800m",
+        family="lm",
+        source=SOURCE,
+        config=FULL,
+        smoke_config=SMOKE,
+        shapes=LM_SHAPES,
+        # EP over 48 padded experts (see MoEConfig.pad_experts_to)
+    )

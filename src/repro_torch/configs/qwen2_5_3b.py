@@ -1,11 +1,12 @@
 """qwen2.5-3b [hf:Qwen/Qwen2.5-3B]: 36L d=2048 16H (GQA kv=2) ff=11008
 vocab=151936 — GQA with QKV bias, tied embeddings, rope theta 1e6.
 
-Twin of ``repro/configs/qwen2_5_3b.py``: ``FULL`` and ``SMOKE`` with the
+Twin of ``repro/configs/qwen2_5_3b.py``: ``FULL``, ``SMOKE`` and ``spec()`` with the
 reference's values field for field."""
 
 import torch
 
+from repro_torch.configs.registry import LM_SHAPES, ArchSpec, register
 from repro_torch.models.transformer import LMConfig
 
 SOURCE = "hf:Qwen/Qwen2.5-3B"
@@ -39,3 +40,15 @@ SMOKE = LMConfig(
     remat=False,
     compute_dtype=torch.float32,
 )
+
+
+@register("qwen2.5-3b")
+def spec() -> ArchSpec:
+    return ArchSpec(
+        name="qwen2.5-3b",
+        family="lm",
+        source=SOURCE,
+        config=FULL,
+        smoke_config=SMOKE,
+        shapes=LM_SHAPES,
+    )

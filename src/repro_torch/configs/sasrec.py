@@ -2,9 +2,10 @@
 causal self-attention over the user sequence.  Item catalog sized at 10M
 (production-representative; the paper's datasets are small).
 
-Twin of ``repro/configs/sasrec.py``: ``FULL`` and ``SMOKE`` with the
+Twin of ``repro/configs/sasrec.py``: ``FULL``, ``SMOKE`` and ``spec()`` with the
 reference's values field for field."""
 
+from repro_torch.configs.registry import RECSYS_SHAPES, ArchSpec, register
 from repro_torch.models.sequential_rec import SeqRecConfig
 
 SOURCE = "arXiv:1808.09781"
@@ -30,3 +31,15 @@ SMOKE = SeqRecConfig(
     n_heads=1,
     n_negatives=8,
 )
+
+
+@register("sasrec")
+def spec() -> ArchSpec:
+    return ArchSpec(
+        name="sasrec",
+        family="recsys",
+        source=SOURCE,
+        config=FULL,
+        smoke_config=SMOKE,
+        shapes=RECSYS_SHAPES,
+    )

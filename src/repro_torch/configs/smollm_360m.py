@@ -1,11 +1,12 @@
 """smollm-360m [hf:HuggingFaceTB/SmolLM-360M]: 32L d=960 15H (GQA kv=5)
 ff=2560 vocab=49152 — llama-arch small model.
 
-Twin of ``repro/configs/smollm_360m.py``: ``FULL`` and ``SMOKE`` with the
+Twin of ``repro/configs/smollm_360m.py``: ``FULL``, ``SMOKE`` and ``spec()`` with the
 reference's values field for field."""
 
 import torch
 
+from repro_torch.configs.registry import LM_SHAPES, ArchSpec, register
 from repro_torch.models.transformer import LMConfig
 
 SOURCE = "hf:HuggingFaceTB/SmolLM-360M"
@@ -37,3 +38,15 @@ SMOKE = LMConfig(
     remat=False,
     compute_dtype=torch.float32,
 )
+
+
+@register("smollm-360m")
+def spec() -> ArchSpec:
+    return ArchSpec(
+        name="smollm-360m",
+        family="lm",
+        source=SOURCE,
+        config=FULL,
+        smoke_config=SMOKE,
+        shapes=LM_SHAPES,
+    )

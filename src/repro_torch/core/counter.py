@@ -21,6 +21,12 @@ Float parity with the reference:
   * ``boosted_from_events`` sums a pin's roots as a left-to-right chain in
     slot order (XLA's CPU ``segment_sum`` order), which is also the dense
     booster's order, so event mode and dense mode give the same scores.
+
+Three host reads size work by the data; a dry run (fake tensors,
+``repro_torch/abstract.py``) cannot make them and takes a stated static form: the
+top-k's selection (a ``nonzero``) takes ``torch.topk``'s indices, the
+events' live entries are all ``max_unique`` of them, each may start a
+run, and a pin's chain is ``n_slots`` adds long.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import abstract
 from repro_torch.kernels import ops
 
 
@@ -195,6 +202,11 @@ def _topk(rows: torch.Tensor, keys: torch.Tensor,
     """Top-k of each row of ``rows`` by ``keys``, ties to the lower index:
     the k-th key comes from ``torch.topk``; then every entry strictly above
     it and the lowest-index entries equal to it, so no full sort of the row."""
+    if abstract.is_fake(keys):
+        # the dry run: the selection below sizes a nonzero by the data;
+        # torch.topk's indices stand in for it, the same (n, k) shapes
+        idx = torch.topk(keys, k, dim=-1, sorted=True).indices
+        return torch.gather(rows, 1, idx), idx
     kth = torch.topk(keys, k, dim=-1, sorted=True).values[:, -1:]
     above = keys > kth
     ties = keys == kth
@@ -312,21 +324,26 @@ def events_to_counts(
 
 
 def _chain_sum(values: torch.Tensor, run_idx: torch.Tensor,
-               num_segments: int) -> torch.Tensor:
+               num_segments: int, max_run: int) -> torch.Tensor:
     """Per-segment float32 sums of a segment-sorted sequence, each a
     left-to-right chain ``((v0 + v1) + v2) + ...``: the order of XLA's CPU
     ``segment_sum``.  One vector add per position within a run, so the
-    passes are the longest run's length."""
+    passes are the longest run's length, read from the device.  A dry run
+    (fake tensors) bounds both reads: every entry may start a run, and a
+    run is at most ``max_run`` long (the caller's static bound)."""
     n = values.shape[0]
     out = values.new_zeros((num_segments + 1,))
     if n == 0:
         return out[:num_segments]
     starts = torch.ones((n,), dtype=torch.bool, device=values.device)
     starts[1:] = run_idx[1:] != run_idx[:-1]
-    first = torch.nonzero(starts).reshape(-1)
+    dry = abstract.is_fake(starts)
+    first = (torch.arange(n, device=values.device) if dry
+             else torch.nonzero(starts).reshape(-1))
     length = torch.diff(first, append=first.new_tensor([n]))
     acc = values[first]
-    for d in range(1, int(length.max())):
+    depth = max_run if dry else int(length.max())
+    for d in range(1, depth):
         acc = acc + torch.where(length > d, values[(first + d).clamp(max=n - 1)],
                                 0.0)
     out[run_idx[first].clamp(max=num_segments)] = acc
@@ -358,9 +375,11 @@ def boosted_from_events(
     root_s = root[order]
     run_idx = _runs(pin_s)
     # valid entries (pin < n_pins) sort first; the rest form the one
-    # invalid run, whose roots are all 0 and whose sum stays 0
-    n_live = int(valid.sum())
-    summed = _chain_sum(root_s[:n_live], run_idx[:n_live], max_unique)
+    # invalid run, whose roots are all 0 and whose sum stays 0.  A dry run
+    # (fake tensors) bounds the live entries by all of them, and a pin's
+    # run by n_slots: the (slot, pin) runs hold each pin once a slot
+    n_live = max_unique if abstract.is_fake(valid) else int(valid.sum())
+    summed = _chain_sum(root_s[:n_live], run_idx[:n_live], max_unique, n_slots)
     rep_pin = _segment_values(pin_s, run_idx, max_unique, _INT32_MIN)
     boosted = summed * summed
     boosted = torch.where((rep_pin >= 0) & (rep_pin < n_pins), boosted, 0.0)

@@ -53,6 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import abstract
 from repro_torch.core import counter as counter_lib
 from repro_torch.core import prng, sampling
 from repro_torch.core import walk as walk_lib
@@ -95,6 +96,34 @@ class ShardedGraph(NamedTuple):
 
     def nbytes(self) -> int:
         return int(sum(t.numel() * t.element_size() for t in self[:4]))
+
+
+def abstract_sharded_graph(
+    n_pins: int, n_boards: int, n_edges: int, n_shards: int
+) -> ShardedGraph:
+    """Meta-tensor stand-in at production scale (the dry run only); each
+    shard's edge slice has 25% imbalance headroom."""
+    pps = -(-n_pins // n_shards)
+    bps = -(-n_boards // n_shards)
+    eps = int(n_edges // n_shards * 1.25)
+    return ShardedGraph(
+        p2b_offsets=abstract.meta((n_shards, pps + 1), torch.int32),
+        p2b_targets=abstract.meta((n_shards, eps), torch.int32),
+        b2p_offsets=abstract.meta((n_shards, bps + 1), torch.int32),
+        b2p_targets=abstract.meta((n_shards, eps), torch.int32),
+        n_pins=pps * n_shards,
+        n_boards=bps * n_shards,
+        n_shards=n_shards,
+    )
+
+
+def sharded_graph_specs(axis: str = "model") -> ShardedGraph:
+    """PartitionSpecs of the sharded graph arrays (leading dim = shard)."""
+    from repro_torch.distribution.sharding import P
+
+    e = P(axis, None)
+    return ShardedGraph(p2b_offsets=e, p2b_targets=e, b2p_offsets=e,
+                        b2p_targets=e, n_pins=0, n_boards=0, n_shards=0)
 
 
 def _slice_csr(offsets, targets, n_shards, rows, shift):
@@ -213,9 +242,74 @@ class ProcessGroupFabric:
         return self._reduce(x, self._dist.ReduceOp.MAX)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        parts = [torch.empty_like(x[0]) for _ in range(self.n_shards)]
-        self._dist.all_gather(parts, x[0].contiguous(), group=self.group)
-        return torch.stack(parts)
+        # into one (n_shards, ...) tensor: no list of parts to stack
+        n, part = self.n_shards, tuple(x.shape[1:])
+        out = x.new_empty((n * part[0],) + part[1:] if part else (n,))
+        self._dist.all_gather_into_tensor(out, x[0].contiguous(), group=self.group)
+        return out.view((n,) + part)
+
+
+# ---------------------------------------------------------------------------
+# Collectives under autograd (a process group's all-reduce has no autograd
+# formula).  On a LocalFabric the sum is a chain of adds and autograd runs
+# through it; over a process group the pair below is Megatron's: the sum
+# of per-rank partials whose result every rank then uses alike
+# (``reduce_from``: identity backward), and an input every rank holds alike
+# whose gradient each rank sees only in part (``copy_to``: all-reduced
+# backward).  ``reduce_from(..., grad="psum")`` is a plain all-reduce whose
+# backward all-reduces too: a mean over data ranks that each rank's loss
+# share then reads.
+# ---------------------------------------------------------------------------
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fabric, grad_psum):
+        ctx.fabric, ctx.grad_psum = fabric, grad_psum
+        return fabric.psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g[None]
+        if ctx.grad_psum:
+            g = ctx.fabric.psum(g.contiguous())[None]
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fabric):
+        ctx.fabric = fabric
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fabric.psum(g.contiguous()[None]), None
+
+
+def _tracked(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def reduce_from(fabric, x: torch.Tensor, grad: str = "identity") -> torch.Tensor:
+    """``fabric.psum(x)`` that autograd runs through: over a process group
+    the backward hands each rank the output's gradient (``"identity"``) or
+    its all-reduce (``"psum"``); on a ``LocalFabric`` the chain of adds
+    has its own backward."""
+    if not isinstance(fabric, ProcessGroupFabric) or not _tracked(x):
+        return fabric.psum(x)
+    if grad not in ("identity", "psum"):
+        raise ValueError(f"grad must be 'identity' or 'psum', got {grad!r}")
+    return _ReduceFrom.apply(x, fabric, grad == "psum")
+
+
+def copy_to(fabric, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as is; over a process group its gradient is all-reduced over
+    the fabric's ranks (each rank's part of it comes from its own
+    shard's work)."""
+    if not isinstance(fabric, ProcessGroupFabric) or not _tracked(x):
+        return x
+    return _CopyTo.apply(x, fabric)
 
 
 def route_capacity(n_shards: int, n_walkers_total: int, slack: float) -> int:
@@ -469,7 +563,9 @@ def pixie_walk_sharded_batched(
 
     n_chunks = 0
     for it in range(cfg.max_chunks()):
-        if not bool(row_active.any()):
+        # a dry run (fake tensors) cannot read the flags: every chunk runs,
+        # the loop's static bound
+        if not abstract.is_fake(row_active) and not bool(row_active.any()):
             break
         step_base = it * cfg.chunk_steps
         # the whole batch's counter-RNG words, one table a chunk for every
@@ -698,10 +794,11 @@ class ShardedWalkConfig:
     * walkers_per_shard`` walkers and no early stopping.  ``slack`` scales
     routing capacity; ``backend`` picks the hop engine (``"pallas"``: the
     hand kernel on the card).  ``unroll`` and ``gather_mode`` hold the
-    reference's positional slots: ``gather_mode`` is a TPU knob accepted
-    as ``WalkConfig`` accepts it, and ``unroll=True`` (the reference's
-    loop-free cost-model mode, which the port does not have) is
-    refused."""
+    reference's positional slots, TPU knobs that change no bit:
+    ``gather_mode`` is accepted as ``WalkConfig`` accepts it, and
+    ``unroll`` (the reference's loop-free XLA form for its cost model) as
+    ``walk.pixie_walk_events_fixed`` accepts its ``unroll``: a traced
+    torch program counts every superstep either way."""
 
     n_supersteps: int = 64
     walkers_per_shard: int = 1024
@@ -711,13 +808,6 @@ class ShardedWalkConfig:
     unroll: bool = False
     backend: str = "xla"
     gather_mode: str = "scalar"
-
-    def __post_init__(self):
-        if self.unroll:
-            raise ValueError(
-                "ShardedWalkConfig(unroll=True) is the reference's loop-free "
-                "cost-model mode for the dry run; the port has no such mode"
-            )
 
     def capacity(self, n_shards: int) -> int:
         return route_capacity(

@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import abstract
 from repro_torch.device import DeviceLike, resolve_device
 
 _ARRAY_NAMES = (
@@ -289,6 +290,29 @@ def graph_from_numpy(
         p2b=csr("p2b"), b2p=csr("b2p"), n_pins=int(n_pins),
         n_boards=int(n_boards), max_pin_degree=int(max_pin_degree),
     )
+
+
+def graph_abstract(
+    n_pins: int,
+    n_boards: int,
+    n_edges: int,
+    n_feats: int = 0,
+    offset_dtype=torch.int64,
+    target_dtype=torch.int32,
+) -> PinBoardGraph:
+    """Meta-tensor stand-in graph for the dry run: production scale (3e9
+    nodes / 17e9 edges) never materialises.  Board adjacency reuses the
+    same edge count (each edge appears once per direction)."""
+    fb = fb_b = None
+    if n_feats > 0:
+        fb = abstract.meta((n_pins, n_feats + 1), torch.int32)
+        fb_b = abstract.meta((n_boards, n_feats + 1), torch.int32)
+    p2b = CSR(offsets=abstract.meta((n_pins + 1,), offset_dtype),
+              targets=abstract.meta((n_edges,), target_dtype), feat_bounds=fb)
+    b2p = CSR(offsets=abstract.meta((n_boards + 1,), offset_dtype),
+              targets=abstract.meta((n_edges,), target_dtype), feat_bounds=fb_b)
+    return PinBoardGraph(p2b=p2b, b2p=b2p, n_pins=n_pins, n_boards=n_boards,
+                         max_pin_degree=4096)
 
 
 def save_graph(graph: PinBoardGraph, path: str) -> None:

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import abstract
 from repro_torch.core import counter as counter_lib
 from repro_torch.core import prng, sampling
 from repro_torch.core.graph import PinBoardGraph
@@ -227,6 +228,8 @@ def _check_feats(feats: torch.Tensor, graph: PinBoardGraph) -> None:
     """Personalization features index the bound tables: refuse ids out of
     range rather than read past a row."""
     n_feats = graph.p2b.n_feats
+    if abstract.is_fake(feats):
+        return              # a dry run's features hold no values to check
     if feats.numel() and (int(feats.min()) < 0 or int(feats.max()) >= n_feats):
         raise ValueError(
             f"user features must lie in [0, {n_feats}) for a biased walk"

@@ -6,6 +6,8 @@ from typing import Union
 
 import torch
 
+from repro_torch import abstract
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -23,4 +25,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "plain PyTorch path"
         )
     return dev
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """``t`` takes the card's route: a CUDA tensor, or a fake tensor of a
+    dry run, which reckons the card's path on any host
+    (``abstract.reckon_card``)."""
+    return t.device.type == "cuda" or abstract.reckons_card(t)
 

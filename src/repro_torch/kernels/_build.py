@@ -17,6 +17,9 @@ Nothing here runs at import: this module loads on hosts without ``nvcc``.
 ``launches`` counts kernel launches by kernel name; each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show which
 kernels its main path went through (``reset_launches`` before the run).
+A kernel's fake form (a dry run's call, ``launch/fake.py``) launches
+nothing and counts nothing there: it ``charge``s its work to the active
+tallies instead.
 """
 
 from __future__ import annotations
@@ -62,6 +65,23 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+# the dry run's active tallies (``launch/fake.Tally``), innermost last
+tallies: list = []
+
+
+def charge(kernel: str, nbytes: float, ops: Dict[str, float]) -> None:
+    """A hand kernel's fake form: its bytes (inputs and outputs once, its
+    random reads as sectors) and its operations by type, added to every
+    active tally, and one call counted there (``kernels``; real launches
+    are ``launches``)."""
+    for t in tallies:
+        t.hbm_bytes += nbytes
+        t.bytes_by_op[kernel] = t.bytes_by_op.get(kernel, 0.0) + nbytes
+        for dt, n in ops.items():
+            t.flops[dt] = t.flops.get(dt, 0.0) + n
+        t.kernels[kernel] = t.kernels.get(kernel, 0) + 1
 
 
 def _nvcc() -> str:

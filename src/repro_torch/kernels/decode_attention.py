@@ -25,7 +25,10 @@ bit; the kernel gives the same bits from run to run.  The kernel wrapper
 takes CUDA tensors only.  With more than one split it hands the kernel a
 float32 workspace (``torch.empty``) and a per-device array of ticket
 counters that every launch leaves zeroed, so launches that might overlap
-on one device must share a stream.
+on one device must share a stream.  Given a dry run's fake tensors
+(``repro_torch/abstract.py``) the wrapper validates as for the card, returns the
+output's shape and dtype without a launch, and charges the kernel's
+bytes and FLOPs (``_fake_form``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch import abstract
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -143,7 +147,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     merge), ``(b, h, dh)`` float32.  Sync-free for an int length."""
     b, h, dh, s, kh = _check(q, k, v, lengths)
     dev = k.device
-    if dev.type != "cuda":
+    dry = abstract.reckons_card(k)
+    if dev.type != "cuda" and not dry:
         raise ValueError(f"decode_attention runs on CUDA tensors, got {dev}")
     for name, t in (("q", q), ("v", v)) + (
             (("lengths", lengths),) if isinstance(lengths, torch.Tensor) else ()):
@@ -153,6 +158,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("k and v must be contiguous (b, s, kh, dh) caches")
     if dh > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {dh} > {MAX_HEAD_DIM}")
+    if dry:
+        return _fake_form(q, k, lengths, b, h, dh, s, kh)
     lib = _build.library("decode_attention")
     kv_bf16 = int(k.dtype == torch.bfloat16)
     smem = _fn(lib, "decode_attention_smem_bytes", [ctypes.c_int] * 2,
@@ -187,6 +194,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, "decode_attention")
     _build.launches["decode_attention"] += 1
     return out
+
+
+def _fake_form(q, k, lengths, b, h, dh, s, kh) -> torch.Tensor:
+    """A dry run's call (the fake form): the output's shape and dtype,
+    no launch.  Charged: q and the output once, K and V each read once up
+    to each row's length (all ``s`` for per-row lengths, whose values a
+    dry run does not see); float32 scores and ``p @ V``, ``4 * h * dh``
+    FLOPs a position a row."""
+    n_pos = b * (s if isinstance(lengths, torch.Tensor) else int(lengths))
+    nbytes = (q.numel() * q.element_size() + 4 * b * h * dh
+              + 2 * n_pos * kh * dh * k.element_size()
+              + (4 * b if isinstance(lengths, torch.Tensor) else 0))
+    _build.charge("decode_attention", nbytes, {"float32": 4 * h * dh * n_pos})
+    return torch.empty((b, h, dh), dtype=torch.float32, device=k.device)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

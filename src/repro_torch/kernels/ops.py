@@ -40,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import on_card
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import visit_counter as vc
@@ -49,7 +50,7 @@ from repro_torch.kernels import walk_step as ws
 def _kernel_for(use_kernel: bool, t: torch.Tensor) -> bool:
     if not use_kernel:
         return False
-    if t.device.type == "cuda":
+    if on_card(t):          # a CUDA tensor, or a dry run's fake one
         return True
     if t.device.type == "cpu":
         return False

@@ -27,6 +27,10 @@ zeroed tally.  Any row count is taken, as the reference's kernel takes
 any: a few rows are tallied per block in shared memory, more straight
 into ``high`` with global atomics (``csrc/visit_counter.cu``).
 
+Given a dry run's fake tensors (``repro_torch/abstract.py``),
+``visit_counter_update_high`` validates as for the card, launches nothing
+and charges its bytes (``_charge_update_high``).
+
 The kernel wrappers take CUDA tensors only; the ``*_plain`` functions are
 the plain PyTorch twins (ports of ``ref.visit_counter_ref``,
 ``ref.visit_counter_update_high_ref`` and ``ref.visit_counter_wide_ref``;
@@ -41,8 +45,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch import abstract
 from repro_torch.kernels import _build
 
+SECTOR = 32        # bytes of a DRAM sector an event touches at random
 _LANES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
 
 
@@ -69,9 +75,10 @@ def require_dense_bins(n_bins: int) -> None:
         )
 
 
-def _check(counts, lanes, n_bins: int, kernel: str) -> torch.device:
+def _check(counts, lanes, n_bins: int, kernel: str,
+           dry: bool = False) -> torch.device:
     dev = counts.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not dry:
         raise ValueError(f"{kernel} runs on CUDA tensors, got {dev}")
     m = None
     for name, t in [("counts", counts)] + lanes:
@@ -126,8 +133,13 @@ def visit_counter_update_high(
     require_dense_bins(n_rows * n_pins)
     lanes = [("query_events", query_events), ("slot_events", slot_events),
              ("pin_events", pin_events)]
-    dev = _check(counts, lanes, n_rows * n_pins, "visit_counter_update_high")
+    dry = abstract.reckons_card(counts)
+    dev = _check(counts, lanes, n_rows * n_pins, "visit_counter_update_high", dry)
     high = _tally(high, n_rows, dev)
+    if dry:
+        _charge_update_high(slot_events.shape[0], len([t for _, t in lanes if t is not None]),
+                            n_rows)
+        return high
     fn = _fn(
         "visit_counter_update_high_launch",
         _LANES + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3,
@@ -142,6 +154,15 @@ def visit_counter_update_high(
     _build.check(err, "visit_counter_update_high")
     _build.launches["visit_counter_update_high"] += 1
     return high
+
+
+def _charge_update_high(m: int, n_lanes: int, n_rows: int) -> None:
+    """A dry run's call (the fake form): no launch.  Charged: the
+    event lanes read once; each event's count sector read and written (a
+    32-byte sector an event: the data-free bound, where the card's run
+    counts the distinct sectors); the tally read and written."""
+    _build.charge("visit_counter_update_high",
+                4 * n_lanes * m + 2 * SECTOR * m + 2 * 4 * n_rows, {})
 
 
 def visit_counter_wide(

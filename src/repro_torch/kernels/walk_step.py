@@ -47,6 +47,14 @@ rule was the TPU kernel's block size.
 
 All three walk kernels pick an edge with one piece of code
 (``csrc/pick_edge.cuh``).
+
+**Fake forms.**  Given a dry run's fake tensors (``repro_torch/abstract.py``),
+``walk_bits``, ``walk_steps_fused`` and ``walk_hop_fused`` validate as
+they do for the card, return outputs of the kernel's shapes and dtypes,
+never call into the library, and charge the kernel's own work
+(``_build.charge``, the terms of PERF.md §6): inputs and outputs once, one
+32-byte sector per dependent random read, and ``THREEFRY_OPS`` 32-bit
+operations per threefry block.  The formulas stand beside each wrapper.
 """
 
 from __future__ import annotations
@@ -56,7 +64,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import abstract
 from repro_torch.kernels import _build
+
+# the fake forms' terms: one threefry2x32 block is 20 rounds of add,
+# rotate and xor, 10 key injections and 2 initial key adds (72 32-bit
+# operations), and a word adds its y0 ^ y1; a random read touches one
+# 32-byte DRAM sector
+THREEFRY_OPS = 72
+SECTOR = 32
 
 RMASK = 0x7FFFFFFF
 _U32 = 0xFFFFFFFF
@@ -141,13 +157,20 @@ def u32_bits_as_int32(r: torch.Tensor) -> torch.Tensor:
     return r
 
 
+def threefry_ops(n_keys: int, walkers: int, chunk_steps: int) -> int:
+    """32-bit operations of a chunk's threefry words: a step key per key
+    and step, then four words per walker and step (two blocks, each word
+    one xor more)."""
+    return chunk_steps * (n_keys * THREEFRY_OPS + 4 * walkers * (THREEFRY_OPS + 1))
+
+
 def _check_keys(keys: torch.Tensor, dev) -> int:
     """A ``(2,)`` key or ``(Q, 2)`` per-query keys as int32 bit patterns,
     8-byte aligned (read as one uint2); returns Q (1 for one key)."""
     if keys.dim() not in (1, 2) or keys.shape[-1] != 2 or keys.numel() == 0:
         raise ValueError(f"keys must be (2,) or (Q, 2), got {tuple(keys.shape)}")
     _check_lane("keys", keys, keys.shape, dev)
-    if keys.data_ptr() % 8:
+    if not abstract.reckons_card(keys) and keys.data_ptr() % 8:
         raise ValueError("keys must be 8-byte aligned (read as uint2)")
     return 1 if keys.dim() == 1 else int(keys.shape[0])
 
@@ -164,7 +187,7 @@ def walk_bits(
     patterns, and the table holds the words' bit patterns as int32.
     """
     dev = keys.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not abstract.reckons_card(keys):
         raise ValueError(f"walk_bits runs on CUDA tensors, got {dev}")
     n_keys = _check_keys(keys, dev)
     if not 0 <= chunk_steps <= _MAX_GRID_Y or w < 0:
@@ -174,6 +197,11 @@ def walk_bits(
         raise ValueError(f"{n} walkers overflow the kernel's int32 walker index")
     out = torch.empty((chunk_steps, n, 4), dtype=torch.int32, device=dev)
     if out.numel() == 0:
+        return out
+    if abstract.reckons_card(keys):
+        # the keys read, the table written; the table's threefry blocks
+        _build.charge("walk_bits", 8 * n_keys + 4 * out.numel(),
+                    {"int32": threefry_ops(n_keys, n, chunk_steps)})
         return out
     err = _bits_fn()(
         keys.data_ptr(), w, step_base & _U32, chunk_steps, n, out.data_ptr(),
@@ -223,7 +251,7 @@ def walk_steps_fused(
     ``[0, n_feats)`` when both bound tables are given and ``beta_u32 > 0``.
     """
     dev = curr.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not abstract.reckons_card(curr):
         raise ValueError(f"walk_steps_fused runs on CUDA tensors, got {dev}")
     w = int(curr.shape[0])
     n_keys = _check_keys(keys, dev)
@@ -260,6 +288,18 @@ def walk_steps_fused(
     qev = lane() if with_query else None
     sev, pev = lane(), lane()
     bev = lane() if count_boards else None
+    if abstract.reckons_card(curr):
+        # walker lanes read and the next pins written once, the event lanes
+        # written once, the keys read; per walker and step four dependent
+        # CSR reads (pin offsets, pin target, board offsets, board target)
+        # and two bound reads when biased; four threefry words
+        n_lanes = sum(x is not None for x in (qev, sev, pev, bev))
+        reads = 4 + (2 if use_bias else 0)
+        nbytes = (4 * (len(walkers) + 1) * w + 8 * n_keys
+                  + 4 * n_lanes * chunk_steps * w + SECTOR * reads * chunk_steps * w)
+        _build.charge("walk_steps_fused", nbytes,
+                    {"int32": threefry_ops(n_keys, w, chunk_steps)})
+        return (nxt, qev, sev, pev, bev) if with_query else (nxt, sev, pev, bev)
     err = _fn()(
         curr.data_ptr(), query.data_ptr(), feat.data_ptr(), slot.data_ptr(),
         _ptr(qid), keys.data_ptr(), w // n_keys, step_base & _U32,
@@ -310,7 +350,7 @@ def walk_hop_fused(
     a gated-off lane's may be anything.
     """
     dev = pos.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not abstract.reckons_card(pos):
         raise ValueError(f"walk_hop_fused runs on CUDA tensors, got {dev}")
     if pos.dim() not in (1, 2) or offsets.dim() != pos.dim() or (
             targets.dim() != pos.dim()):
@@ -340,6 +380,14 @@ def walk_hop_fused(
         )
     out = torch.empty(shape, dtype=torch.int32, device=dev)
     ok = torch.empty(shape, dtype=torch.bool, device=dev)
+    if abstract.reckons_card(pos):
+        # pos, gate and walker read, out and ok written once a lane, the
+        # row bases read; every lane gated (the data-free bound): its word,
+        # its offset pair and its target, three dependent random reads
+        lanes = pos.numel()
+        _build.charge("walk_hop_fused", lanes * (4 + 1 + 4 + 4 + 1) + 4 * n_shards
+                    + SECTOR * 3 * lanes, {})
+        return out, ok
     words = table[step, :, column]           # a view: its first word's address
     err = _hop_fn()(
         pos.data_ptr(), gate.data_ptr(), words.data_ptr(), walker.data_ptr(),

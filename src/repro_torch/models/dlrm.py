@@ -24,6 +24,7 @@ from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
+from repro_torch import abstract
 from repro_torch.core import counter
 from repro_torch.models import embedding, layers
 
@@ -101,6 +102,11 @@ def init_params(gen: torch.Generator, cfg: DLRMConfig) -> Dict[str, Any]:
         "bot": _init_mlp(gen, cfg.bot_mlp),
         "top": _init_mlp(gen, (cfg.top_in,) + cfg.top_mlp),
     }
+
+
+def abstract_params(cfg: DLRMConfig) -> Dict[str, Any]:
+    """``init_params``' tree as meta tensors (the dry run; no allocation)."""
+    return abstract.abstract_of(lambda: init_params(torch.Generator(), cfg))
 
 
 def param_logical(cfg: DLRMConfig) -> Dict[str, Any]:

@@ -38,7 +38,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch import abstract
+from repro_torch.core.distributed import reduce_from
+from repro_torch.device import DeviceLike, on_card, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +75,11 @@ def init_table(gen: torch.Generator, cfg: MegaTableConfig,
     return table.mul_(cfg.dim ** -0.5)
 
 
+def abstract_table(cfg: MegaTableConfig, dtype=torch.float32) -> torch.Tensor:
+    """``init_table``'s shape and dtype as a meta tensor."""
+    return abstract.meta((cfg.total_rows, cfg.dim), dtype)
+
+
 def table_logical() -> Tuple[str, str]:
     return ("rows", "dim")
 
@@ -97,7 +104,7 @@ class _GatherRows(torch.autograd.Function):
         flat = idx.reshape(-1)
         g = grad.reshape((flat.numel(),) + grad.shape[idx.dim():])
         out = g.new_zeros((ctx.n_rows,) + g.shape[1:])
-        if g.is_cuda:
+        if on_card(g):
             out.index_put_((flat,), g, accumulate=True)
         else:
             out.index_add_(0, flat, g)
@@ -155,7 +162,9 @@ def lookup_sharded(table: torch.Tensor, ids: torch.Tensor, cfg: MegaTableConfig,
     base = torch.arange(local_ids.numel(), device=rows.device) * rows_per
     at = torch.where(mine, local, 0) + base.view(-1, *([1] * rows.dim()))
     vals = table[at] * mine[..., None].to(table.dtype)        # (S_l, b, f, d)
-    return fabric.psum(vals)
+    # under autograd over a process group each rank's table block takes
+    # the gradient of the rows it owns (the sum's identity backward)
+    return reduce_from(fabric, vals)
 
 
 def pooled_lookup(table: torch.Tensor, ids: torch.Tensor, cfg: MegaTableConfig,

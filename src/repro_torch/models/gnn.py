@@ -23,6 +23,19 @@ from the device.  ``edge_src`` is read as ``jnp.take`` reads it
 (``embedding.take_rows``); ``segment_ids`` outside ``[0, n)`` are dropped,
 as ``jax.ops.segment_sum`` drops them.  The layers run as a Python loop
 where the reference scans.
+
+``edge_fabric`` (a ``core.distributed`` fabric; the dry run's GIN cells
+pass the process group of every mesh axis) splits the edges over its
+ranks, as the reference's cells shard the edge axis: each rank passes
+its own edges, aggregates them, and the partial sums are added over the
+ranks (``reduce_from``; the node states read by the edges ``copy_to`` the
+fabric, so autograd all-reduces their gradient).
+
+Under a dry run (fake tensors, ``repro_torch/abstract.py``) ``segment_sum`` cannot
+read its depth: it is charged as one ``index_add`` of the rows into the
+segments, the traffic a segmented sum must move (each row and id read
+once, each touched segment read and written); the port's chain adds
+``depth - 1`` passes over the segments that the dry run does not count.
 """
 
 from __future__ import annotations
@@ -32,6 +45,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import abstract
+from repro_torch.core.distributed import copy_to, reduce_from
 from repro_torch.models import layers
 from repro_torch.models.embedding import take_rows
 
@@ -72,6 +87,11 @@ def init_params(gen: torch.Generator, cfg: GINConfig) -> Dict[str, Any]:
     }
 
 
+def abstract_params(cfg: GINConfig) -> Dict[str, Any]:
+    """``init_params``' tree as meta tensors (the dry run; no allocation)."""
+    return abstract.abstract_of(lambda: init_params(torch.Generator(), cfg))
+
+
 def param_logical(cfg: GINConfig) -> Dict[str, Any]:
     return {
         "encoder": {"w": ("feat", "hidden"), "b": ("hidden",)},
@@ -94,6 +114,11 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     n_rows = data.shape[0]
     dev = data.device
     ids = segment_ids.long()
+    if abstract.is_fake(data):
+        # the dry run's static form (see the module docstring)
+        keep = (ids >= 0) & (ids < num_segments)
+        out = data.new_zeros((num_segments + 1,) + data.shape[1:])
+        return out.index_add(0, torch.where(keep, ids, num_segments), data)[:-1]
     valid = (ids >= 0) & (ids < num_segments)
     ids = torch.where(valid, ids, num_segments)     # dropped rows sort last
     order = torch.argsort(ids, stable=True)
@@ -120,16 +145,21 @@ def forward(
     cfg: GINConfig,
     graph_ids: Optional[torch.Tensor] = None,   # (n_nodes,) for batched readout
     n_graphs: int = 0,
+    edge_fabric=None,
 ) -> torch.Tensor:
-    """Returns (n_nodes, n_classes) node logits, or (n_graphs, n_classes)."""
+    """Returns (n_nodes, n_classes) node logits, or (n_graphs, n_classes);
+    with ``edge_fabric`` the edges are this rank's (module docstring)."""
     cd = cfg.compute_dtype
     n_nodes = feats.shape[0]
     enc, lp = params["encoder"], params["layers"]
     h = feats.to(cd) @ enc["w"].to(cd)
     h = torch.relu(h + enc["b"].to(cd))
     for i in range(lp["w1"].shape[0]):
-        msgs = take_rows(h, edge_src)                            # (e, d)
-        agg = segment_sum(msgs, edge_dst, n_nodes)
+        if edge_fabric is None:
+            agg = segment_sum(take_rows(h, edge_src), edge_dst, n_nodes)
+        else:
+            msgs = take_rows(copy_to(edge_fabric, h), edge_src)
+            agg = reduce_from(edge_fabric, segment_sum(msgs, edge_dst, n_nodes)[None])
         z = (1.0 + lp["eps"][i]).to(cd) * h + agg
         z = torch.relu(z @ lp["w1"][i].to(cd) + lp["b1"][i].to(cd))
         z = z @ lp["w2"][i].to(cd) + lp["b2"][i].to(cd)
@@ -148,8 +178,9 @@ def node_classification_loss(
     labels: torch.Tensor,       # (n_nodes,) int32
     mask: torch.Tensor,         # (n_nodes,) — train mask / target-node mask
     cfg: GINConfig,
+    edge_fabric=None,
 ) -> torch.Tensor:
-    logits = forward(params, feats, edge_src, edge_dst, cfg)
+    logits = forward(params, feats, edge_src, edge_dst, cfg, edge_fabric=edge_fabric)
     return layers.cross_entropy_logits(logits, labels, mask.float())
 
 
@@ -162,8 +193,9 @@ def graph_classification_loss(
     labels: torch.Tensor,       # (n_graphs,)
     cfg: GINConfig,
     n_graphs: int,
+    edge_fabric=None,
 ) -> torch.Tensor:
     logits = forward(params, feats, edge_src, edge_dst, cfg,
-                     graph_ids=graph_ids, n_graphs=n_graphs)
+                     graph_ids=graph_ids, n_graphs=n_graphs, edge_fabric=edge_fabric)
     mask = torch.ones((n_graphs,), dtype=torch.float32, device=logits.device)
     return layers.cross_entropy_logits(logits, labels, mask)

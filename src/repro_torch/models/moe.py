@@ -28,8 +28,10 @@ port; with one, ``transformer`` takes ``moe_ffn_sharded``), the same parameter t
     (``preferred_element_type=float32``): ``torch.bmm(..., out_dtype=
     float32)`` on the card; torch (2.13) has no CPU kernel for that
     overload, so on the CPU the inputs are upcast first (exact products,
-    another summation order).  Pad experts' products are computed as the
-    reference computes them;
+    another summation order).  That overload has no autograd formula, so
+    under autograd on the card ``_MixedBmm`` gives it one: the gradients
+    are float32 products rounded to the inputs' dtype.  Pad experts'
+    products are computed as the reference computes them;
   * the combine adds each token's ``k`` contributions in ascending expert
     order, one add at a time in the compute dtype: the order of the
     reference's sorted ``.at[st].add``, and deterministic on the card
@@ -59,6 +61,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import counter
+from repro_torch.core.distributed import copy_to, reduce_from
+from repro_torch.device import on_card
 from repro_torch.models import layers
 from repro_torch.models.embedding import gather_rows
 
@@ -120,12 +124,34 @@ def moe_param_specs(cfg: MoEConfig) -> Dict[str, Tuple]:
     return p
 
 
+class _MixedBmm(torch.autograd.Function):
+    """``bmm(a, b, out_dtype=float32)``, which has no autograd formula in
+    torch: the forward on the tensor cores with float32 accumulation; the
+    backward takes the float32 output gradient times the other operand in
+    float32 and rounds each input's gradient to its dtype, as the
+    reference's transposed ``dot_general`` returns the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
 def expert_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``einsum("ecd,edf->ecf", a, b, preferred_element_type=float32)``:
     the inputs' dtype in, float32 out."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if on_card(a):
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _MixedBmm.apply(a, b)
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 
@@ -260,7 +286,7 @@ def _expert_slice(w: torch.Tensor, shard_ids: torch.Tensor, e_loc: int) -> torch
 
 
 def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig,
-                shard_ids: torch.Tensor, e_loc: int
+                shard_ids: torch.Tensor, e_loc: int, fabric=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One data shard's tokens ``x`` (t_loc, d) through the model shards
     ``shard_ids`` (the local ones: every shard on a local mesh, this rank's
@@ -273,7 +299,12 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
     ``local_fn`` counts; a shard keeps its own experts' assignments.  Its
     partial adds each token's k assignments in ascending expert id, the
     others' as ``0 * (gate * 0)`` (zero, or NaN for a NaN gate), as the
-    reference adds them from its drop slot."""
+    reference adds them from its drop slot.
+
+    ``fabric`` (the 'model' group of a process-group mesh) makes the
+    tokens and gates the experts read ``copy_to`` it: under autograd each
+    rank's part of their gradient, from its own experts, is all-reduced
+    over the group, so the router and the layers below see the whole."""
     t, d = x.shape
     k = cfg.top_k
     cd, dev = x.dtype, x.device
@@ -281,6 +312,8 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
     probs, gate, sel = route(x, params["router"], cfg)
     aux = load_balance_aux(probs, sel, cfg)
 
+    if fabric is not None:
+        x, gate = copy_to(fabric, x), copy_to(fabric, gate)
     order, dest_g, keep, cap = dispatch(sel, t, cfg)
     st = order // k
     sg = gate.reshape(-1)[order]
@@ -326,8 +359,12 @@ def moe_ffn_sharded(
     blocks of rows (major to minor); the model shards are a leading dim of
     each data block's partials, summed as a chain in shard order.  On a
     process-group mesh ``x`` is this rank's data block and the sum is the
-    'model' group's all-reduce; that form serves (no autograd through the
-    collective)."""
+    'model' group's all-reduce.  Autograd runs through both forms: over a
+    process group the partials' sum hands its gradient to every rank
+    (``reduce_from``), the experts' inputs all-reduce theirs over 'model'
+    (``ep_partials``), and the data ranks' aux mean all-reduces its own,
+    so each rank's grads are those of its share of the global loss (the
+    form ``train_loop.jit_train_step`` sums over the data axes)."""
     e_pad = cfg.n_experts_padded
     n_model = mesh.shape[model_axis]
     if e_pad % n_model:
@@ -349,15 +386,11 @@ def moe_ffn_sharded(
             auxes.append(aux)
         out, aux = torch.cat(outs), torch.stack(auxes)
     else:
-        if torch.is_grad_enabled() and (
-                x.requires_grad or any(p.requires_grad for p in params.values())):
-            raise NotImplementedError(
-                "expert parallelism over a process group serves only: autograd "
-                "does not run through the 'model' all-reduce")
-        partial, aux = ep_partials(x, params, cfg, model.shard_ids, e_loc)
-        out, aux = model.psum(partial), aux[None]
+        partial, aux = ep_partials(x, params, cfg, model.shard_ids, e_loc,
+                                   fabric=model)
+        out, aux = reduce_from(model, partial), aux[None]
     if d_axes:      # pmean: the sum over the data shards over their count
-        aux = mesh.fabric(d_axes).psum(aux) / torch.tensor(
+        aux = reduce_from(mesh.fabric(d_axes), aux, grad="psum") / torch.tensor(
             float(n_data), dtype=aux.dtype, device=aux.device)
     else:
         aux = aux[0]

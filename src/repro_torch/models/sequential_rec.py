@@ -37,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import abstract
 from repro_torch.core import counter
 from repro_torch.models import embedding, layers
 
@@ -118,6 +119,11 @@ def init_params(gen: torch.Generator, cfg: SeqRecConfig) -> Dict[str, Any]:
                                                    device=dev)
             p["head"][f"b{i}"] = zeros(dims[i + 1])
     return p
+
+
+def abstract_params(cfg: SeqRecConfig) -> Dict[str, Any]:
+    """``init_params``' tree as meta tensors (the dry run; no allocation)."""
+    return abstract.abstract_of(lambda: init_params(torch.Generator(), cfg))
 
 
 def param_logical(cfg: SeqRecConfig) -> Dict[str, Any]:

@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import abstract
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import data_axes
@@ -240,6 +241,11 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
         dense_cfg = dataclasses.replace(cfg, moe=None, d_ff=cfg.first_dense_ff)
         params["dense0"] = _layer(_init_blocks(gen, dense_cfg, 1, dtype), 0)
     return params
+
+
+def abstract_params(cfg: LMConfig) -> Dict[str, Any]:
+    """``init_params``' tree as meta tensors (the dry run; no allocation)."""
+    return abstract.abstract_of(lambda: init_params(torch.Generator(), cfg))
 
 
 def _block_logical(cfg: LMConfig) -> Dict[str, Tuple]:
@@ -531,6 +537,15 @@ def init_kv_cache(
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def abstract_kv_cache(
+    cfg: LMConfig, batch: int, max_seq: int, dtype=None
+) -> Dict[str, torch.Tensor]:
+    """``init_kv_cache``'s dict as meta tensors."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dtype = dtype or cfg.cache_dtype
+    return {"k": abstract.meta(shape, dtype), "v": abstract.meta(shape, dtype)}
 
 
 def kv_cache_logical() -> Dict[str, Tuple]:

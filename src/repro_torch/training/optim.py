@@ -12,7 +12,8 @@ and returns the same tensors: the counterpart of the reference's donated
 buffers (``jit(..., donate_argnums=0)``), so a full-width step holds one
 copy of its state.  ``rowwise_adagrad_update`` returns new tensors, as the
 reference's does.  ``state_logical`` mirrors the parameters' logical
-axes for the sharding rules; ``abstract_state`` waits for the dry run.
+axes for the sharding rules; ``abstract_state`` gives the state as meta
+tensors for the dry run.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch import abstract
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.training import tree as tree_lib
 
@@ -57,6 +59,14 @@ def init(params: PyTree) -> OptState:
     return OptState(m=tree_lib.tree_map(zeros, params),
                     v=tree_lib.tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def abstract_state(params: PyTree) -> OptState:
+    """``init(params)`` as meta tensors: ``m`` and ``v`` float32 like the
+    parameters, ``step`` a 0-d int32 (``params`` may be meta tensors)."""
+    f32 = lambda p: abstract.meta(p.shape, torch.float32)
+    return OptState(m=tree_lib.tree_map(f32, params), v=tree_lib.tree_map(f32, params),
+                    step=abstract.meta((), torch.int32))
 
 
 def state_logical(param_logical_tree: PyTree) -> OptState:

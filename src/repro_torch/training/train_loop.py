@@ -255,5 +255,12 @@ def _write_back(p, region: torch.Tensor, pspec, ospec, zero) -> None:
         parts = zero.all_gather(region[None].contiguous())
         region = torch.cat(list(parts.unbind(0)), dim=dims[0])
     local = _local(p)
-    if local.data_ptr() != region.data_ptr():   # (a one-rank gather may alias)
+    if not _same_memory(local, region):          # (a one-rank gather may alias)
         local.copy_(region)
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` view the same elements (compared by storage and
+    offset: a dry run's fake tensors have no data pointer)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset() and a.shape == b.shape)

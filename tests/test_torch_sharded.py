@@ -563,11 +563,14 @@ def test_sharded_config_is_the_reference_recipe():
 
 
 def test_sharded_walk_config_refuses_unroll():
-    """The reference's loop-free cost-model mode has no counterpart in the
-    port, so asking for it raises instead of being ignored."""
-    with pytest.raises(ValueError, match="unroll"):
-        tdist.ShardedWalkConfig(unroll=True)
-    assert not tdist.ShardedWalkConfig().unroll
+    """``unroll`` was refused until the port had a dry run; it is the
+    reference's XLA unrolling knob, now accepted as
+    ``pixie_walk_events_fixed`` accepts its own: a config with it differs
+    from one without it in that field only (its bits:
+    ``test_torch_cells.py::test_sharded_walk_unroll_changes_no_bit``)."""
+    cfg = tdist.ShardedWalkConfig(unroll=True)
+    assert cfg.unroll and not tdist.ShardedWalkConfig().unroll
+    assert dataclasses.replace(cfg, unroll=False) == tdist.ShardedWalkConfig()
 
 
 def test_sharded_serve_batch_refusals(port):
