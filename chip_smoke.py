@@ -397,18 +397,52 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              one 5-pin query of 8 slots) and qwen2.5-3b decode_32k at
              batch 4 (seeded bf16 weights and cache, position 32,767),
              each equal to the direct module calls (walk.pixie_walk_events
-             + recommend_from_events; transformer.decode_step) bit for bit.
-             (c) prints no time.  The phase's seconds.
+             + recommend_from_events; transformer.decode_step) bit for bit
+             (the decode cell is the tensor-parallel program of phase 37 on
+             one rank: its attention the partial kernel over the whole
+             cache, its merge over one block exact).  (c) prints no time.
+             The phase's seconds.
+37. tp_serve after phase 36, nothing resident: tensor-parallel LM serving
+             (sharding.TensorParallel; transformer.prefill / decode_step
+             with tp=).  (a) decode_attention_partial at decode_32k's shape
+             cut into 4 kv_seq blocks (batch 16, 32,768 positions, 16 / 2
+             heads of 128, bf16 cache, q bf16 and float32), lengths 1,
+             8,192, 8,193, 32,768 and per row (blocks wholly past the
+             length launch and give the empty sentinel): o within 2e-6 of
+             the twin, m and l within 2e-6 times max(1, |value|), the 4
+             blocks merged (merge_partials) within 2e-6 of the whole-cache
+             kernel; one block's call timed (device ms, the twin's, one
+             aten._scaled_dot_product_efficient_attention call returning
+             (o, lse) with the kv heads expanded, the byte bound).  (b)
+             qwen2_5_3b.FULL in float32 through a local ("data", "model")
+             mesh of (1, 4): a 128-token prompt at batch 4 prefilled with
+             the heads, FFN and vocabulary on 'model' (LM_TRAIN_RULES),
+             then 16 greedy decode steps under the decode cell's serve
+             rules (heads whole, kv_seq on 'model'), in lockstep with the
+             unsharded path fed the same tokens: every token equal, the
+             largest logit difference of each step printed; the local
+             blocks are views of the one tree.  (c) deepseek_moe_16b.FULL
+             the same way in float32 (phase 31's moe_f32_config: full
+             depth when the reckoned peak fits 76 GB), every token equal;
+             then in bf16: token agreement, the largest logit difference
+             of each step, peak GB beside the tree's (each peak must stay
+             under 1.5 trees).  (d) phase 36's dry-run records of
+             the 15 LM serve cells: deepseek-moe-16b prefill_32k,
+             decode_32k and long_500k each under 80 GB a rank; every decode
+             cell's all-gather bytes exactly its step's (o, m, l), router
+             and logit gathers (no parameter leaf or cache layer) and its
+             collective term below its memory term.  The phase's seconds.
 
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
 13, 14, 18, 19 and 19b, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, whose
 models launch no hand kernel, 30 and 31, 33-34, whose training path
-reaches none, 35's expert-parallel decode paths, and 36's two real cells:
-walk_steps_fused from the replicated Pixie cell, decode_attention from
-the decode cell; the dry run launches nothing); the kernels line sums
-them, and every one of its nine kernels
-(the eight TPU kernels' and walk_bits) must have launched.  The build
+reaches none, 35's expert-parallel decode paths, 36's two real cells:
+walk_steps_fused from the replicated Pixie cell, decode_attention_partial
+from the decode cell (the dry run launches nothing), and 37's
+tensor-parallel steps, each reset and read around the step); the kernels
+line sums them, and every one of its ten kernels (the eight TPU kernels',
+decode_attention's partial form and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
 kernels (ptxas -v).  The profiled
 dense, event-mode and sharded requests (phases 2, 21, 14) must draw no
@@ -2470,6 +2504,55 @@ def generate_both(params, cfg, prompt, n_new: int, what: str, identical=True,
     return toks, launches, wall_s, agree
 
 
+TRACE_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+TRACE_HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+
+
+def trace_summary(prof) -> tuple:
+    """A finished profile's device and host operations by name, ``{name:
+    [count, microseconds]}``: each device operation's duration, and each
+    host operation's self time (its duration less its nested operations'
+    on the same thread), the sums ``key_averages()`` gives.  Read from the
+    chrome trace kineto writes in C++: Python's own parse of a training
+    step's ~700k events (``key_averages``, ``events``) takes minutes."""
+    import collections
+    import tempfile
+
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    device = collections.defaultdict(lambda: [0, 0.0])
+    host = collections.defaultdict(lambda: [0, 0.0])
+    threads = collections.defaultdict(list)
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") in TRACE_DEVICE_CATS:
+            d = device[e["name"]]
+            d[0] += 1
+            d[1] += e["dur"]
+        elif e.get("cat") in TRACE_HOST_CATS:
+            threads[(e["pid"], e["tid"])].append(e)
+    for evs in threads.values():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        stack = []                       # [end, name, self time] of open ops
+        for e in evs + [None]:
+            while stack and (e is None or stack[-1][0] <= e["ts"]):
+                _, name, own = stack.pop()
+                host[name][0] += 1
+                host[name][1] += own
+            if e is not None:
+                if stack:
+                    stack[-1][2] -= e["dur"]
+                stack.append([e["ts"] + e["dur"], e["name"], e["dur"]])
+    return device, host
+
+
 def profile_decode_step(fn) -> dict:
     """One step (a decode step, a train step) under torch.profiler: wall
     ms, device busy ms and the idle share, the device operations it
@@ -2484,19 +2567,15 @@ def profile_decode_step(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
-                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    device, host = trace_summary(prof)
+    busy = sum(us for _, us in device.values()) / 1e3
+    kernels = sorted(device.items(), key=lambda kv: -kv[1][1])
+    hosts = sorted(host.items(), key=lambda kv: -kv[1][1])
     return dict(wall_ms=wall, device_busy_ms=busy,
                 device_idle_share=max(0.0, 1 - busy / wall) if wall else None,
-                device_ops=sum(e.count for e in kernels),
-                top=[dict(kernel=e.key[:80], count=e.count,
-                          ms=e.self_device_time_total / 1e3) for e in kernels[:6]],
-                top_host=[dict(op=e.key[:80], count=e.count,
-                               ms=e.self_cpu_time_total / 1e3) for e in host[:8]])
+                device_ops=sum(n for n, _ in device.values()),
+                top=[dict(kernel=k[:80], count=n, ms=us / 1e3) for k, (n, us) in kernels[:6]],
+                top_host=[dict(op=k[:80], count=n, ms=us / 1e3) for k, (n, us) in hosts[:8]])
 
 
 def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
@@ -4732,9 +4811,10 @@ def real_cells(dev, card: str) -> dict:
         if not (torch.equal(logits, want)
                 and all(torch.equal(new_cache[k], want_cache[k]) for k in ("k", "v"))):
             raise AssertionError("launch: the qwen decode cell differs from decode_step")
-        if launches["qwen_decode"]["decode_attention"] != cfg.n_layers:
-            raise AssertionError(f"launch: the decode cell launched "
-                                 f"{launches['qwen_decode']['decode_attention']} attentions")
+        if launches["qwen_decode"]["decode_attention_partial"] != cfg.n_layers:
+            raise AssertionError(
+                f"launch: the decode cell launched "
+                f"{launches['qwen_decode']['decode_attention_partial']} attentions")
         log("launch_cell", cell="qwen2.5-3b/decode_32k", card=card, batch=LAUNCH_DECODE_BATCH,
             seq_len=seq, pos=seq - 1, weights="seeded bf16", identical_to_direct_call=True,
             launches=launches["qwen_decode"], peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -4796,6 +4876,7 @@ def launch_phase(dev, trained: dict) -> list:
 
     # (a) every single-pod cell, reckoned on H100 data-sheet constants
     recs = read_records(path["single"])
+    MEASURED["dryrun_single"] = recs        # phase 37 (d) reads the LM serve cells
     bad = [f"{r['arch']}/{r['shape']}" for r in recs if r["status"] != "ok"]
     if len(recs) != 42 or bad:
         raise AssertionError(f"launch: {len(recs)} dry-run records, failed: {bad}")
@@ -4833,10 +4914,282 @@ def launch_phase(dev, trained: dict) -> list:
     log("dryrun_vs_card", cell="qwen2.5-3b/decode_32k", mesh="one (1, 1)", card=card,
         global_batch=DECODE_32K["batch"], reckoned_peak_gb=dc["peak_bytes"] / 1e9,
         measured_peak_gb=MEASURED.get("decode_32k_peak_gb"),
-        note="the cell gathers float32 parameters and casts them at each use; phase "
+        note="the cell casts its float32 parameters at each use; phase "
              "19b decodes with the weights cast to bf16 once")
     log("launch", seconds=time.perf_counter() - t0, card=card)
     return [cell_launches["pixie_replicated"], cell_launches["qwen_decode"]]
+
+
+# ---------------------------------------------------------------------------
+# 37. tp_serve: tensor-parallel LM serving on a local (1, 4) mesh
+# ---------------------------------------------------------------------------
+
+TP_MESH = (1, 4)
+TP_BATCH = 4
+TP_PROMPT = 128
+TP_NEW_TOKENS = 16          # decode steps after the prefill's token
+TP_BLOCKS = 4               # the decode_32k cache cut into kv_seq blocks
+TP_PEAK_OVER_TREE = 1.5     # the local blocks are views: no second tree
+PARTIAL_LENGTHS = (1, 8192, 8193, 32768, "rows")
+LM_SERVE_ARCHS = ("qwen2.5-3b", "smollm-360m", "minitron-4b", "granite-moe-3b-a800m",
+                  "deepseek-moe-16b")
+LM_SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+
+
+def partial_bound(q, n_pos: int, kh: int, kv_bytes: int) -> dict:
+    """The least time of one partial call: q, the (o, m, l) outputs once and
+    K and V of its ``n_pos`` (row, position) pairs once over the HBM rate;
+    its float32 multiply-adds over the float32 peak."""
+    b, h, dh = q.shape
+    nbytes = (q.numel() * q.element_size() + 4 * b * h * (dh + 2)
+              + 2 * n_pos * kh * dh * kv_bytes)
+    flops = 4 * h * dh * n_pos
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_PEAK_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=nbytes, flops=flops)
+
+
+def efficient_attention_yardstick(q, kb, vb):
+    """One PyTorch call returning (o, log-sum-exp) over a block:
+    ``aten._scaled_dot_product_efficient_attention(..., compute_log_sumexp=
+    True)`` on (b, h, s, dh) tensors, K and V copied out to every query
+    head outside the timed call (the op takes no GQA).  Returns (the call,
+    how K and V were given)."""
+    import torch
+
+    b, h, dh = q.shape
+    s, kh = kb.shape[1], kb.shape[2]
+    qs = q.to(kb.dtype)[:, :, None, :]
+    ks = kb.transpose(1, 2)[:, :, None].expand(b, kh, h // kh, s, dh).reshape(b, h, s, dh)
+    vs = vb.transpose(1, 2)[:, :, None].expand(b, kh, h // kh, s, dh).reshape(b, h, s, dh)
+    op = torch.ops.aten._scaled_dot_product_efficient_attention
+    call = lambda: op(qs, ks, vs, None, True)
+    call()
+    return call, "kv heads expanded to query heads (a copy outside the call)"
+
+
+def partial_kernel_check(dev, card: str) -> dict:
+    """Phase 37a: the partial kernel against its twin at decode_32k's
+    shape (batch 16, 32,768 positions, 16 query / 2 kv heads of 128, bf16)
+    cut into 4 blocks, at lengths that leave blocks empty, per-row and
+    uniform, q bf16 and float32; the 4 blocks merged against the
+    whole-cache kernel; one block's call timed.  Returns the kernels-line
+    row (launches filled from the main paths)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+
+    b, h, kh, dh, s = DECODE_32K["batch"], 16, 2, 128, DECODE_32K["seq_len"]
+    blk = s // TP_BLOCKS
+    q, k, v, _ = attn_inputs(dev, b, h, kh, dh, s, 1, torch.bfloat16, torch.bfloat16, SEED + 37)
+    kbs = [k[:, i * blk:(i + 1) * blk].contiguous() for i in range(TP_BLOCKS)]
+    vbs = [v[:, i * blk:(i + 1) * blk].contiguous() for i in range(TP_BLOCKS)]
+    errs = {"o": 0.0, "m_rel": 0.0, "l_rel": 0.0, "merged": 0.0}
+    for q_dtype in (torch.bfloat16, torch.float32):
+        qq = q.to(q_dtype)
+        for lengths in PARTIAL_LENGTHS:
+            if lengths == "rows":
+                lengths = torch.randint(1, s + 1, (b,), dtype=torch.int32, device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(37))
+                lengths[:4] = torch.tensor([1, blk, blk + 1, s], dtype=torch.int32)
+            parts = []
+            for i in range(TP_BLOCKS):
+                got = da.decode_attention_partial(qq, kbs[i], vbs[i], i * blk, lengths)
+                want = da.decode_attention_partial_plain(qq, kbs[i], vbs[i], i * blk, lengths)
+                if not all(bool(torch.isfinite(x).all()) for x in got):
+                    raise AssertionError(f"partial block {i}: not finite")
+                errs["o"] = max(errs["o"], float((got[0] - want[0]).abs().max()))
+                for name, x, y in (("m_rel", got[1], want[1]), ("l_rel", got[2], want[2])):
+                    errs[name] = max(errs[name], float(
+                        ((x - y).abs() / torch.clamp(y.abs(), min=1.0)).max()))
+                parts.append(got)
+            o, m, l = (torch.stack(t) for t in zip(*parts))
+            whole = da.decode_attention(qq, k, v, lengths)
+            errs["merged"] = max(errs["merged"],
+                                 float((da.merge_partials(o, m, l) - whole).abs().max()))
+    torch.cuda.synchronize()
+    if max(errs.values()) > ATTN_TOL:
+        raise AssertionError(f"decode_attention_partial: errors {errs} > {ATTN_TOL}")
+    # one full block, as a decode step's shard calls it at pos = s - 1
+    kb, vb = kbs[0], vbs[0]
+    first = da.decode_attention_partial(q, kb, vb, 0, s)
+    if not all(torch.equal(x, y) for x, y in zip(first, da.decode_attention_partial(
+            q, kb, vb, 0, s))):
+        raise AssertionError("decode_attention_partial: two runs differ")
+    library, form = efficient_attention_yardstick(q, kb, vb)
+    row = dict(
+        name="decode_attention_partial", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention_partial.cu",
+        replaces="src/repro/kernels/decode_attention.py:80", launches=None,
+        max_abs_err=max(errs.values()),
+        ms=device_ms(lambda: da.decode_attention_partial(q, kb, vb, 0, s), 20),
+        plain_ms=cuda_ms(lambda: da.decode_attention_partial_plain(q, kb, vb, 0, s), 3),
+        library_ms=device_ms(library, 20),
+        **partial_bound(q, b * blk, kh, kb.element_size()))
+    plan = da.plan(b, h, kh, dh, kb.dtype, blk)
+    log("tp_partial_kernel", card=card, q=list(q.shape), block=list(kb.shape),
+        blocks=TP_BLOCKS, lengths=[str(x) for x in PARTIAL_LENGTHS],
+        q_dtypes=["bfloat16", "float32"], errors=errs, tol=ATTN_TOL,
+        splits=plan.n_splits, split_len=plan.split_len, ctas=plan.ctas,
+        library_form=form, kernel_over_library=row["ms"] / row["library_ms"],
+        share_of_bound=row["bound_ms"] / row["ms"], **row)
+    del q, k, v, kbs, vbs
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_lockstep(params, cfg, prompt, n_new: int, mesh, what: str, exact: bool) -> dict:
+    """Prefill and ``n_new`` greedy decode steps tensor-parallel over
+    ``mesh`` (prefill under LM_TRAIN_RULES, decode under the decode cell's
+    serve rules) beside the unsharded path, both fed the tensor-parallel
+    path's token: the largest |logit difference| of each step and the
+    share of (step, row) tokens that agree; ``exact``: every token must.
+    The tensor-parallel steps' launches are counted alone."""
+    import torch
+    from repro_torch.distribution import sharding
+    from repro_torch.kernels import _build
+    from repro_torch.models import transformer
+
+    serve = sharding.LM_SERVE_RULES.with_overrides(heads=None, embed=None)
+    pre = sharding.TensorParallel(mesh, sharding.LM_TRAIN_RULES, sharding.LM_SERVE_RULES)
+    dec = sharding.TensorParallel(mesh, serve)
+    logical = transformer.param_logical(cfg)
+    s0 = prompt.shape[1]
+    max_seq = s0 + n_new
+    launches = {k: 0 for k in _build.launches}
+    ms = {"tp": [], "unsharded": []}
+
+    def tp_call(fn):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms["tp"].append((time.perf_counter() - t) * 1e3)
+        for k_, n in _build.launches.items():
+            launches[k_] += n
+        return out
+
+    with torch.no_grad():
+        lt, cache_t = tp_call(lambda: transformer.prefill(
+            pre.local_form(params, logical), prompt, cfg, max_seq=max_seq, tp=pre))
+        lu, cache_u = transformer.prefill(params, prompt, cfg, max_seq=max_seq)
+        dparams = dec.local_form(params, logical)
+        diffs = [float((lt - lu).abs().max())]
+        agree = [float((lt.argmax(-1) == lu.argmax(-1)).float().mean())]
+        for i in range(n_new):
+            cur = torch.argmax(lt, dim=-1).to(torch.int32)
+            lt, cache_t = tp_call(lambda: transformer.decode_step(
+                dparams, cache_t, cur, s0 + i, cfg, tp=dec))
+            lu, cache_u = transformer.decode_step(params, cache_u, cur, s0 + i, cfg)
+            if not bool(torch.isfinite(lt).all()):
+                raise AssertionError(f"{what}: tensor-parallel step {i} logits not finite")
+            diffs.append(float((lt - lu).abs().max()))
+            agree.append(float((lt.argmax(-1) == lu.argmax(-1)).float().mean()))
+    if exact and min(agree) < 1.0:
+        raise AssertionError(f"{what}: tensor-parallel tokens differ from the unsharded "
+                             f"ones (agreement by step {agree})")
+    want = cfg.n_layers * TP_MESH[1] * n_new
+    if launches["decode_attention_partial"] != want:
+        raise AssertionError(f"{what}: {launches['decode_attention_partial']} partial "
+                             f"attention launches, expected {want}")
+    return dict(max_logit_diff_per_step=diffs, token_agreement_per_step=agree,
+                token_agreement=float(np.mean(agree)), tp_ms=ms["tp"], launches=launches)
+
+
+def tp_model(dev, cfg, seed: int, card: str, what: str, exact: bool, **extra) -> dict:
+    """One model at full width through ``tp_lockstep`` on a local (1, 4)
+    mesh, its tree drawn on the card (the local blocks are views of it);
+    ``extra`` joins its log line."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = transformer.init_params(gen, cfg, dtype=cfg.compute_dtype)
+    tree = torch.cuda.memory_allocated() - resident
+    prompt = moe_prompt(dev, cfg, seed, TP_BATCH, TP_PROMPT)
+    mesh = mesh_lib.local_mesh(TP_MESH, ("data", "model"), device=dev)
+    out = tp_lockstep(params, cfg, prompt, TP_NEW_TOKENS, mesh, what, exact)
+    peak = torch.cuda.max_memory_allocated() - resident
+    out.update(model=cfg.name, card=card, compute_dtype=str(cfg.compute_dtype),
+               cache_dtype=str(cfg.cache_dtype), mesh=list(TP_MESH), batch=TP_BATCH,
+               prompt=TP_PROMPT, decode_steps=TP_NEW_TOKENS, tree_gb=gb(tree),
+               peak_gb=gb(peak), tokens_equal_unsharded=min(out["token_agreement_per_step"]) == 1.0,
+               n_layers=cfg.n_layers, **extra)
+    log(what, **out)
+    if peak > TP_PEAK_OVER_TREE * tree:
+        raise AssertionError(f"{what}: peak {gb(peak)} GB against a {gb(tree)} GB tree")
+    del params
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
+def tp_dryrun_cells(card: str) -> None:
+    """Phase 37d: phase 36's dry-run records of the LM serve cells, which
+    now reckon the tensor-parallel programs: deepseek-moe-16b's three under
+    80 GB a rank, and every decode cell's all-gathers only its steps'
+    (o, m, l), router-logit and logit gathers (no parameter leaf or cache
+    layer), its collective term below its memory term."""
+    from repro_torch.configs import get_arch
+
+    recs = {(r["arch"], r["shape"]): r for r in MEASURED["dryrun_single"]}
+    for arch in LM_SERVE_ARCHS:
+        cfg = get_arch(arch).config
+        for shape in LM_SERVE_SHAPES:
+            r = recs[(arch, shape)]
+            fields = dict(cell=f"{arch}/{shape}", card=card, gb_per_rank=rank_gb(r),
+                          collectives=r["collectives"], coll_by_axis=r["coll_by_axis"],
+                          t_compute_s=r["t_compute_s"], t_memory_s=r["t_memory_s"],
+                          t_collective_s=r["t_collective_s"], dominant=r["dominant"],
+                          kernels=r["kernels"],
+                          terms="reckoned from H100 SXM5 data-sheet constants, not measured")
+            if shape != "prefill_32k":
+                rows = 1 if shape == "long_500k" else 128 // 16
+                n_moe = cfg.n_scan if cfg.moe is not None else 0
+                experts = cfg.moe.n_experts_padded if n_moe else 0
+                want = 4 * rows * (cfg.n_layers * 16 * cfg.n_heads * (cfg.head_dim + 2)
+                                   + cfg.vocab_padded + n_moe * experts)
+                fields["all_gather_expected"] = want
+                if r["collectives"].get("all-gather") != want:
+                    raise AssertionError(f"tp_dryrun {arch}/{shape}: all-gather "
+                                         f"{r['collectives']} beyond the step's {want}")
+                if r["t_collective_s"] >= r["t_memory_s"]:
+                    raise AssertionError(f"tp_dryrun {arch}/{shape}: collective term "
+                                         "not below the memory term")
+            if arch == "deepseek-moe-16b" and rank_gb(r) >= CARD_GB:
+                raise AssertionError(f"tp_dryrun {arch}/{shape}: {rank_gb(r)} GB a rank")
+            log("tp_dryrun_cell", **fields)
+
+
+def tp_serve_phase(dev, qwen, deepseek) -> tuple:
+    """Phase 37 (the module docstring): the partial kernel's row and the
+    launches of the tensor-parallel paths."""
+    import dataclasses as dc
+
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    row = partial_kernel_check(dev, card)
+    qwen32 = dc.replace(qwen, compute_dtype=torch.float32)
+    # deepseek in float32 too (phase 31's config: full depth where the
+    # reckoning fits), where the tokens must agree: bf16 decode of its
+    # seeded weights flips most greedy tokens on any reordering of sums
+    # (phase 31's kernel path against its plain path)
+    deep32, reckon, cut = moe_f32_config(deepseek, TP_BATCH, TP_PROMPT,
+                                         TP_PROMPT + TP_NEW_TOKENS)
+    paths = [tp_model(dev, qwen32, SEED + 371, card, "tp_qwen_f32", exact=True),
+             tp_model(dev, deep32, SEED + 372, card, "tp_deepseek_f32", exact=True,
+                      reckoned=reckon, cut=cut),
+             tp_model(dev, deepseek, SEED + 372, card, "tp_deepseek_bf16", exact=False)]
+    tp_dryrun_cells(card)
+    log("tp_serve", seconds=time.perf_counter() - t0, card=card)
+    return row, paths
 
 
 def main() -> int:
@@ -5268,15 +5621,21 @@ def main() -> int:
     log("launch_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
     launch_paths = launch_phase(dev, trained)
 
+    # 37. tensor-parallel LM serving on a local (1, 4) mesh, nothing else
+    # resident; the dry run's LM serve cells from phase 36
+    torch.cuda.empty_cache()
+    log("tp_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
+    partial_row, tp_paths = tp_serve_phase(dev, qwen2_5_3b.FULL, deepseek_moe_16b.FULL)
+
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *past_cap_launches, *sharded_paths, *lm_paths, *event_paths,
              pruned_launches, fig4_launches, table1_launches, oracle_launches,
              sasrec_launches, recsys_launches, *moe_paths, train_launches, *dist_paths,
-             *launch_paths]
+             *launch_paths, *tp_paths]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
-            *event_rows, sharded_rows[1]]
+            *event_rows, sharded_rows[1], partial_row]
     for row in rows:
         row["launches"] = sum(p[row["name"]] for p in paths)
     if bag_row["launches"] == 0 or ranked_launches["embedding_bag"] == 0:
@@ -5300,7 +5659,7 @@ def main() -> int:
         oracle=oracle_launches, sasrec_2stage=sasrec_launches,
         recsys_full=recsys_launches, moe_granite=moe_paths[:4],
         moe_deepseek=moe_paths[4:], gin_max_rel_diff=gin_errs, train=train_launches,
-        dist_ep=dist_paths, launch_cells=launch_paths)
+        dist_ep=dist_paths, launch_cells=launch_paths, tp_serve=tp_paths)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

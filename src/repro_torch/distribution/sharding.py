@@ -8,6 +8,11 @@ tuple of logical names to a ``PartitionSpec``, dropping the axes a mesh
 lacks ('pod' on the single-pod mesh).  The five tables carry the
 reference's names and values.
 
+``TensorParallel`` is the port's explicit form of what GSPMD does with
+the LM serving cells' rules: each leaf dim a rule places on 'model' stays
+a block, computed on as a block (``models/transformer.py``'s tensor-
+parallel prefill and decode), on a process-group mesh or a local one.
+
 ``PartitionSpec`` is a tuple, one entry a tensor dim: ``None``, an axis
 name, or a tuple of names; it compares equal to the reference's spec
 turned into a tuple.  ``NamedSharding`` pairs a spec with a mesh and turns
@@ -23,7 +28,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
 
 from repro_torch.launch.mesh import Mesh
 from repro_torch.training import tree as tree_lib
@@ -285,3 +292,126 @@ def _full(x):
 def gather_state(tree: Any) -> Any:
     """Every leaf whole (a collective over the placements' ranks)."""
     return tree_lib.tree_map(_full, tree)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the leaves a rule set places on 'model' as blocks
+# ---------------------------------------------------------------------------
+
+
+class TensorParallel:
+    """Where a tensor-parallel step's leaves live: ``rules`` (the
+    parameters') and ``cache_rules`` (the KV cache's) on ``mesh``.  A leaf
+    dim whose logical name a rule places on the model axis is split into
+    blocks there and each shard computes on its own; a dim placed on the
+    data axes (FSDP, ``LM_TRAIN_RULES``' 'embed') is all-gathered where a
+    layer uses it and freed after that layer.  One body serves two forms:
+
+      * process-group mesh: every leaf is this rank's block (``cells.place``'
+        ``"block"`` form); the one local model shard is this rank's
+        coordinate, and the collectives are the 'model' group's;
+      * local mesh: every shard in this process.  Only its data axes of
+        size 1 are served (each data shard would need its own rows and
+        blocks; refused by name).  A leaf with a dim on the model axis
+        carries its shards stacked on a new dim right after 'layers' (first
+        where it has no 'layers'): ``local_form``.  Its collectives
+        (``fabric``, a ``LocalFabric``) act over that dim, sums chained in
+        shard order.
+
+    ``shards`` hands the body one layer's leaf as ``(stacked, split)``: its
+    local shards' blocks on a leading dim (one on a process group) when a
+    dim is on 'model', else the leaf whole on a leading dim of 1."""
+
+    def __init__(self, mesh: Mesh, rules: RuleSet, cache_rules: Optional[RuleSet] = None,
+                 model_axis: str = "model"):
+        if mesh.kind == "abstract":
+            raise ValueError("an abstract mesh only resolves specs; it has no devices")
+        if model_axis not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names} lack {model_axis!r}")
+        others = [a for a in mesh.axis_names if a != model_axis]
+        if mesh.kind == "local" and mesh.axis_size(others) > 1:
+            raise ValueError(
+                f"a local mesh serves tensor-parallel only with its axes {others} of "
+                f"size 1, got {mesh.shape}: each data shard would need its own rows")
+        self.mesh, self.rules = mesh, rules
+        self.cache_rules = cache_rules or rules
+        self.axis = model_axis
+        self.n = mesh.shape[model_axis]
+        self.local = mesh.kind == "local"
+        self.fabric = mesh.fabric(model_axis)
+        # the model coordinates of the local shards, in order
+        self.coords: List[int] = (list(range(self.n)) if self.local
+                                  else [mesh.coordinate(model_axis)])
+        self.data_ranks = mesh.axis_size(others)
+
+    def split(self, name: Optional[str], rules: Optional[RuleSet] = None) -> bool:
+        """The logical name is placed on the model axis (alone)."""
+        names = _axes((rules or self.rules).axes_for(name, self.mesh))
+        if self.axis in names and len(names) > 1:
+            raise ValueError(f"{name!r} is split over {names}: tensor parallelism "
+                             f"takes the model axis alone")
+        return names == (self.axis,)
+
+    def _model_dim(self, logical, rules) -> Optional[int]:
+        dims = [d for d, n in enumerate(logical) if self.split(n, rules)]
+        if len(dims) > 1:
+            raise ValueError(f"{logical}: two dims on the model axis")
+        return dims[0] if dims else None
+
+    def offsets(self, split: bool) -> List[int]:
+        """The block index of each local shard of a leaf: the model
+        coordinates where it is split, else the one whole block."""
+        return self.coords if split else [0]
+
+    def shards(self, x: torch.Tensor, logical: Tuple, rules: Optional[RuleSet] = None,
+               fsdp: bool = True) -> Tuple[torch.Tensor, bool]:
+        """One layer's leaf (``logical`` its names without 'layers') ->
+        ``(stacked, split)`` (the class docstring); with ``fsdp`` (a
+        parameter) a process-group rank's data-split dims gathered whole
+        first, else (the cache: its batch dim is this rank's rows) kept."""
+        rules = rules or self.rules
+        split = self._model_dim(logical, rules) is not None
+        if self.local:
+            return (x, True) if split else (x[None], False)
+        if fsdp:
+            x = self._gather_data(x, logical, rules)
+        return x[None], split
+
+    def whole(self, x: torch.Tensor, logical: Tuple, rules: Optional[RuleSet] = None
+              ) -> torch.Tensor:
+        """A leaf no rule splits over the model axis, its data dims gathered."""
+        stacked, split = self.shards(x, logical, rules)
+        if split:
+            raise ValueError(f"{logical} is split over {self.axis!r}; this step "
+                             "takes it whole")
+        return stacked[0]
+
+    def _gather_data(self, x: torch.Tensor, logical: Tuple, rules: RuleSet) -> torch.Tensor:
+        for d, name in enumerate(logical):
+            axes = _axes(rules.axes_for(name, self.mesh))
+            if not axes or self.axis in axes or self.mesh.axis_size(axes) == 1:
+                continue
+            parts = self.mesh.fabric(axes).all_gather(x[None].contiguous())
+            x = parts.movedim(0, d).flatten(d, d + 1)
+        return x
+
+    def local_form(self, tree: Any, logical_tree: Any, rules: Optional[RuleSet] = None
+                   ) -> Any:
+        """Whole tensors -> the local mesh's form (the class docstring), as
+        views of ``tree``'s storage (a cache the decode kernel reads must
+        be made contiguous)."""
+        if not self.local:
+            raise ValueError("the stacked-shard form is a local mesh's")
+        rules = rules or self.rules
+
+        def one(logical, x):
+            d = self._model_dim(logical, rules)
+            if d is None:
+                return x
+            if x.shape[d] % self.n:
+                raise ValueError(f"dim {d} of {tuple(x.shape)} does not divide into "
+                                 f"{self.n} shards")
+            at = 1 if logical and logical[0] == "layers" else 0
+            return x.unflatten(d, (self.n, x.shape[d] // self.n)).movedim(d, at)
+
+        return map_logical(one, logical_tree, tree)

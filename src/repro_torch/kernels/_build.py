@@ -40,7 +40,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
-           "decode_attention", "walk_step", "walk_bits")
+           "decode_attention", "decode_attention_partial", "walk_step", "walk_bits")
 
 launches: Dict[str, int] = {
     "walk_steps_fused": 0,
@@ -49,6 +49,7 @@ launches: Dict[str, int] = {
     "embedding_bag": 0,
     "walk_hop_fused": 0,
     "decode_attention": 0,
+    "decode_attention_partial": 0,
     "visit_counter": 0,
     "walk_step": 0,
     "walk_bits": 0,

@@ -13,8 +13,9 @@ device of the tensors decides.  Every op takes ``use_kernel``:
 its two legacy kernels, take ``use_kernel=None`` as the reference does:
 ``None`` lets the tensor's device decide, as ``True`` does.
 
-``decode_attention`` takes ``use_kernel`` from the LM decode step's
-``backend`` (``"xla"``: the twin), as the walk ops take it from the walk's.
+``decode_attention`` and ``decode_attention_partial`` take ``use_kernel``
+from the LM decode step's ``backend`` (``"xla"``: the twin), as the walk
+ops take it from the walk's.
 
 The bag ops default to ``use_kernel=True``: the device decides, never the
 walk backend, so both walk backends share one stage 2 on a device and
@@ -366,3 +367,24 @@ def decode_attention(
         da.decode_attention_plain
     )
     return fn(q, k, v, lengths)
+
+
+def decode_attention_partial(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lo: int,
+    lengths,
+    *,
+    use_kernel: bool,
+):
+    """Single-token GQA attention over one sequence block ``k, v (b, s, kh,
+    dh)`` that holds positions ``[lo, lo + s)`` of a cache of valid length
+    ``lengths`` (a ``(b,)`` int32 tensor or one int, >= 0) -> the block's
+    ``(o (b, h, dh), m (b, h), l (b, h))`` float32, merged across blocks by
+    ``decode_attention.merge_partials`` (a tensor-parallel decode step's
+    ``kv_seq`` shard)."""
+    fn = da.decode_attention_partial if _kernel_for(use_kernel, k) else (
+        da.decode_attention_partial_plain
+    )
+    return fn(q, k, v, lo, lengths)

@@ -18,13 +18,17 @@ The per-rank programs:
 
   * LM train: ``train_loop.jit_train_step`` (ZeRO-1, ``n_micro``), the
     state DTensors in the reference's placements, every leaf gathered
-    whole for compute (the port has no tensor-parallel products: ROADMAP
-    Queue 1 item 3);
-  * LM prefill and decode: every leaf gathered whole, then
-    ``transformer.prefill`` / ``decode_step`` on this rank's rows; the
-    cache keeps its serve placement (``kv_seq`` on 'model') and is
-    gathered layer by layer where decode reads it (no sequence-split
-    decode attention), and prefill keeps this rank's sequence block;
+    whole for compute (the training half has no tensor-parallel products
+    yet: ROADMAP Queue 1 item 3);
+  * LM prefill and decode: ``transformer.prefill`` / ``decode_step``
+    tensor-parallel on this rank's blocks (``sharding.TensorParallel``:
+    every leaf the cell's rules place on 'model' stays a block, the
+    products on 'heads' / 'mlp' / 'vocab' / 'experts' are Megatron's with
+    one sum or gather over 'model', prefill's FSDP 'data' dims gathered a
+    layer at a time) on this rank's rows; prefill writes this rank's
+    ``kv_seq`` block of the cache, and decode attends over that block
+    (``decode_attention_partial``) and merges the shards' partial
+    softmaxes after one gather of their ``(o, m, l)``;
   * MoE blocks with ``ep_shard_map``: ``moe_ffn_sharded`` over the mesh;
   * GIN: the edges split over every axis, the partial aggregates summed
     (``gnn.forward(edge_fabric=)``), parameters replicated;
@@ -179,52 +183,6 @@ def _static_pos(pos: torch.Tensor, bound: int) -> int:
     return bound if abstract.is_fake(pos) else int(pos)
 
 
-def _seq_block(x: torch.Tensor, sharding: NamedSharding, dim: int = 2) -> torch.Tensor:
-    """This rank's block of ``x`` along ``dim`` (the other dims are this
-    rank's already)."""
-    n = sharding.shards(dim)
-    if n == 1:
-        return x
-    idx = sharding.mesh.coordinate(sharding.spec[dim])
-    size = x.shape[dim] // n
-    return x.narrow(dim, idx * size, size).clone()
-
-
-class _SeqGathered:
-    """One cache leaf ``(L, b, s_loc, kh, dh)`` held as this rank's
-    sequence block, read by ``decode_step`` layer by layer: ``[i]`` all-
-    gathers layer ``i`` over the sequence's axes into ``(b, s, kh, dh)``;
-    the position ``decode_step`` writes is copied back into the block that
-    owns it when the next layer is read (``flush`` after the last)."""
-
-    def __init__(self, block: torch.Tensor, sharding: NamedSharding, pos: int):
-        self.block, self.pos = block, pos
-        self.axes = sharding.spec[2]
-        self.n = sharding.shards(2)
-        self.s_loc = block.shape[2]
-        self.lo = sharding.mesh.coordinate(self.axes) * self.s_loc if self.n > 1 else 0
-        self.fabric = sharding.mesh.fabric(self.axes) if self.n > 1 else None
-        self.shape = block.shape[:2] + (self.s_loc * self.n,) + block.shape[3:]
-        self._last = None
-
-    def __getitem__(self, i: int) -> torch.Tensor:
-        self.flush()
-        if self.n == 1:
-            return self.block[i]
-        parts = self.fabric.all_gather(self.block[i][None].contiguous())
-        b, kh, dh = self.shape[1], self.shape[3], self.shape[4]
-        whole = parts.permute(1, 0, 2, 3, 4).reshape(b, self.shape[2], kh, dh)
-        self._last = (i, whole)
-        return whole
-
-    def flush(self) -> None:
-        if self._last is not None:
-            i, whole = self._last
-            if self.lo <= self.pos < self.lo + self.s_loc:
-                self.block[i][:, self.pos - self.lo] = whole[:, self.pos]
-            self._last = None
-
-
 def build_lm_cell(
     spec: ArchSpec, cell: ShapeCell, mesh: Mesh, n_micro: int = 4
 ) -> Cell:
@@ -285,19 +243,16 @@ def build_lm_cell(
         }
 
         def prefill_fn(p, tokens):
+            tp = shlib.TensorParallel(mesh, rules, serve_rules)
             with torch.no_grad():
-                full = shlib.gather_state(p)
-                logits, cache = tf.prefill(full, tokens, cfg, max_seq=seq, mesh=mesh)
-                del full
-                cache = {k: _seq_block(v, cache_sh[k]) for k, v in cache.items()}
-            return logits, cache
+                return tf.prefill(p, tokens, cfg, max_seq=seq, tp=tp)
 
         return Cell(
             fn=prefill_fn,
             args=(params_abs, tokens_abs),
             in_shardings=(param_sh, _ns(mesh, bax, None)),
             out_shardings=(_ns(mesh, bax, None), cache_sh),
-            forms=("dtensor", "block"),
+            forms=("block", "block"),
         )
 
     if cell.kind == "decode":
@@ -316,13 +271,10 @@ def build_lm_cell(
         pos_abs = SDS((), torch.int32)
 
         def decode_fn(p, cache, tokens, pos):
+            tp = shlib.TensorParallel(mesh, rules)
             with torch.no_grad():
-                full = shlib.gather_state(p)
-                at = _static_pos(pos, seq - 1)
-                seen = {k: _SeqGathered(v, cache_sh[k], at) for k, v in cache.items()}
-                logits, _ = tf.decode_step(full, seen, tokens, at, cfg, mesh=mesh)
-                for g in seen.values():
-                    g.flush()
+                logits, _ = tf.decode_step(p, cache, tokens, _static_pos(pos, seq - 1),
+                                           cfg, tp=tp)
             return logits, cache
 
         return Cell(
@@ -333,7 +285,7 @@ def build_lm_cell(
             ),
             out_shardings=(_ns(mesh, bax, None), cache_sh),
             donate=(1,),
-            forms=("dtensor", "block", "block", "whole"),
+            forms=("block", "block", "block", "whole"),
         )
 
     raise ValueError(f"unknown LM cell kind {cell.kind}")

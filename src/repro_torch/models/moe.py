@@ -159,10 +159,15 @@ def expert_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def route(x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig):
     """Router probabilities over the real experts ``(t, E)`` (float32),
     the renormalised top-k gates and the selected expert ids (int32)."""
+    return route_logits(x.float() @ router.float(), cfg)
+
+
+def route_logits(logits: torch.Tensor, cfg: MoEConfig):
+    """``route`` from the router's float32 logits ``(t, e_pad)`` (a
+    tensor-parallel step gathers them from the router's blocks)."""
     e, e_pad = cfg.n_experts, cfg.n_experts_padded
-    logits = x.float() @ router.float()
     if e_pad != e:  # mask pad experts: no tokens
-        pad = torch.arange(e_pad, device=x.device) >= e
+        pad = torch.arange(e_pad, device=logits.device) >= e
         logits = logits.masked_fill(pad, layers.NEG_INF)
     probs = torch.softmax(logits, dim=-1)[:, :e]
     gate, sel = counter.topk_total(probs, cfg.top_k)
@@ -279,14 +284,17 @@ def moe_ffn(
 
 
 def _expert_slice(w: torch.Tensor, shard_ids: torch.Tensor, e_loc: int) -> torch.Tensor:
-    """The local shards' experts of ``w`` (every expert's weights)."""
-    if shard_ids.numel() * e_loc == w.shape[0]:      # every shard is local
+    """The local shards' experts of ``w``: ``w`` itself when it holds just
+    theirs (a tensor-parallel rank's block, or every expert on a local
+    mesh), else their rows of every expert's weights."""
+    if shard_ids.numel() * e_loc == w.shape[0]:      # the local experts only
         return w
     return w.unflatten(0, (-1, e_loc))[shard_ids.long()].flatten(0, 1)
 
 
 def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig,
-                shard_ids: torch.Tensor, e_loc: int, fabric=None
+                shard_ids: torch.Tensor, e_loc: int, fabric=None,
+                logits: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One data shard's tokens ``x`` (t_loc, d) through the model shards
     ``shard_ids`` (the local ones: every shard on a local mesh, this rank's
@@ -301,6 +309,11 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
     others' as ``0 * (gate * 0)`` (zero, or NaN for a NaN gate), as the
     reference adds them from its drop slot.
 
+    The expert leaves hold every expert or just the local shards' (a
+    tensor-parallel rank's block); ``logits`` (the router's, float32, over
+    every expert) stand in for ``x @ params["router"]`` where the router is
+    split over the shards and its logits were gathered.
+
     ``fabric`` (the 'model' group of a process-group mesh) makes the
     tokens and gates the experts read ``copy_to`` it: under autograd each
     rank's part of their gradient, from its own experts, is all-reduced
@@ -309,7 +322,10 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
     k = cfg.top_k
     cd, dev = x.dtype, x.device
     s_l = shard_ids.numel()
-    probs, gate, sel = route(x, params["router"], cfg)
+    if logits is None:
+        probs, gate, sel = route(x, params["router"], cfg)
+    else:
+        probs, gate, sel = route_logits(logits, cfg)
     aux = load_balance_aux(probs, sel, cfg)
 
     if fabric is not None:
@@ -351,7 +367,9 @@ def moe_ffn_sharded(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """EP MoE over ``mesh`` (``launch.mesh.Mesh``), experts owned by the
     'model' shards; ``cfg.n_experts_padded`` must divide over them, and
-    ``params`` holds every expert.  Shared experts are not handled here
+    ``params`` holds every expert (a tensor-parallel step holds only its
+    own and calls ``ep_partials`` itself, the router's logits gathered over
+    'model': ``transformer._moe_tp``).  Shared experts are not handled here
     (the caller adds them).  Returns ``(out (t, d), aux)``, ``aux`` the
     mean over the data shards.
 

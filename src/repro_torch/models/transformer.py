@@ -37,6 +37,28 @@ Differences from the reference, none of which changes a value:
     kernel's head map ``i // (n_heads // n_kv_heads)`` equals the
     reference's ``min(i // group, kh - 1)`` on every real head, and the pad
     heads' outputs are zeros, as the reference's ``hmask`` makes them;
+  * ``prefill`` and ``decode_step`` take ``tp`` (a
+    ``distribution.sharding.TensorParallel``): the reference's GSPMD
+    serving cells written out.  Every leaf dim its rules place on 'model'
+    stays a block and each shard computes on its own, in one body for a
+    process-group rank and a local mesh's stacked shards: column-parallel
+    ``w_gate`` / ``w_up`` (and the shared experts') on 'mlp', row-parallel
+    ``w_down`` and one sum over 'model'; the routed experts of the shard
+    only (``moe.ep_partials``), the router's logits gathered over 'model'
+    before the exact top-k; a vocab-parallel lookup (each shard gathers its
+    rows, one sum, then the reference's wrap and NaN rows) and head (each
+    shard its columns, the pad vocabulary masked by global column, the
+    logits gathered); in prefill the attention heads on 'model' (``wq`` /
+    ``bq`` column-, ``wo`` row-parallel, the GQA map and the pad-head mask
+    by global head), the FSDP 'data' dims gathered a layer at a time, and
+    each shard writes its own ``kv_seq`` block of the cache; in decode
+    the heads whole, the new token's K/V written by the shard whose block
+    holds ``pos``, and attention over each block by
+    ``ops.decode_attention_partial`` merged across the shards
+    (``decode_attention.merge_partials``) after one gather of their ``(o,
+    m, l)``.  The sums add the shards' partials in shard order where the
+    reference's one product sums in its own order: values within float32
+    rounding, not bit for bit (tokens and ids exact in the tests);
   * ``cast_for_serving`` casts the matrices to ``compute_dtype`` once
     (the reference casts with ``.astype(cd)`` at every use, which gives
     the same values); the MoE router stays float32, as the reference
@@ -57,11 +79,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import abstract
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import merge_partials
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models import layers
-from repro_torch.models.embedding import take_rows
+from repro_torch.models.embedding import gather_rows, take_rows
 from repro_torch.models.moe import (
-    MoEConfig, init_moe_params, moe_ffn, moe_ffn_sharded, moe_param_specs,
+    MoEConfig, ep_partials, init_moe_params, moe_ffn, moe_ffn_sharded,
+    moe_param_specs,
 )
 
 BACKENDS = ("pallas", "xla")
@@ -562,14 +586,21 @@ def decode_step(
     mesh=None,
     *,
     backend: str = "pallas",
+    tp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Append one token, return (logits (b, v) f32, cache updated in place).
 
     ``backend="pallas"`` attends through the decode-attention kernel on a
     CUDA cache (its twin on the CPU); ``"xla"`` takes the twin anywhere.
+    With ``tp`` (``sharding.TensorParallel``) the step is tensor-parallel
+    over its mesh (the module docstring): the params and the cache are in
+    its form, the cache's ``kv_seq`` blocks on 'model', and ``mesh`` is
+    not read.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if tp is not None:
+        return _decode_step_tp(params, cache, tokens, int(pos), cfg, backend, tp)
     pos = int(pos)
     max_seq = cache["k"].shape[2]
     if not 0 <= pos < max_seq:
@@ -602,14 +633,21 @@ def prefill(
     cfg: LMConfig,
     max_seq: Optional[int] = None,
     mesh=None,
+    *,
+    tp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run the prompt, build the KV cache. Returns (last-token logits, cache).
 
-    The cache layout matches decode_step; padding beyond s is zeros.
+    The cache layout matches decode_step; padding beyond s is zeros.  With
+    ``tp`` the prompt runs tensor-parallel (the module docstring) and the
+    cache comes out in ``tp``'s form: this rank's ``kv_seq`` blocks of
+    its rows, or a local mesh's shards stacked after 'layers'.
     """
     b, s = tokens.shape
     if max_seq is None:
         max_seq = s
+    if tp is not None:
+        return _prefill_tp(params, tokens, cfg, max_seq, tp)
     x = _embed(params, tokens, cfg)
     dev = x.device
     freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
@@ -623,3 +661,253 @@ def prefill(
         cache["v"][i, :, :s] = v.to(cfg.cache_dtype)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x[:, -1], cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving (``prefill`` / ``decode_step`` with ``tp``)
+# ---------------------------------------------------------------------------
+
+
+def _layer_logical(cfg: LMConfig) -> Dict[str, Any]:
+    """Logical axes of one layer's leaves, 'layers' dropped: the stacked
+    blocks' and ``dense0``'s (whose FFN is the dense one)."""
+    out: Dict[str, Any] = {}
+    for c in (cfg, dataclasses.replace(cfg, moe=None)):
+        for k, v in _block_logical(c).items():
+            out[k] = {n: a[1:] for n, a in v.items()} if isinstance(v, dict) else v[1:]
+    return out
+
+
+def _embed_tp(params, tokens: torch.Tensor, cfg: LMConfig, tp) -> torch.Tensor:
+    """``_embed`` over the table's vocabulary blocks: the reference's wrap
+    of a negative id first (``-1`` and ``-V`` reach another shard's rows),
+    each shard its own rows (zeros for the others), one sum over 'model',
+    then the NaN rows of ids still outside ``[0, V_pad)``."""
+    cd = cfg.compute_dtype
+    table, split = tp.shards(params["embed"], ("vocab", None))
+    if not split:
+        return take_rows(table[0].to(cd), tokens)
+    rows = table.shape[1]
+    n_vocab = rows * tp.n
+    i = tokens.long()
+    i = torch.where(i < 0, i + n_vocab, i)
+    ok = (i >= 0) & (i < n_vocab)
+    zero = torch.zeros((), dtype=cd, device=i.device)
+    parts = []
+    for j, c in enumerate(tp.offsets(split)):
+        local = i - c * rows
+        mine = (local >= 0) & (local < rows)
+        got = gather_rows(table[j].to(cd), local.clamp(0, rows - 1))
+        parts.append(torch.where(mine[..., None], got, zero))
+    x = tp.fabric.psum(torch.stack(parts))
+    return x.masked_fill_(~ok[..., None], float("nan"))
+
+
+def _logits_tp(params, x_last: torch.Tensor, cfg: LMConfig, tp) -> torch.Tensor:
+    """``_logits`` over the head's vocabulary blocks: each shard its
+    columns, the pad vocabulary masked by global column on the shard that
+    holds it, then the shards' columns gathered into ``(b, V_pad)``."""
+    cd = cfg.compute_dtype
+    if cfg.tie_embeddings:
+        head, split = tp.shards(params["embed"], ("vocab", None))
+        head = head.transpose(1, 2)
+    else:
+        head, split = tp.shards(params["lm_head"], (None, "vocab"))
+    cols = head.shape[2]
+    parts = []
+    for j, c in enumerate(tp.offsets(split)):
+        logits = (x_last @ head[j].to(cd)).float()
+        if cfg.vocab_padded != cfg.vocab_size:
+            col = c * cols + torch.arange(cols, device=logits.device)
+            logits = logits.masked_fill(col >= cfg.vocab_size, layers.NEG_INF)
+        parts.append(logits)
+    if not split:
+        return parts[0]
+    whole = tp.fabric.all_gather(torch.stack(parts))          # (n, b, cols)
+    return whole.permute(1, 0, 2).reshape(x_last.shape[0], tp.n * cols)
+
+
+def _mlp_tp(h: torch.Tensor, p, names, cfg: LMConfig, tp, lg) -> torch.Tensor:
+    """SwiGLU with column-parallel gate / up and a row-parallel down
+    projection: each shard's partial output, one sum over 'model'."""
+    cd = cfg.compute_dtype
+    wg, split = tp.shards(p[names[0]], lg[names[0]])
+    wu, _ = tp.shards(p[names[1]], lg[names[1]])
+    wd, _ = tp.shards(p[names[2]], lg[names[2]])
+    parts = torch.stack([layers.swiglu(h @ wg[j].to(cd), h @ wu[j].to(cd)) @ wd[j].to(cd)
+                         for j in range(wg.shape[0])])
+    return tp.fabric.psum(parts) if split else parts[0]
+
+
+def _moe_tp(flat: torch.Tensor, p, cfg: LMConfig, tp, lg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts over 'model' with the shard's own experts only:
+    the router's logits gathered from its expert blocks, the exact top-k
+    of ``moe.route`` on every shard alike, ``ep_partials`` over the local
+    shards' experts, one sum over 'model'.  The capacity is
+    ``capacity(t)`` of this rank's tokens."""
+    mcfg = cfg.moe
+    router, split = tp.shards(p["router"], lg["router"])
+    experts = {n: tp.shards(p[n], lg[n]) for n in ("w_gate", "w_up", "w_down")}
+    if not (split and all(sp for _, sp in experts.values())):
+        raise ValueError("a tensor-parallel MoE block places 'experts' on the model axis")
+    if not mcfg.ep_shard_map and tp.data_ranks > 1:
+        # a rank's rows would be routed, capped and averaged alone, where the
+        # reference routes over the global batch
+        raise NotImplementedError(
+            "a MoE block without ep_shard_map over several data ranks: routing over "
+            "the global batch is not ported (see ROADMAP.md, Queue 1)")
+    logits = torch.stack([flat.float() @ r.float() for r in router])     # (S_l, t, E/n)
+    logits = tp.fabric.all_gather(logits).permute(1, 0, 2).reshape(flat.shape[0], -1)
+    e_loc = experts["w_gate"][0].shape[1]
+    w = {n: x.flatten(0, 1) for n, (x, _) in experts.items()}
+    shard_ids = torch.tensor(tp.coords, dtype=torch.int32, device=flat.device)
+    partial, aux = ep_partials(flat, w, mcfg, shard_ids, e_loc, logits=logits)
+    return tp.fabric.psum(partial), aux
+
+
+def _ffn_tp(p, x: torch.Tensor, cfg: LMConfig, tp, lg) -> torch.Tensor:
+    """``_ffn`` tensor-parallel: ``x + ffn(x)``."""
+    h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    if cfg.moe is not None and "moe" in p:
+        b, s, d = h.shape
+        flat = h.reshape(b * s, d)
+        out, _ = _moe_tp(flat, p["moe"], cfg, tp, lg["moe"])
+        if cfg.moe.n_shared > 0:
+            out = out + _mlp_tp(flat, p["moe"], ("shared_gate", "shared_up", "shared_down"),
+                                cfg, tp, lg["moe"])
+        return x + out.reshape(b, s, d)
+    return x + _mlp_tp(h, p, ("w_gate", "w_up", "w_down"), cfg, tp, lg)
+
+
+def _whole_qkv(p, cfg: LMConfig, tp, lg, with_q: bool) -> Dict[str, torch.Tensor]:
+    """The attention's leaves no rule splits over 'model' (``wq`` / ``bq``
+    too with ``with_q``), whole."""
+    names = ["ln1", "wk", "wv"] + (["wq"] if with_q else [])
+    if cfg.qkv_bias:
+        names += ["bk", "bv"] + (["bq"] if with_q else [])
+    return {n: tp.whole(p[n], lg[n]) for n in names}
+
+
+def _attention_tp(p, x: torch.Tensor, cfg: LMConfig, pos: torch.Tensor,
+                  freqs: torch.Tensor, tp, lg):
+    """Prefill attention with the query heads in blocks over 'model'
+    (``wq`` / ``bq`` column-, ``wo`` row-parallel, one sum), K and V whole
+    on every shard: ``(x + attn, k, v)``.  A shard's head ``i`` is global
+    head ``c * hp_loc + i``: it reads kv head ``min(g // group, kh - 1)``
+    and is zeroed past ``n_heads``, as the reference maps and masks the
+    whole head axis."""
+    cd = cfg.compute_dtype
+    w = _whole_qkv(p, cfg, tp, lg, with_q=False)
+    h = layers.rmsnorm(x, w["ln1"], cfg.norm_eps)
+    k = _proj(h, w["wk"].to(cd))
+    v = _proj(h, w["wv"].to(cd))
+    if cfg.qkv_bias:
+        k = k + w["bk"].to(cd)
+        v = v + w["bv"].to(cd)
+    k = layers.apply_rope(k, pos, freqs)
+    wq, split = tp.shards(p["wq"], lg["wq"])
+    wo, _ = tp.shards(p["wo"], lg["wo"])
+    bq = tp.shards(p["bq"], lg["bq"])[0] if cfg.qkv_bias else None
+    hp_loc = wq.shape[2]
+    group = cfg.n_heads // cfg.n_kv_heads
+    parts = []
+    for j, c in enumerate(tp.offsets(split)):
+        heads = c * hp_loc + torch.arange(hp_loc, device=x.device)
+        q = _proj(h, wq[j].to(cd))
+        if cfg.qkv_bias:
+            q = q + bq[j].to(cd)
+        q = layers.apply_rope(q, pos, freqs)
+        kv = torch.clamp(heads // group, max=cfg.n_kv_heads - 1)
+        attn = layers.flash_attention(q, k.index_select(2, kv), v.index_select(2, kv),
+                                      causal=True, kv_chunk=cfg.kv_chunk)
+        if cfg.n_heads_padded != cfg.n_heads:
+            attn = attn * (heads < cfg.n_heads).to(attn.dtype)[None, None, :, None]
+        parts.append(_out_proj(attn, wo[j].to(cd)))
+    parts = torch.stack(parts)
+    return x + (tp.fabric.psum(parts) if split else parts[0]), k, v
+
+
+def _cache_blocks(cache_layer: torch.Tensor, tp) -> Tuple[torch.Tensor, bool]:
+    """One layer of the cache -> its local ``kv_seq`` blocks ``(S_l, b,
+    s_loc, kh, dh)`` and whether the sequence is split over 'model'."""
+    return tp.shards(cache_layer, kv_cache_logical()["k"][1:], tp.cache_rules, fsdp=False)
+
+
+def _init_cache_tp(cfg: LMConfig, b: int, max_seq: int, tp, dev) -> Dict[str, torch.Tensor]:
+    """Zeros in ``tp``'s cache form: ``(L, b, s_loc, kh, dh)`` (a rank's
+    block), or ``(L, n, b, s_loc, kh, dh)`` on a local mesh."""
+    split = tp.split("kv_seq", tp.cache_rules)
+    if split and max_seq % tp.n:
+        raise ValueError(f"max_seq {max_seq} does not divide into {tp.n} kv_seq blocks")
+    s_loc = max_seq // tp.n if split else max_seq
+    lead = (cfg.n_layers, tp.n) if split and tp.local else (cfg.n_layers,)
+    shape = lead + (b, s_loc, cfg.n_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=cfg.cache_dtype, device=dev) for n in ("k", "v")}
+
+
+def _prefill_tp(params, tokens: torch.Tensor, cfg: LMConfig, max_seq: int, tp):
+    b, s = tokens.shape
+    x = _embed_tp(params, tokens, cfg, tp)
+    dev = x.device
+    freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
+    pos = torch.arange(s, device=dev).expand(b, s)
+    cache = _init_cache_tp(cfg, b, max_seq, tp, dev)
+    lg = _layer_logical(cfg)
+    for i, p in _layers(params, cfg):
+        x, k, v = _attention_tp(p, x, cfg, pos, freqs, tp, lg)
+        x = _ffn_tp(p, x, cfg, tp, lg)
+        ck, split = _cache_blocks(cache["k"][i], tp)
+        cv, _ = _cache_blocks(cache["v"][i], tp)
+        s_loc = ck.shape[2]
+        for j, c in enumerate(tp.offsets(split)):   # each shard its own block
+            lo = c * s_loc
+            n = min(max(s - lo, 0), s_loc)
+            if n:
+                ck[j, :, :n] = k[:, lo:lo + n].to(cfg.cache_dtype)
+                cv[j, :, :n] = v[:, lo:lo + n].to(cfg.cache_dtype)
+        del k, v
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _logits_tp(params, x[:, -1], cfg, tp), cache
+
+
+def _decode_step_tp(params, cache, tokens: torch.Tensor, pos: int, cfg: LMConfig,
+                    backend: str, tp):
+    if tp.split("heads"):
+        raise NotImplementedError("tensor-parallel decode keeps the attention heads "
+                                  "whole (the serve rules' heads=None)")
+    cd = cfg.compute_dtype
+    b = tokens.shape[0]
+    x = _embed_tp(params, tokens, cfg, tp)[:, None, :]
+    dev = x.device
+    freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+    hp, nh = cfg.n_heads_padded, cfg.n_heads
+    lg = _layer_logical(cfg)
+    s_loc = _cache_blocks(cache["k"][0], tp)[0].shape[2]
+    split = tp.split("kv_seq", tp.cache_rules)
+    max_seq = s_loc * (tp.n if split else 1)
+    if not 0 <= pos < max_seq:
+        raise ValueError(f"pos {pos} outside the cache's {max_seq} positions")
+    for i, p in _layers(params, cfg):
+        q, k, v = _qkv(_whole_qkv(p, cfg, tp, lg, with_q=True), x, cfg, posb, freqs)
+        ck, _ = _cache_blocks(cache["k"][i], tp)
+        cv, _ = _cache_blocks(cache["v"][i], tp)
+        parts = []
+        for j, c in enumerate(tp.offsets(split)):
+            lo = c * s_loc
+            if lo <= pos < lo + s_loc:     # the block that holds pos writes it
+                ck[j, :, pos - lo] = k[:, 0].to(ck.dtype)
+                cv[j, :, pos - lo] = v[:, 0].to(cv.dtype)
+            parts.append(ops.decode_attention_partial(
+                q[:, 0, :nh], ck[j], cv[j], lo, pos + 1, use_kernel=backend == "pallas"))
+        o, m, l = (torch.stack(t) for t in zip(*parts))
+        if split:   # every shard's (o, m, l) in one gather
+            packed = tp.fabric.all_gather(torch.cat([o, m[..., None], l[..., None]], dim=-1))
+            o, m, l = packed[..., :-2], packed[..., -2], packed[..., -1]
+        attn = merge_partials(o, m, l)
+        if hp != nh:   # pad heads contribute zeros
+            attn = F.pad(attn, (0, 0, 0, hp - nh))
+        x = x + _out_proj(attn[:, None].to(cd), tp.whole(p["wo"], lg["wo"]).to(cd))
+        x = _ffn_tp(p, x, cfg, tp, lg)
+    x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return _logits_tp(params, x[:, 0], cfg, tp), cache

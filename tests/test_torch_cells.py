@@ -13,7 +13,9 @@
     reference's jitted on a one-device (1, 1) mesh, the port's
     ``Cell.fn`` over a one-rank gloo group (a subprocess importing only the
     port, a ``file://`` store in the test's temporary directory): qwen
-    decode and train, granite decode through expert parallelism, GIN on
+    decode and train, deepseek prefill (tensor-parallel products and
+    expert parallelism on one rank), granite decode through expert
+    parallelism, GIN on
     molecules, dlrm serve, SASRec retrieval and Pixie's replicated cell on
     ``small_test_graph``.  Floats within 2e-6 times max(1, the reference
     leaf's largest magnitude) (the LM, MoE, recsys and GIN families' rule;
@@ -203,6 +205,8 @@ def _as_port_key(leaves):
 SMOKE_CASES = {
     "qwen_decode": ("qwen2.5-3b", "decode_32k", {"seq_len": 16, "global_batch": 2},
                     {"cache_dtype": "float32"}, None),
+    "deepseek_prefill": ("deepseek-moe-16b", "prefill_32k", {"seq_len": 16, "global_batch": 2},
+                         {"cache_dtype": "float32", "moe.ep_shard_map": True}, None),
     "qwen_train": ("qwen2.5-3b", "train_4k", {"seq_len": 16, "global_batch": 4}, {}, 2),
     "granite_ep_decode": ("granite-moe-3b-a800m", "decode_32k",
                           {"seq_len": 16, "global_batch": 2},
@@ -258,6 +262,10 @@ def _inputs(name, spec, cell, c, sg):
         cache = {k: jnp.asarray(rng.normal(size=v.shape), v.dtype) for k, v in cache_abs.items()}
         tokens = jnp.asarray(rng.integers(0, cfg.vocab_size, tok_abs.shape), jnp.int32)
         return (params, cache, tokens, jnp.asarray(9, jnp.int32))
+    if name == "deepseek_prefill":
+        params = jtf.init_params(key, cfg)
+        b, s = c.args[1].shape
+        return (params, jnp.asarray(rng.integers(0, cfg.vocab_size, (b, s)), jnp.int32))
     if name == "qwen_train":
         params = jtf.init_params(key, cfg)
         b, s = c.args[1]["tokens"].shape

@@ -33,13 +33,20 @@
     inside one;
   * the H100 terms of ``hlo_analysis`` (the data sheet's rates, the link of
     an axis by whether its group fits one node);
-  * two FULL cells through ``run_cell`` and the CLI in one subprocess (the
+  * FULL cells through ``run_cell`` and the CLI in one subprocess (the
     fake process group is process-global): qwen2.5-3b ``decode_32k`` and
     pixie ``serve_3b_sharded`` on the single-pod mesh, every record key
     present, the argument bytes equal to the blocks the shardings give,
     the product FLOPs and the attention kernel's equal to the model's
-    own arithmetic for 8 rows a rank, the kernels' fake calls counted by
-    the program's loops, and ``roofline_report``'s row of each.
+    own arithmetic for 8 rows a rank (the tensor-parallel program: the
+    FFN and head on a sixteenth of 'mlp' and 'vocab', attention over a
+    sixteenth of the sequence), the kernels' fake calls counted by the
+    program's loops, and ``roofline_report``'s row of each; deepseek-moe-16b
+    ``decode_32k`` and ``long_500k`` under 80 GB a rank.  Every decode
+    cell's collectives are exactly the tensor-parallel step's: one all-
+    gather of every shard's ``(o, m, l)`` a layer, the router's logits
+    and the logits, and one sum of a ``(rows, d)`` activation a product
+    and the lookup; no parameter leaf and no cache layer is gathered.
 """
 
 import json
@@ -394,6 +401,8 @@ def full_cells(tmp_path_factory):
         from repro_torch.training import tree
 
         rec = dryrun.run_cell("qwen2.5-3b", "decode_32k", "single")
+        deep = {s: dryrun.run_cell("deepseek-moe-16b", s, "single")
+                for s in ("decode_32k", "long_500k")}
         assert dryrun.main(["--arch", "pixie", "--shape", "serve_3b_sharded",
                             "--mesh", "single", "--out", "dry.jsonl"]) == 0
         pix = json.loads(open("dry.jsonl").read().splitlines()[-1])
@@ -405,7 +414,7 @@ def full_cells(tmp_path_factory):
             for x, sh in zip(tree.leaves(a), tree.leaves(s)):
                 blocks += x.numel() * x.element_size() // math.prod(
                     sh.shards(d) for d in range(x.dim()))
-        print(json.dumps({"qwen": rec, "pixie": pix, "blocks": blocks,
+        print(json.dumps({"qwen": rec, "pixie": pix, "blocks": blocks, "deepseek": deep,
                           "launches": sum(_build.launches.values())}))
     """
     out = _run_port(body, tmp)
@@ -429,16 +438,51 @@ def test_full_qwen_decode_cell_reckons_its_blocks_and_products(full_cells):
     cfg = get_arch("qwen2.5-3b").config
     d, hp, dh, kh, ff, v = (cfg.d_model, cfg.n_heads_padded, cfg.head_dim, cfg.n_kv_heads,
                             cfg.d_ff, cfg.vocab_padded)
-    rows, seq = 128 // 16, 32768
-    matmul = cfg.n_layers * (2 * d * hp * dh + 2 * d * kh * dh + 3 * d * ff) + v * d
+    rows, seq, n = 128 // 16, 32768, 16
+    # the heads whole (serve rules), the FFN on a sixteenth of 'mlp', the
+    # head on a sixteenth of 'vocab'
+    matmul = cfg.n_layers * (2 * d * hp * dh + 2 * d * kh * dh + 3 * d * ff // n) + v * d // n
     assert rec["flops_by_dtype"]["bfloat16"] == 2 * rows * matmul
-    assert rec["flops_by_dtype"]["float32"] == 4 * cfg.n_heads * dh * seq * rows * cfg.n_layers
-    assert rec["kernels"] == {"decode_attention": cfg.n_layers}
-    # the leaves on 'model' gathered whole and the cache gathered a layer at a time
-    assert set(rec["coll_by_axis"]) == {"model"} and rec["collectives"]["all-gather"] > 0
+    # attention over this rank's kv_seq block
+    assert rec["flops_by_dtype"]["float32"] == (4 * cfg.n_heads * dh * (seq // n) * rows
+                                                * cfg.n_layers)
+    assert rec["kernels"] == {"decode_attention_partial": cfg.n_layers}
+    _only_step_collectives(rec, cfg, rows, n)
     ma = rec["memory_analysis"]
     assert rec["bytes_per_device"] == ma["argument_size"] + ma["temp_size"]
     assert rec["t_collective_s"] == rec["coll_bytes_per_dev"] / 50e9
+
+
+def _only_step_collectives(rec, cfg, rows, n):
+    """The decode step's collectives, exactly: per layer one all-gather of
+    every shard's ``(o, m, l)`` (float32, ``dh + 2`` a head) and, for a MoE
+    block, of the router's logits; the logits' all-gather; one sum of the
+    ``(rows, d)`` activation (compute dtype, counted twice on the wire) per
+    FFN product (the routed and the shared experts apart) and for the
+    lookup.  No parameter leaf or cache layer is gathered."""
+    d, dh, nh = cfg.d_model, cfg.head_dim, cfg.n_heads
+    n_moe = cfg.n_scan if cfg.moe is not None else 0
+    experts = cfg.moe.n_experts_padded if n_moe else 0
+    shared = n_moe if n_moe and cfg.moe.n_shared else 0
+    gather = 4 * rows * (cfg.n_layers * n * nh * (dh + 2) + cfg.vocab_padded
+                         + n_moe * experts)
+    sums = 1 + cfg.n_layers + shared
+    assert set(rec["coll_by_axis"]) == {"model"}
+    assert rec["collectives"]["all-gather"] == gather
+    assert rec["collectives"]["all-reduce"] == 2 * sums * rows * d * 2      # bf16
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_full_deepseek_decode_cells_fit_a_rank_and_gather_no_leaf(full_cells, shape):
+    from repro_torch.configs import get_arch
+
+    rec = full_cells["deepseek"][shape]
+    assert rec["status"] == "ok" and rec["kernels"] == {"decode_attention_partial": 28}
+    ma = rec["memory_analysis"]
+    assert (ma["argument_size"] + ma["temp_size"]) / 1e9 < 80.0
+    rows = 128 // 16 if shape == "decode_32k" else 1
+    _only_step_collectives(rec, get_arch("deepseek-moe-16b").config, rows, 16)
+    assert rec["t_collective_s"] < rec["t_memory_s"]
 
 
 def test_full_pixie_sharded_cell_counts_its_kernels(full_cells):

@@ -213,17 +213,19 @@ def test_launch_counters_name_the_three_kernels_and_reset():
     counter, the sharded engine's hop the fifth, the LM decode step's
     attention the sixth, and the legacy flat histogram and one-superstep
     walk the seventh and eighth: one counter per TPU kernel of the repo,
-    plus the walk's word table drawn on the card (``walk_bits``)."""
+    plus the walk's word table drawn on the card (``walk_bits``) and the
+    attention kernel's partial form over one ``kv_seq`` block
+    (``decode_attention_partial``, the tensor-parallel decode step's)."""
     from repro_torch.kernels import _build
 
     assert set(_build.launches) == {
         "walk_steps_fused", "visit_counter_update_high", "visit_counter_wide",
         "embedding_bag", "walk_hop_fused", "decode_attention",
-        "visit_counter", "walk_step", "walk_bits",
+        "decode_attention_partial", "visit_counter", "walk_step", "walk_bits",
     }
     assert set(_build.SOURCES) == {
         "walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
-        "decode_attention", "walk_step", "walk_bits",
+        "decode_attention", "decode_attention_partial", "walk_step", "walk_bits",
     }
     _build.launches["visit_counter_wide"] += 3
     _build.reset_launches()
@@ -263,6 +265,11 @@ def test_cuda_sources_name_the_kernel_they_replace():
     attn = (csrc / "decode_attention.cu").read_text()
     assert "src/repro/kernels/decode_attention.py" in attn
     assert "_decode_attn_kernel" in attn and "decode_attention_plain" in attn
+    partial = (csrc / "decode_attention_partial.cu").read_text()
+    assert "src/repro/kernels/decode_attention.py" in partial
+    assert "decode_attention_partial_plain" in partial
+    for src in (attn, partial):   # one kernel source, two libraries
+        assert '#include "decode_attention.cuh"' in src and "__global__" not in src
     assert "sm_90a" in (PORT / "kernels" / "_build.py").read_text()
 
 
