@@ -162,7 +162,9 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              they agree on: bf16 rounding lets greedy paths part),
              prefill ms, decode ms per step (p50 of 32), tokens/s at batch
              4, decode-attention launches, one profiled step (device idle
-             share), and the attention kernel on that step's layer-0
+             share; its sums from kineto's chrome trace held to
+             key_averages()' op for op: summary_check), and the attention
+             kernel on that step's layer-0
              inputs (the serving shape) beside SDPA and its bound.  Then the
              reference's decode_32k cell, cut: batch 16 instead of 128 (a
              bf16 cache of 128 x 32,768 tokens is 154.6 GB), the cache
@@ -420,18 +422,33 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              then 16 greedy decode steps under the decode cell's serve
              rules (heads whole, kv_seq on 'model'), in lockstep with the
              unsharded path fed the same tokens: every token equal, the
-             largest logit difference of each step printed; the local
-             blocks are views of the one tree.  (c) deepseek_moe_16b.FULL
-             the same way in float32 (phase 31's moe_f32_config: full
-             depth when the reckoned peak fits 76 GB), every token equal;
-             then in bf16: token agreement, the largest logit difference
-             of each step, peak GB beside the tree's (each peak must stay
-             under 1.5 trees).  (d) phase 36's dry-run records of
-             the 15 LM serve cells: deepseek-moe-16b prefill_32k,
-             decode_32k and long_500k each under 80 GB a rank; every decode
-             cell's all-gather bytes exactly its step's (o, m, l), router
-             and logit gathers (no parameter leaf or cache layer) and its
-             collective term below its memory term.  The phase's seconds.
+             largest logit difference of each step printed, and each
+             layer's gap (largest |output difference| over max(1, largest
+             |output|)) of every pass: every gap within 1e-4 and every
+             logit difference within 1e-4; the local blocks are views of
+             the one tree.  (c) deepseek_moe_16b.FULL the same way in
+             float32 (phase 31's moe_f32_config: full depth when the
+             reckoned peak fits 76 GB), every token equal, and each layer's
+             routing beside the gaps: up to the run's first routing flip
+             every gap within 1e-4 and that flip a near-tie (the unsharded
+             k-th less (k+1)-th router probability within 1e-5), then again
+             with the unsharded path's routing imposed on the
+             tensor-parallel path layer by layer, held as qwen is (no
+             flip: gaps and logits within 1e-4); then in bf16: token
+             agreement, the largest logit difference of each step, peak GB
+             beside the tree's (each peak must stay under 1.5 trees).  (d)
+             phase 36's dry-run records of the 15 LM serve cells:
+             deepseek-moe-16b prefill_32k, decode_32k and long_500k each
+             under 80 GB a rank; every decode cell's all-gather bytes
+             exactly its step's (o, m, l), router and logit gathers (no
+             parameter leaf or cache layer) and its collective term below
+             its memory term.  (e) qwen2.5-3b and deepseek-moe-16b FULL in
+             bf16 at batch 4 after a 512-token prompt: the unsharded
+             decode step against the tensor-parallel program on a
+             one-shard (1, 1) mesh, the same logits bit for bit, the p50 of
+             32 steps a turn (turns unsharded, one-shard, one-shard,
+             unsharded) and one profiled step of each.  The phase's
+             seconds.
 
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
@@ -2349,17 +2366,21 @@ def check_attn(q, k, v, lengths, what: str) -> float:
 
 
 def attn_bound(q, k, lengths) -> dict:
-    """The least time for this call: q, the output and lengths once, and K
-    and V each read once up to each row's length, over the HBM rate; the
-    float32 multiply-adds (scores and p @ V) over the float32 peak."""
-    b, h, dh = q.shape
-    kh = k.shape[2]
+    """The least time for this call: its bytes (``call_cost``, K and V read
+    once up to each row's length) over the HBM rate, its float32
+    multiply-adds (scores and p @ V) over the float32 peak."""
+    b = q.shape[0]
     lens = ([int(lengths)] * b if isinstance(lengths, int)
             else [int(x) for x in lengths.tolist()])
-    kv_bytes = 2 * sum(lens) * kh * dh * k.element_size()
-    nbytes = (q.numel() * q.element_size() + b * h * dh * 4 + kv_bytes
-              + (0 if isinstance(lengths, int) else 4 * b))
-    flops = 4 * h * dh * sum(lens)
+    return cost_bound(q, k, sum(lens), partial=False, per_row=not isinstance(lengths, int))
+
+
+def cost_bound(q, k, n_pos: int, *, partial: bool, per_row: bool) -> dict:
+    """``decode_attention.call_cost``'s bytes over the HBM rate and FLOPs
+    over the float32 peak: the larger is the bound."""
+    from repro_torch.kernels.decode_attention import call_cost
+
+    nbytes, flops = call_cost(q, k, n_pos, partial=partial, per_row=per_row)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_PEAK_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -2506,15 +2527,24 @@ def generate_both(params, cfg, prompt, n_new: int, what: str, identical=True,
 
 TRACE_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACE_HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+# the profiler's own CUPTI overheads ("Activity Buffer Request", "Command
+# Buffer Full"): written on no thread, counted by key_averages as host
+# operations of the profiling thread
+TRACE_OVERHEAD_CAT = "overhead"
 
 
 def trace_summary(prof) -> tuple:
     """A finished profile's device and host operations by name, ``{name:
     [count, microseconds]}``: each device operation's duration, and each
-    host operation's self time (its duration less its nested operations'
-    on the same thread), the sums ``key_averages()`` gives.  Read from the
-    chrome trace kineto writes in C++: Python's own parse of a training
-    step's ~700k events (``key_averages``, ``events``) takes minutes."""
+    host operation's self time, the sums ``key_averages()`` gives (held
+    equal on the card by ``summary_check``).  Read from the chrome trace
+    kineto writes in C++: Python's own parse of a training step's ~700k
+    events (``key_averages``, ``events``) takes minutes.  The host tree is
+    torch's (``EventList._populate_cpu_children`` and
+    ``_remove_dup_nodes``): on each thread, by start, an op is the child
+    of the innermost open op that holds its whole interval; an op's only
+    child of the same name is folded into it, its children lifted; self
+    time is an op's duration less its children's."""
     import collections
     import tempfile
 
@@ -2529,35 +2559,97 @@ def trace_summary(prof) -> tuple:
     device = collections.defaultdict(lambda: [0, 0.0])
     host = collections.defaultdict(lambda: [0, 0.0])
     threads = collections.defaultdict(list)
+    overheads, first = [], None
     for e in events:
         if e.get("ph") != "X":
             continue
-        if e.get("cat") in TRACE_DEVICE_CATS:
+        cat = e.get("cat")
+        if cat in TRACE_DEVICE_CATS:
             d = device[e["name"]]
             d[0] += 1
             d[1] += e["dur"]
-        elif e.get("cat") in TRACE_HOST_CATS:
-            threads[(e["pid"], e["tid"])].append(e)
-    for evs in threads.values():
-        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
-        stack = []                       # [end, name, self time] of open ops
-        for e in evs + [None]:
-            while stack and (e is None or stack[-1][0] <= e["ts"]):
-                _, name, own = stack.pop()
-                host[name][0] += 1
-                host[name][1] += own
-            if e is not None:
-                if stack:
-                    stack[-1][2] -= e["dur"]
-                stack.append([e["ts"] + e["dur"], e["name"], e["dur"]])
+            continue
+        if cat not in TRACE_HOST_CATS and cat != TRACE_OVERHEAD_CAT:
+            continue
+        # integer nanoseconds: exact, where the sum of two microsecond
+        # floats near 1e12 is not
+        start = round(e["ts"] * 1000)
+        op = (start, start + round(e["dur"] * 1000), e["name"])
+        if cat == TRACE_OVERHEAD_CAT:
+            overheads.append(op)
+            continue
+        key = (e["pid"], e["tid"])
+        threads[key].append(op)
+        if cat == "cpu_op" and (first is None or start < first[0]):
+            first = (start, key)
+    if overheads and first is not None:
+        threads[first[1]].extend(overheads)
+    for ops in threads.values():
+        ops.sort(key=lambda op: (op[0], -op[1]))
+        stack = []              # open ops: [end, name, duration, children, self time]
+
+        def close(node):
+            kids = node[3]
+            while len(kids) == 1 and kids[0][1] == node[1]:
+                host[node[1]][0] -= 1         # folded: no op of its own
+                host[node[1]][1] -= kids[0][4]
+                kids = kids[0][3]
+            node[3], node[4] = kids, node[2] - sum(k[2] for k in kids)
+            host[node[1]][0] += 1
+            host[node[1]][1] += node[4]
+
+        for start, end, name in ops:
+            while stack and (start >= stack[-1][0] or end > stack[-1][0]):
+                close(stack.pop())
+            node = [end, name, (end - start) / 1000, [], 0.0]
+            if stack:
+                stack[-1][3].append(node)
+            stack.append(node)
+        while stack:
+            close(stack.pop())
     return device, host
 
 
-def profile_decode_step(fn) -> dict:
+SUMMARY_REL_TOL = 1e-6     # trace_summary against key_averages, microseconds
+
+
+def summary_check(prof, device: dict, host: dict) -> dict:
+    """``trace_summary``'s sums against ``key_averages()``'s on the same
+    card profile: every device and host operation's count equal, its
+    device time and host self time within ``SUMMARY_REL_TOL``.  Raises
+    on a difference; returns the totals and each parse's seconds."""
+    import torch
+
+    t = time.perf_counter()
+    events = prof.key_averages()
+    kinds = torch.autograd.DeviceType
+    ka = {"device": {e.key: (e.count, e.self_device_time_total) for e in events
+                     if e.device_type == kinds.CUDA},
+          "host": {e.key: (e.count, e.self_cpu_time_total) for e in events
+                   if e.device_type == kinds.CPU}}
+    ka_s = time.perf_counter() - t
+    wrong = []
+    for side, ours in (("device", device), ("host", host)):
+        theirs = ka[side]
+        for name in set(theirs) | set(ours):
+            a, b = theirs.get(name, (0, 0.0)), ours.get(name, (0, 0.0))
+            if a[0] != b[0] or abs(a[1] - b[1]) > SUMMARY_REL_TOL * max(1.0, abs(a[1])):
+                wrong.append((side, name, tuple(b), tuple(a)))
+    if wrong:
+        raise AssertionError(f"trace_summary against key_averages (side, op, ours, "
+                             f"theirs): {wrong[:12]}")
+    return dict(device_ops=sum(n for n, _ in device.values()),
+                device_us=sum(us for _, us in device.values()),
+                host_ops=sum(n for n, _ in host.values()),
+                host_us=sum(us for _, us in host.values()),
+                names=len(device) + len(host), key_averages_s=ka_s, rel_tol=SUMMARY_REL_TOL)
+
+
+def profile_decode_step(fn, check: bool = False) -> dict:
     """One step (a decode step, a train step) under torch.profiler: wall
     ms, device busy ms and the idle share, the device operations it
     issued, and the host operations that took the most host time (self
-    time, profiler overhead included)."""
+    time, profiler overhead included).  ``check``: ``summary_check`` too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2567,7 +2659,10 @@ def profile_decode_step(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
     device, host = trace_summary(prof)
+    parse_s = time.perf_counter() - t
+    checked = summary_check(prof, device, host) if check else None
     busy = sum(us for _, us in device.values()) / 1e3
     kernels = sorted(device.items(), key=lambda kv: -kv[1][1])
     hosts = sorted(host.items(), key=lambda kv: -kv[1][1])
@@ -2575,7 +2670,9 @@ def profile_decode_step(fn) -> dict:
                 device_idle_share=max(0.0, 1 - busy / wall) if wall else None,
                 device_ops=sum(n for n, _ in device.values()),
                 top=[dict(kernel=k[:80], count=n, ms=us / 1e3) for k, (n, us) in kernels[:6]],
-                top_host=[dict(op=k[:80], count=n, ms=us / 1e3) for k, (n, us) in hosts[:8]])
+                top_host=[dict(op=k[:80], count=n, ms=us / 1e3) for k, (n, us) in hosts[:8]],
+                **({} if checked is None else dict(summary_check=dict(
+                    checked, trace_summary_s=parse_s))))
 
 
 def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
@@ -2640,7 +2737,7 @@ def lm_phases(dev, qwen, smollm, lm_batch=LM_BATCH, prompt_len=LM_PROMPT,
         served, cache, toks[:, prompt_len + i], prompt_len + i, qwen))
         for i in range(new_tokens)]
     prof = profile_decode_step(lambda: transformer.decode_step(
-        served, cache, toks[:, -1], prompt_len + new_tokens - 1, qwen))
+        served, cache, toks[:, -1], prompt_len + new_tokens - 1, qwen), check=True)
     # the kernel at the serving shape: layer 0 of the last step
     _, (q, k, v, lengths) = capture_attention(lambda: transformer.decode_step(
         served, cache, toks[:, -1], prompt_len + new_tokens - 1, qwen))
@@ -4930,24 +5027,14 @@ TP_PROMPT = 128
 TP_NEW_TOKENS = 16          # decode steps after the prefill's token
 TP_BLOCKS = 4               # the decode_32k cache cut into kv_seq blocks
 TP_PEAK_OVER_TREE = 1.5     # the local blocks are views: no second tree
+TP_F32_LOGIT_TOL = 1e-4     # float32 |logit| gap, tensor-parallel vs unsharded, one routing
+TP_GAP_TOL = 1e-4           # a layer's gap over max(1, |output|) before the first routing flip
+TP_FLIP_MARGIN = 1e-5       # that flip's k-th less (k+1)-th router probability, at most
+TP_ONE_SHARD_STEPS = 32     # decode steps a turn: one-shard tensor-parallel vs unsharded
 PARTIAL_LENGTHS = (1, 8192, 8193, 32768, "rows")
 LM_SERVE_ARCHS = ("qwen2.5-3b", "smollm-360m", "minitron-4b", "granite-moe-3b-a800m",
                   "deepseek-moe-16b")
 LM_SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
-
-
-def partial_bound(q, n_pos: int, kh: int, kv_bytes: int) -> dict:
-    """The least time of one partial call: q, the (o, m, l) outputs once and
-    K and V of its ``n_pos`` (row, position) pairs once over the HBM rate;
-    its float32 multiply-adds over the float32 peak."""
-    b, h, dh = q.shape
-    nbytes = (q.numel() * q.element_size() + 4 * b * h * (dh + 2)
-              + 2 * n_pos * kh * dh * kv_bytes)
-    flops = 4 * h * dh * n_pos
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_PEAK_FLOPS * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes=nbytes, flops=flops)
 
 
 def efficient_attention_yardstick(q, kb, vb):
@@ -5025,7 +5112,7 @@ def partial_kernel_check(dev, card: str) -> dict:
         ms=device_ms(lambda: da.decode_attention_partial(q, kb, vb, 0, s), 20),
         plain_ms=cuda_ms(lambda: da.decode_attention_partial_plain(q, kb, vb, 0, s), 3),
         library_ms=device_ms(library, 20),
-        **partial_bound(q, b * blk, kh, kb.element_size()))
+        **cost_bound(q, kb, b * blk, partial=True, per_row=False))
     plan = da.plan(b, h, kh, dh, kb.dtype, blk)
     log("tp_partial_kernel", card=card, q=list(q.shape), block=list(kb.shape),
         blocks=TP_BLOCKS, lengths=[str(x) for x in PARTIAL_LENGTHS],
@@ -5038,13 +5125,86 @@ def partial_kernel_check(dev, card: str) -> dict:
     return row
 
 
-def tp_lockstep(params, cfg, prompt, n_new: int, mesh, what: str, exact: bool) -> dict:
+class LayerTrace:
+    """Each layer's output and routing in a lockstep run, both sides:
+    ``transformer._ffn`` (the unsharded step, side "u"),
+    ``transformer._ffn_tp`` (the tensor-parallel step, "t") and
+    ``moe.route_logits`` (both) wrapped while it is entered.  With
+    ``impose`` the tensor-parallel pass takes the unsharded pass's routing
+    layer by layer (the unsharded pass runs first)."""
+
+    def __init__(self, impose: bool = False):
+        from repro_torch.models import moe, transformer
+
+        self.transformer, self.moe, self.impose = transformer, moe, impose
+        self.side = "u"
+        self.clear()
+
+    def clear(self):
+        self.x = {"u": [], "t": []}
+        self.routes = {"u": [], "t": []}
+
+    def __enter__(self):
+        tf, moe = self.transformer, self.moe
+        self.saved = (tf._ffn, tf._ffn_tp, moe.route_logits)
+        ffn, ffn_tp, route_logits = self.saved
+
+        def ffn_u(*a, **kw):
+            x, aux = ffn(*a, **kw)
+            self.x["u"].append(x.detach().float())
+            return x, aux
+
+        def ffn_t(*a, **kw):
+            x = ffn_tp(*a, **kw)
+            self.x["t"].append(x.detach().float())
+            return x
+
+        def route(logits, cfg):
+            out = route_logits(logits, cfg)
+            mine = self.routes[self.side]
+            if self.side == "t" and self.impose:
+                out = self.routes["u"][len(mine)]
+            mine.append(out)
+            return out
+
+        tf._ffn, tf._ffn_tp, moe.route_logits = ffn_u, ffn_t, route
+        return self
+
+    def __exit__(self, *exc):
+        tf, moe = self.transformer, self.moe
+        tf._ffn, tf._ffn_tp, moe.route_logits = self.saved
+
+    def report(self, cfg) -> dict:
+        """One pass (the prefill or a decode step) of both sides, then
+        cleared: each layer's gap (the largest |difference| of its output
+        over max(1, its largest |output|)), and each layer where a token's
+        expert set differs: the tokens, and the largest margin between the
+        unsharded path's k-th and (k+1)-th router probability over them."""
+        gaps = [float((u - t).abs().max()) / max(1.0, float(u.abs().max()))
+                for u, t in zip(self.x["u"], self.x["t"])]
+        flips = []
+        for i, ((pu, _, su), (_, _, st)) in enumerate(zip(self.routes["u"],
+                                                           self.routes["t"])):
+            diff = (su.sort(-1)[0] != st.sort(-1)[0]).any(-1)
+            if bool(diff.any()):
+                k = cfg.moe.top_k
+                top = pu.sort(-1, descending=True)[0]
+                flips.append(dict(layer=cfg.n_layers - cfg.n_scan + i, tokens=int(diff.sum()),
+                                  margin=float((top[:, k - 1] - top[:, k])[diff].max())))
+        self.clear()
+        return dict(gaps=gaps, flips=flips)
+
+
+def tp_lockstep(params, cfg, prompt, n_new: int, mesh, what: str, exact: bool,
+                trace: LayerTrace) -> dict:
     """Prefill and ``n_new`` greedy decode steps tensor-parallel over
     ``mesh`` (prefill under LM_TRAIN_RULES, decode under the decode cell's
-    serve rules) beside the unsharded path, both fed the tensor-parallel
-    path's token: the largest |logit difference| of each step and the
-    share of (step, row) tokens that agree; ``exact``: every token must.
-    The tensor-parallel steps' launches are counted alone."""
+    serve rules) beside the unsharded path (each pass run first, so that
+    ``trace`` may impose its routing), both fed the tensor-parallel path's
+    token: the largest |logit difference| of each step, the share of
+    (step, row) tokens that agree, and ``trace``'s report of each pass;
+    ``exact``: every token must agree.  The tensor-parallel steps'
+    launches are counted alone."""
     import torch
     from repro_torch.distribution import sharding
     from repro_torch.kernels import _build
@@ -5057,35 +5217,40 @@ def tp_lockstep(params, cfg, prompt, n_new: int, mesh, what: str, exact: bool) -
     s0 = prompt.shape[1]
     max_seq = s0 + n_new
     launches = {k: 0 for k in _build.launches}
-    ms = {"tp": [], "unsharded": []}
+    ms = []
 
     def tp_call(fn):
+        trace.side = "t"
         torch.cuda.synchronize()
         _build.reset_launches()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        ms["tp"].append((time.perf_counter() - t) * 1e3)
+        ms.append((time.perf_counter() - t) * 1e3)
         for k_, n in _build.launches.items():
             launches[k_] += n
+        trace.side = "u"
         return out
 
-    with torch.no_grad():
+    passes = []
+    with torch.no_grad(), trace:
+        lu, cache_u = transformer.prefill(params, prompt, cfg, max_seq=max_seq)
         lt, cache_t = tp_call(lambda: transformer.prefill(
             pre.local_form(params, logical), prompt, cfg, max_seq=max_seq, tp=pre))
-        lu, cache_u = transformer.prefill(params, prompt, cfg, max_seq=max_seq)
         dparams = dec.local_form(params, logical)
         diffs = [float((lt - lu).abs().max())]
         agree = [float((lt.argmax(-1) == lu.argmax(-1)).float().mean())]
+        passes.append(trace.report(cfg))
         for i in range(n_new):
             cur = torch.argmax(lt, dim=-1).to(torch.int32)
+            lu, cache_u = transformer.decode_step(params, cache_u, cur, s0 + i, cfg)
             lt, cache_t = tp_call(lambda: transformer.decode_step(
                 dparams, cache_t, cur, s0 + i, cfg, tp=dec))
-            lu, cache_u = transformer.decode_step(params, cache_u, cur, s0 + i, cfg)
             if not bool(torch.isfinite(lt).all()):
                 raise AssertionError(f"{what}: tensor-parallel step {i} logits not finite")
             diffs.append(float((lt - lu).abs().max()))
             agree.append(float((lt.argmax(-1) == lu.argmax(-1)).float().mean()))
+            passes.append(trace.report(cfg))
     if exact and min(agree) < 1.0:
         raise AssertionError(f"{what}: tensor-parallel tokens differ from the unsharded "
                              f"ones (agreement by step {agree})")
@@ -5094,13 +5259,57 @@ def tp_lockstep(params, cfg, prompt, n_new: int, mesh, what: str, exact: bool) -
         raise AssertionError(f"{what}: {launches['decode_attention_partial']} partial "
                              f"attention launches, expected {want}")
     return dict(max_logit_diff_per_step=diffs, token_agreement_per_step=agree,
-                token_agreement=float(np.mean(agree)), tp_ms=ms["tp"], launches=launches)
+                token_agreement=float(np.mean(agree)), tp_ms=ms, launches=launches,
+                passes=passes)
 
 
-def tp_model(dev, cfg, seed: int, card: str, what: str, exact: bool, **extra) -> dict:
+def tp_witness(out: dict, what: str) -> dict:
+    """A float32 lockstep run held to what explains its gap.  Up to the
+    run's first routing flip (the first pass and layer where a token's
+    expert set differs), every layer's gap must stay within TP_GAP_TOL
+    and that flip's margins within TP_FLIP_MARGIN: a near-tie that the
+    blocked products' float32 reordering can flip (later passes read the
+    flipped tokens' cache).  A run with no flip must keep every step's
+    logit difference within TP_F32_LOGIT_TOL.  Returns the witness for the
+    log line; the per-pass reports leave ``out``."""
+    passes = out.pop("passes")
+    flip = next(((i, p["flips"][0]) for i, p in enumerate(passes) if p["flips"]), None)
+    before = []
+    for i, p in enumerate(passes):
+        if flip is not None and i == flip[0]:
+            before += p["gaps"][:flip[1]["layer"]]
+            break
+        before += p["gaps"]
+    over = next(((i, layer) for i, p in enumerate(passes)
+                 for layer, g in enumerate(p["gaps"]) if g > TP_GAP_TOL), None)
+    witness = dict(
+        first_flip=None if flip is None else dict(flip[1], pass_index=flip[0]),
+        flips=[dict(f, pass_index=i) for i, p in enumerate(passes) for f in p["flips"]][:12],
+        max_gap_before_flip=max(before) if before else None,
+        first_gap_over_tol=over, gap_tol=TP_GAP_TOL, flip_margin_tol=TP_FLIP_MARGIN,
+        logit_tol=TP_F32_LOGIT_TOL, prefill_gaps=passes[0]["gaps"],
+        last_step_gaps=passes[-1]["gaps"])
+    if before and max(before) > TP_GAP_TOL:
+        raise AssertionError(f"{what}: a layer's gap {max(before)} > {TP_GAP_TOL} before "
+                             f"any routing flip")
+    if flip is None:
+        if max(out["max_logit_diff_per_step"]) > TP_F32_LOGIT_TOL:
+            raise AssertionError(f"{what}: logit difference "
+                                 f"{max(out['max_logit_diff_per_step'])} > "
+                                 f"{TP_F32_LOGIT_TOL} with no routing flip")
+    elif flip[1]["margin"] > TP_FLIP_MARGIN:
+        raise AssertionError(f"{what}: the first routing flip {flip} is no near-tie "
+                             f"(margin > {TP_FLIP_MARGIN})")
+    return witness
+
+
+def tp_model(dev, cfg, seed: int, card: str, what: str, exact: bool,
+             impose: bool = False, **extra) -> list:
     """One model at full width through ``tp_lockstep`` on a local (1, 4)
     mesh, its tree drawn on the card (the local blocks are views of it);
-    ``extra`` joins its log line."""
+    ``exact`` (float32): every token equal and ``tp_witness``; ``impose``:
+    a second run with the unsharded path's routing imposed, held to the
+    same.  ``extra`` joins the log line.  Returns each run's launches."""
     import torch
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import transformer
@@ -5113,19 +5322,94 @@ def tp_model(dev, cfg, seed: int, card: str, what: str, exact: bool, **extra) ->
     tree = torch.cuda.memory_allocated() - resident
     prompt = moe_prompt(dev, cfg, seed, TP_BATCH, TP_PROMPT)
     mesh = mesh_lib.local_mesh(TP_MESH, ("data", "model"), device=dev)
-    out = tp_lockstep(params, cfg, prompt, TP_NEW_TOKENS, mesh, what, exact)
+    runs = {"": tp_lockstep(params, cfg, prompt, TP_NEW_TOKENS, mesh, what, exact,
+                            LayerTrace())}
+    if impose:
+        runs["_routing_imposed"] = tp_lockstep(params, cfg, prompt, TP_NEW_TOKENS, mesh,
+                                               what, exact, LayerTrace(impose=True))
     peak = torch.cuda.max_memory_allocated() - resident
-    out.update(model=cfg.name, card=card, compute_dtype=str(cfg.compute_dtype),
-               cache_dtype=str(cfg.cache_dtype), mesh=list(TP_MESH), batch=TP_BATCH,
-               prompt=TP_PROMPT, decode_steps=TP_NEW_TOKENS, tree_gb=gb(tree),
-               peak_gb=gb(peak), tokens_equal_unsharded=min(out["token_agreement_per_step"]) == 1.0,
-               n_layers=cfg.n_layers, **extra)
-    log(what, **out)
+    for tag, out in runs.items():
+        witness = tp_witness(out, what + tag) if exact else None
+        if not exact:
+            out.pop("passes")
+        out.update(model=cfg.name, card=card, compute_dtype=str(cfg.compute_dtype),
+                   cache_dtype=str(cfg.cache_dtype), mesh=list(TP_MESH), batch=TP_BATCH,
+                   prompt=TP_PROMPT, decode_steps=TP_NEW_TOKENS, tree_gb=gb(tree),
+                   peak_gb=gb(peak),
+                   tokens_equal_unsharded=min(out["token_agreement_per_step"]) == 1.0,
+                   n_layers=cfg.n_layers, routing_imposed=bool(tag), witness=witness,
+                   **extra)
+        log(what + tag, **out)
     if peak > TP_PEAK_OVER_TREE * tree:
         raise AssertionError(f"{what}: peak {gb(peak)} GB against a {gb(tree)} GB tree")
     del params
     torch.cuda.empty_cache()
-    return out["launches"]
+    return [out["launches"] for out in runs.values()]
+
+
+def one_shard_decode(dev, cfg, seed: int, card: str, what: str) -> None:
+    """Phase 37e: the unsharded decode step against the tensor-parallel
+    program on a one-shard local (1, 1) mesh, the same bits required:
+    p50 wall ms of TP_ONE_SHARD_STEPS greedy steps at batch LM_BATCH
+    after an LM_PROMPT-token prompt, turns unsharded, one-shard,
+    one-shard, unsharded, and one profiled step of each (device
+    operations, busy ms, host launch calls).  Why the unsharded step keeps
+    its own layer loop (PERF.md)."""
+    import torch
+    from repro_torch.distribution import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+
+    torch.cuda.empty_cache()
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                     dtype=cfg.compute_dtype)
+    prompt = moe_prompt(dev, cfg, seed, LM_BATCH, LM_PROMPT)
+    mesh = mesh_lib.local_mesh((1, 1), ("data", "model"), device=dev)
+    serve = sharding.LM_SERVE_RULES.with_overrides(heads=None, embed=None)
+    pre = sharding.TensorParallel(mesh, sharding.LM_TRAIN_RULES, sharding.LM_SERVE_RULES)
+    dec = sharding.TensorParallel(mesh, serve)
+    logical = transformer.param_logical(cfg)
+    dparams = dec.local_form(params, logical)
+    n, s0 = TP_ONE_SHARD_STEPS, LM_PROMPT
+    steps = {
+        "unsharded": lambda c, t, i: transformer.decode_step(params, c, t, s0 + i, cfg),
+        "one_shard": lambda c, t, i: transformer.decode_step(dparams, c, t, s0 + i, cfg,
+                                                             tp=dec),
+    }
+    with torch.no_grad():
+        lu, cache_u = transformer.prefill(params, prompt, cfg, max_seq=s0 + n)
+        lt, cache_t = transformer.prefill(pre.local_form(params, logical), prompt, cfg,
+                                          max_seq=s0 + n, tp=pre)
+        if not torch.equal(lu, lt):
+            raise AssertionError(f"{what}: one-shard prefill logits differ from unsharded")
+        caches = {"unsharded": cache_u, "one_shard": cache_t}
+        toks, want = [torch.argmax(lu, -1).to(torch.int32)], []
+        for i in range(n):
+            logits, _ = steps["unsharded"](cache_u, toks[i], i)
+            want.append(logits)
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+        p50 = {"unsharded": [], "one_shard": []}
+        for name in ("unsharded", "one_shard", "one_shard", "unsharded"):
+            out = []
+            ms = [wall_ms(lambda i=i: out.append(steps[name](caches[name], toks[i], i)[0]))
+                  for i in range(n)]
+            if not all(torch.equal(a, b) for a, b in zip(out, want)):
+                raise AssertionError(f"{what}: {name} step logits differ from the first turn")
+            p50[name].append(float(np.percentile(ms, 50)))
+        prof = {name: profile_decode_step(lambda f=f: f(caches[name], toks[0], 0))
+                for name, f in steps.items()}
+    launch_calls = {name: sum(h["count"] for h in p["top_host"]
+                              if h["op"] in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+                    for name, p in prof.items()}
+    log("tp_one_shard", model=cfg.name, card=card, compute_dtype=str(cfg.compute_dtype),
+        batch=LM_BATCH, prompt=LM_PROMPT, steps=n, turns=["unsharded", "one_shard",
+                                                        "one_shard", "unsharded"],
+        p50_ms=p50, one_shard_over_unsharded=min(p50["one_shard"]) / min(p50["unsharded"]),
+        same_bits=True, launch_calls_in_top_host=launch_calls,
+        profiled={name: {k: p[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                            "device_ops")} for name, p in prof.items()})
+    del params, dparams, caches, cache_u, cache_t
+    torch.cuda.empty_cache()
 
 
 def tp_dryrun_cells(card: str) -> None:
@@ -5183,10 +5467,13 @@ def tp_serve_phase(dev, qwen, deepseek) -> tuple:
     # (phase 31's kernel path against its plain path)
     deep32, reckon, cut = moe_f32_config(deepseek, TP_BATCH, TP_PROMPT,
                                          TP_PROMPT + TP_NEW_TOKENS)
-    paths = [tp_model(dev, qwen32, SEED + 371, card, "tp_qwen_f32", exact=True),
-             tp_model(dev, deep32, SEED + 372, card, "tp_deepseek_f32", exact=True,
-                      reckoned=reckon, cut=cut),
-             tp_model(dev, deepseek, SEED + 372, card, "tp_deepseek_bf16", exact=False)]
+    paths = (tp_model(dev, qwen32, SEED + 371, card, "tp_qwen_f32", exact=True)
+             + tp_model(dev, deep32, SEED + 372, card, "tp_deepseek_f32", exact=True,
+                        impose=True, reckoned=reckon, cut=cut)
+             + tp_model(dev, deepseek, SEED + 372, card, "tp_deepseek_bf16", exact=False))
+    for cfg, seed, what in ((qwen, SEED + 373, "qwen_bf16"),
+                            (deepseek, SEED + 374, "deepseek_bf16")):
+        one_shard_decode(dev, cfg, seed, card, what)
     tp_dryrun_cells(card)
     log("tp_serve", seconds=time.perf_counter() - t0, card=card)
     return row, paths

@@ -322,26 +322,26 @@ class TensorParallel:
     local shards' blocks on a leading dim (one on a process group) when a
     dim is on 'model', else the leaf whole on a leading dim of 1."""
 
-    def __init__(self, mesh: Mesh, rules: RuleSet, cache_rules: Optional[RuleSet] = None,
-                 model_axis: str = "model"):
+    axis = "model"
+
+    def __init__(self, mesh: Mesh, rules: RuleSet, cache_rules: Optional[RuleSet] = None):
         if mesh.kind == "abstract":
             raise ValueError("an abstract mesh only resolves specs; it has no devices")
-        if model_axis not in mesh.axis_names:
-            raise ValueError(f"mesh axes {mesh.axis_names} lack {model_axis!r}")
-        others = [a for a in mesh.axis_names if a != model_axis]
+        if self.axis not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names} lack {self.axis!r}")
+        others = [a for a in mesh.axis_names if a != self.axis]
         if mesh.kind == "local" and mesh.axis_size(others) > 1:
             raise ValueError(
                 f"a local mesh serves tensor-parallel only with its axes {others} of "
                 f"size 1, got {mesh.shape}: each data shard would need its own rows")
         self.mesh, self.rules = mesh, rules
         self.cache_rules = cache_rules or rules
-        self.axis = model_axis
-        self.n = mesh.shape[model_axis]
+        self.n = mesh.shape[self.axis]
         self.local = mesh.kind == "local"
-        self.fabric = mesh.fabric(model_axis)
+        self.fabric = mesh.fabric(self.axis)
         # the model coordinates of the local shards, in order
         self.coords: List[int] = (list(range(self.n)) if self.local
-                                  else [mesh.coordinate(model_axis)])
+                                  else [mesh.coordinate(self.axis)])
         self.data_ranks = mesh.axis_size(others)
 
     def split(self, name: Optional[str], rules: Optional[RuleSet] = None) -> bool:

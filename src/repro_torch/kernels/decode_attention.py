@@ -268,17 +268,28 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, lengths, b, h, dh, s, kh, lo=lo)
 
 
+def call_cost(q: torch.Tensor, k: torch.Tensor, n_pos: int, *, partial: bool,
+              per_row: bool) -> Tuple[int, int]:
+    """``(bytes, float32 FLOPs)`` of one call that reads ``n_pos`` (row,
+    position) pairs of K and V: q and the output (the partial form's
+    ``(o, m, l)``) once, per-row lengths once, K and V each read once at
+    those pairs; scores and ``p @ V``, ``4 * h * dh`` FLOPs a pair."""
+    b, h, dh = q.shape
+    kh = k.shape[2]
+    nbytes = (q.numel() * q.element_size() + 4 * b * h * (dh + (2 if partial else 0))
+              + 2 * n_pos * kh * dh * k.element_size() + (4 * b if per_row else 0))
+    return nbytes, 4 * h * dh * n_pos
+
+
 def _fake_form(q, k, lengths, b, h, dh, s, kh) -> torch.Tensor:
     """A dry run's call (the fake form): the output's shape and dtype,
-    no launch.  Charged: q and the output once, K and V each read once up
-    to each row's length (all ``s`` for per-row lengths, whose values a
-    dry run does not see); float32 scores and ``p @ V``, ``4 * h * dh``
-    FLOPs a position a row."""
-    n_pos = b * (s if isinstance(lengths, torch.Tensor) else int(lengths))
-    nbytes = (q.numel() * q.element_size() + 4 * b * h * dh
-              + 2 * n_pos * kh * dh * k.element_size()
-              + (4 * b if isinstance(lengths, torch.Tensor) else 0))
-    _build.charge("decode_attention", nbytes, {"float32": 4 * h * dh * n_pos})
+    no launch, charged ``call_cost`` with K and V read up to each row's
+    length (all ``s`` for per-row lengths, whose values a dry run does
+    not see)."""
+    per_row = isinstance(lengths, torch.Tensor)
+    nbytes, flops = call_cost(q, k, b * (s if per_row else int(lengths)),
+                              partial=False, per_row=per_row)
+    _build.charge("decode_attention", nbytes, {"float32": flops})
     return torch.empty((b, h, dh), dtype=torch.float32, device=k.device)
 
 
@@ -301,18 +312,13 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _fake_partial(q, k, lo, lengths, b, h, dh, s, kh):
-    """The partial form's fake form: its outputs' shapes, no launch.
-    Charged: q and the three outputs once, the block's K and V read once up
-    to each row's own length (all ``s`` for per-row lengths), ``4 * h *
-    dh`` float32 FLOPs a position a row."""
-    if isinstance(lengths, torch.Tensor):
-        n_pos = b * s
-    else:
-        n_pos = b * min(max(int(lengths) - lo, 0), s)
-    nbytes = (q.numel() * q.element_size() + 4 * b * h * (dh + 2)
-              + 2 * n_pos * kh * dh * k.element_size()
-              + (4 * b if isinstance(lengths, torch.Tensor) else 0))
-    _build.charge("decode_attention_partial", nbytes, {"float32": 4 * h * dh * n_pos})
+    """The partial form's fake form: its outputs' shapes, no launch,
+    charged ``call_cost`` with the block's K and V read up to each row's
+    own length (all ``s`` for per-row lengths)."""
+    per_row = isinstance(lengths, torch.Tensor)
+    n_pos = b * (s if per_row else min(max(int(lengths) - lo, 0), s))
+    nbytes, flops = call_cost(q, k, n_pos, partial=True, per_row=per_row)
+    _build.charge("decode_attention_partial", nbytes, {"float32": flops})
     dev = k.device
     return (torch.empty((b, h, dh), dtype=torch.float32, device=dev),
             torch.empty((b, h), dtype=torch.float32, device=dev),

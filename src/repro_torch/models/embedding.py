@@ -117,16 +117,27 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _GatherRows.apply(table, idx)
 
 
+def wrap_ids(ids: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jnp.take``'s index rule over ``n`` rows: ``(ids as int64 with a
+    negative id wrapped once, whether each is then in range)``."""
+    i = ids.long()
+    i = torch.where(i < 0, i + n, i)
+    return i, (i >= 0) & (i < n)
+
+
+def nan_rows(rows: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """``rows`` with NaN where ``ok`` is false (``jnp.take``'s fill), in
+    place."""
+    return rows.masked_fill_(~ok[..., None], float("nan"))
+
+
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)``: ``ids.shape + (dim,)``; a negative
     id wraps once, an id still out of range gives NaN.  Differentiable in
     ``table`` (the NaN rows pass no gradient), the same bits every run."""
     n = table.shape[0]
-    i = ids.long()
-    i = torch.where(i < 0, i + n, i)
-    ok = (i >= 0) & (i < n)
-    rows = gather_rows(table, i.clamp(0, n - 1))
-    return rows.masked_fill_(~ok[..., None], float("nan"))
+    i, ok = wrap_ids(ids, n)
+    return nan_rows(gather_rows(table, i.clamp(0, n - 1)), ok)
 
 
 def global_ids(ids: torch.Tensor, cfg: MegaTableConfig) -> torch.Tensor:

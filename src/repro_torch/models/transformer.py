@@ -82,7 +82,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import merge_partials
 from repro_torch.launch.mesh import data_axes
 from repro_torch.models import layers
-from repro_torch.models.embedding import gather_rows, take_rows
+from repro_torch.models.embedding import gather_rows, nan_rows, take_rows, wrap_ids
 from repro_torch.models.moe import (
     MoEConfig, ep_partials, init_moe_params, moe_ffn, moe_ffn_sharded,
     moe_param_specs,
@@ -678,20 +678,18 @@ def _layer_logical(cfg: LMConfig) -> Dict[str, Any]:
     return out
 
 
-def _embed_tp(params, tokens: torch.Tensor, cfg: LMConfig, tp) -> torch.Tensor:
-    """``_embed`` over the table's vocabulary blocks: the reference's wrap
-    of a negative id first (``-1`` and ``-V`` reach another shard's rows),
-    each shard its own rows (zeros for the others), one sum over 'model',
-    then the NaN rows of ids still outside ``[0, V_pad)``."""
+def _embed_tp(params, tokens: torch.Tensor, cfg: LMConfig, tp, top) -> torch.Tensor:
+    """``_embed`` over the table's vocabulary blocks (``top``: the tree's
+    logical axes): the reference's wrap of a negative id first (``-1`` and
+    ``-V`` reach another shard's rows), each shard its own rows (zeros for
+    the others), one sum over 'model', then the NaN rows of ids still
+    outside ``[0, V_pad)``."""
     cd = cfg.compute_dtype
-    table, split = tp.shards(params["embed"], ("vocab", None))
+    table, split = tp.shards(params["embed"], top["embed"])
     if not split:
         return take_rows(table[0].to(cd), tokens)
     rows = table.shape[1]
-    n_vocab = rows * tp.n
-    i = tokens.long()
-    i = torch.where(i < 0, i + n_vocab, i)
-    ok = (i >= 0) & (i < n_vocab)
+    i, ok = wrap_ids(tokens, rows * tp.n)
     zero = torch.zeros((), dtype=cd, device=i.device)
     parts = []
     for j, c in enumerate(tp.offsets(split)):
@@ -699,20 +697,19 @@ def _embed_tp(params, tokens: torch.Tensor, cfg: LMConfig, tp) -> torch.Tensor:
         mine = (local >= 0) & (local < rows)
         got = gather_rows(table[j].to(cd), local.clamp(0, rows - 1))
         parts.append(torch.where(mine[..., None], got, zero))
-    x = tp.fabric.psum(torch.stack(parts))
-    return x.masked_fill_(~ok[..., None], float("nan"))
+    return nan_rows(tp.fabric.psum(torch.stack(parts)), ok)
 
 
-def _logits_tp(params, x_last: torch.Tensor, cfg: LMConfig, tp) -> torch.Tensor:
+def _logits_tp(params, x_last: torch.Tensor, cfg: LMConfig, tp, top) -> torch.Tensor:
     """``_logits`` over the head's vocabulary blocks: each shard its
     columns, the pad vocabulary masked by global column on the shard that
     holds it, then the shards' columns gathered into ``(b, V_pad)``."""
     cd = cfg.compute_dtype
     if cfg.tie_embeddings:
-        head, split = tp.shards(params["embed"], ("vocab", None))
+        head, split = tp.shards(params["embed"], top["embed"])
         head = head.transpose(1, 2)
     else:
-        head, split = tp.shards(params["lm_head"], (None, "vocab"))
+        head, split = tp.shards(params["lm_head"], top["lm_head"])
     cols = head.shape[2]
     parts = []
     for j, c in enumerate(tp.offsets(split)):
@@ -847,7 +844,8 @@ def _init_cache_tp(cfg: LMConfig, b: int, max_seq: int, tp, dev) -> Dict[str, to
 
 def _prefill_tp(params, tokens: torch.Tensor, cfg: LMConfig, max_seq: int, tp):
     b, s = tokens.shape
-    x = _embed_tp(params, tokens, cfg, tp)
+    top = param_logical(cfg)
+    x = _embed_tp(params, tokens, cfg, tp, top)
     dev = x.device
     freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
     pos = torch.arange(s, device=dev).expand(b, s)
@@ -867,7 +865,7 @@ def _prefill_tp(params, tokens: torch.Tensor, cfg: LMConfig, max_seq: int, tp):
                 cv[j, :, :n] = v[:, lo:lo + n].to(cfg.cache_dtype)
         del k, v
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits_tp(params, x[:, -1], cfg, tp), cache
+    return _logits_tp(params, x[:, -1], cfg, tp, top), cache
 
 
 def _decode_step_tp(params, cache, tokens: torch.Tensor, pos: int, cfg: LMConfig,
@@ -877,7 +875,8 @@ def _decode_step_tp(params, cache, tokens: torch.Tensor, pos: int, cfg: LMConfig
                                   "whole (the serve rules' heads=None)")
     cd = cfg.compute_dtype
     b = tokens.shape[0]
-    x = _embed_tp(params, tokens, cfg, tp)[:, None, :]
+    top = param_logical(cfg)
+    x = _embed_tp(params, tokens, cfg, tp, top)[:, None, :]
     dev = x.device
     freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
     posb = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
@@ -910,4 +909,4 @@ def _decode_step_tp(params, cache, tokens: torch.Tensor, pos: int, cfg: LMConfig
         x = x + _out_proj(attn[:, None].to(cd), tp.whole(p["wo"], lg["wo"]).to(cd))
         x = _ffn_tp(p, x, cfg, tp, lg)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _logits_tp(params, x[:, 0], cfg, tp), cache
+    return _logits_tp(params, x[:, 0], cfg, tp, top), cache

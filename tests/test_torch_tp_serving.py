@@ -373,7 +373,8 @@ def _local_outputs(inp) -> dict:
                 out[f"{name}/1x4/decode{i}/{k}"] = cache[k].numpy()
         with torch.no_grad():
             out[f"{name}/1x4/embed"] = tf._embed_tp(
-                params, torch.from_numpy(inp[name + "/ids"]), cfg, dec).numpy()
+                params, torch.from_numpy(inp[name + "/ids"]), cfg, dec,
+                tf.param_logical(cfg)).numpy()
     return out
 
 
