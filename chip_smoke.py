@@ -326,15 +326,17 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              least 8) whose peak, reckoned from the config first
              (train_reckon_gb), stays under 70 GB is 112, and a step costs
              ~0.8 s a sequence, so the batch is cut on to 8
-             (TRAIN_TIME_BATCH) for the time limit.  8 steps uninterrupted
-             (loss, grad_norm and lr finite at every step, step 8's loss
+             (TRAIN_TIME_BATCH) for the time limit.  4 steps uninterrupted
+             (loss, grad_norm and lr finite at every step, step 4's loss
              below step 1's), the state copied to the host; then
              run_resilient over the same steps from the same seed with a
-             checkpoint every 4 steps under a temporary directory and one
-             injected failure at step 6: one restore, and the final
+             checkpoint every 2 steps under a temporary directory and one
+             injected failure at step 3: one restore, and the final
              parameters and optimizer state equal to the uninterrupted
-             run's bit for bit.  Printed: the reckoned and measured peak,
-             step ms (p50 of steps 2-8), tokens/s, seconds to save and to
+             run's bit for bit (cut from 8 steps, checkpoints every 4 and a
+             failure at step 6, to pay for phase 38).  Printed: the
+             reckoned and measured peak, step ms (p50 of steps 2-4),
+             tokens/s, seconds to save and to
              restore one checkpoint (restored bits checked), one profiled
              step's device busy and idle share (the profiler's own cost
              inflates that step's wall time: its busy time is also given
@@ -362,12 +364,13 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              shard, 5.85 GB in all): ms a call (p50 of 3) beside its byte
              bound, every leaf within one quantisation step of the float64
              mean, final_norm and blocks/wk equal to the CPU port's bit for
-             bit.  train_loop.jit_train_step over an NCCL process group of
+             bit.  The tensor-parallel train_loop.jit_train_step (tp=, the
+             loss transformer.loss_fn(tp=)) over an NCCL process group of
              one rank (a TCP store on localhost): LM_TRAIN_RULES with
-             ZeRO-1, SmolLM-360M FULL at phase 33's shape and seed, 2
-             steps; the parameters and optimizer state equal phase 33's
-             after its first 2 one-device steps bit for bit.  The phase's
-             seconds.
+             ZeRO-1, the state the rank's blocks, SmolLM-360M FULL at phase
+             33's shape and seed, 2 steps; the parameters and optimizer
+             state equal phase 33's after its first 2 one-device steps bit
+             for bit.  The phase's seconds.
 36. launch   after phase 35, nothing resident: the launch layer
              (configs/registry.py, launch/cells.py, dryrun.py,
              hlo_analysis.py).  (a) and (b) are host processes (fake
@@ -449,6 +452,39 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              32 steps a turn (turns unsharded, one-shard, one-shard,
              unsharded) and one profiled step of each.  The phase's
              seconds.
+38. tp_train after phase 37, nothing resident: tensor-parallel LM training
+             (transformer.loss_fn(tp=) under train_loop.jit_train_step(tp=)
+             on a local ("data", "model") mesh of (1, 4), LM_TRAIN_RULES
+             with ZeRO-1, the state in TensorParallel.local_form's
+             stacked-shard form).  (a) smollm_360m.FULL at full width and
+             depth in float32 (15 heads padded to 16, 4 a shard; the 5 KV
+             heads whole; ff 2560 -> 640 and the tied vocabulary 49,152 ->
+             12,288 a shard), batch 4 x seq 1024 (cut from train_4k's 256 x
+             4096) in 2 microbatches from phase 33's seeds: the first
+             step's loss within 1e-5 relative and every leaf's gradient
+             within 1e-4 times max(1, its largest |gradient|) of the one
+             device's (microbatch.accumulated_grads, the largest of each
+             leaf printed), then 2 make_train_step steps beside 2
+             tensor-parallel steps, each step's loss within 1e-5 relative.
+             (b) deepseek_moe_16b.FULL at full width in float32 with
+             ep_shard_map, its depth cut to the deepest of dense0 plus 1-3
+             MoE layers whose float32 state, reckoned at 16 bytes a
+             parameter, stays under 60 GB (dense0 + 3), the first step held
+             as (a) with each FFN call's gap and routing beside it (phase
+             37's LayerTrace, forward and remat recompute): up to the first
+             routing flip every gap within 1e-4 and that flip a near-tie
+             (margin within 1e-5), then again with the unsharded expert
+             selection imposed, held as (a).  (c) smollm_360m.FULL in bf16
+             at batch 4 x seq 4096, 2 microbatches: the one-device step and
+             the (1, 4) step, a warm-up each, then 3 each in turns, their
+             p50 ms, tokens/s and peak GB over what was resident; one
+             tensor-parallel step profiled (device operations, busy ms,
+             idle share).  (d) is phase 35c.  (e) phase 36's dry-run records
+             of the five LM train_4k cells, now the tensor-parallel
+             program: each under 80 GB a rank and under PR 28's figure,
+             its all-gathers over 'model' only the MoE router's logits
+             (none in a dense model: no parameter leaf), its three terms
+             beside PR 28's.  The phase's seconds.
 
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
@@ -456,8 +492,9 @@ is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
 models launch no hand kernel, 30 and 31, 33-34, whose training path
 reaches none, 35's expert-parallel decode paths, 36's two real cells:
 walk_steps_fused from the replicated Pixie cell, decode_attention_partial
-from the decode cell (the dry run launches nothing), and 37's
-tensor-parallel steps, each reset and read around the step); the kernels
+from the decode cell (the dry run launches nothing), 37's
+tensor-parallel steps, each reset and read around the step, and 38's
+training, which reaches none); the kernels
 line sums them, and every one of its ten kernels (the eight TPU kernels',
 decode_attention's partial form and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
@@ -4252,9 +4289,11 @@ TRAIN_LIMIT_GB = 70.0            # the reckoned peak must stay under this
 # §5): the memory-fitted batch (112) would take ~90 s a step, and the
 # phase's 19 steps would pass the script's time limit
 TRAIN_TIME_BATCH = 8
-TRAIN_STEPS = 8
-TRAIN_CKPT_EVERY = 4
-TRAIN_FAIL_AT = {6: 1}           # one injected failure before step 6
+# cut from 8 steps (checkpoints every 4, a failure before step 6) to pay
+# for phase 38
+TRAIN_STEPS = 4
+TRAIN_CKPT_EVERY = 2
+TRAIN_FAIL_AT = {3: 1}           # one injected failure before step 3
 GIN_TRAIN_STEPS = 20
 BF16_DENSE_FLOPS = 989e12        # H100 SXM, NVIDIA data sheet, dense
 # phase 35: the ("data", "model") local mesh of expert-parallel decode
@@ -4699,10 +4738,12 @@ def psum_phase(dev, cfg, n_shards: int = PSUM_SHARDS, cpu_leaves=PSUM_CPU_LEAVES
 def zero1_phase(dev, cfg, kept: list, batch: int, seq: int = TRAIN_SEQ,
                 n_micro: int = TRAIN_MICRO, n_steps: int = DIST_TRAIN_STEPS,
                 backend: str = "nccl") -> dict:
-    """Phase 35c: ``jit_train_step`` over a process group of one rank (a
-    TCP store on localhost), ``LM_TRAIN_RULES`` with ZeRO-1, from phase
-    33's seed and batches: after ``n_steps`` the parameters and optimizer
-    state equal ``kept`` (phase 33's one-device state) bit for bit."""
+    """Phase 35c: the tensor-parallel ``jit_train_step`` (``tp=``, the loss
+    ``transformer.loss_fn(tp=)``) over a process group of one rank (a TCP
+    store on localhost), ``LM_TRAIN_RULES`` with ZeRO-1, the state this
+    rank's blocks, from phase 33's seed and batches: after ``n_steps`` the
+    parameters and optimizer state equal ``kept`` (phase 33's one-device
+    state) bit for bit."""
     import datetime
     import socket
 
@@ -4724,6 +4765,7 @@ def zero1_phase(dev, cfg, kept: list, batch: int, seq: int = TRAIN_SEQ,
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         mesh = mesh_lib.process_group_mesh((1, 1), ("data", "model"), device=dev)
+        tp = sharding.TensorParallel(mesh, sharding.LM_TRAIN_RULES)
         params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
         psh, osh = train_loop.state_shardings(transformer.param_logical(cfg),
                                               sharding.LM_TRAIN_RULES, mesh, zero1=True,
@@ -4733,10 +4775,11 @@ def zero1_phase(dev, cfg, kept: list, batch: int, seq: int = TRAIN_SEQ,
             sharding.LM_TRAIN_RULES, mesh)
         step = train_loop.jit_train_step(train_loop.make_train_step(
             lambda p, b: transformer.loss_fn(p, b["tokens"], b["labels"], b["mask"], cfg,
-                                             mesh=mesh),
+                                             tp=tp),
             train_loop.TrainStepConfig(adamw=optim.AdamWConfig(), n_micro=n_micro)),
-            psh, osh, bsh)
-        state = sharding.place((params, optim.init(params)), (psh, osh))
+            psh, osh, bsh, tp=tp)
+        # one rank's blocks are the whole leaves
+        state = (params, optim.init(params))
         del params
         pipe = TokenPipeline(cfg.vocab_size, batch, seq, seed=SEED)
         step_s, losses = [], []
@@ -4746,15 +4789,15 @@ def zero1_phase(dev, cfg, kept: list, batch: int, seq: int = TRAIN_SEQ,
                                     for k, v in pipe(i).items()})
             losses.append(float(m["loss"]))
             step_s.append(time.perf_counter() - t)
-        full = sharding.gather_state(state)
-        if not same_bits(full, kept):
-            raise AssertionError("zero1: the one-rank mesh steps differ from phase 33's bits")
+        if not same_bits(state, kept):
+            raise AssertionError("zero1: the one-rank tensor-parallel steps differ from "
+                                 "phase 33's bits")
         out = dict(backend=backend, world_size=1, mesh=[1, 1], rules="LM_TRAIN_RULES",
-                   zero1=True, model=cfg.name, seq=seq, global_batch=batch, n_micro=n_micro,
-                   steps=n_steps, losses=losses, step_s=step_s,
-                   equal_to_one_device_bits=True, resident_gb=gb(resident),
+                   zero1=True, tensor_parallel=True, model=cfg.name, seq=seq,
+                   global_batch=batch, n_micro=n_micro, steps=n_steps, losses=losses,
+                   step_s=step_s, equal_to_one_device_bits=True, resident_gb=gb(resident),
                    peak_gb=gb(torch.cuda.max_memory_allocated()))
-        del state, full
+        del state
     finally:
         tdist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -5130,8 +5173,10 @@ class LayerTrace:
     ``transformer._ffn`` (the unsharded step, side "u"),
     ``transformer._ffn_tp`` (the tensor-parallel step, "t") and
     ``moe.route_logits`` (both) wrapped while it is entered.  With
-    ``impose`` the tensor-parallel pass takes the unsharded pass's routing
-    layer by layer (the unsharded pass runs first)."""
+    ``impose`` the tensor-parallel pass takes the unsharded pass's expert
+    selection layer by layer (the unsharded pass runs first), its gates
+    its own router probabilities at those experts, renormalised as
+    ``route_logits`` does (so autograd runs through them in training)."""
 
     def __init__(self, impose: bool = False):
         from repro_torch.models import moe, transformer
@@ -5143,6 +5188,7 @@ class LayerTrace:
     def clear(self):
         self.x = {"u": [], "t": []}
         self.routes = {"u": [], "t": []}
+        self.calls = {"u": [], "t": []}     # the FFN call each routing is in
 
     def __enter__(self):
         tf, moe = self.transformer, self.moe
@@ -5155,16 +5201,22 @@ class LayerTrace:
             return x, aux
 
         def ffn_t(*a, **kw):
-            x = ffn_tp(*a, **kw)
+            x, aux = ffn_tp(*a, **kw)
             self.x["t"].append(x.detach().float())
-            return x
+            return x, aux
 
         def route(logits, cfg):
+            import torch
+
             out = route_logits(logits, cfg)
             mine = self.routes[self.side]
             if self.side == "t" and self.impose:
-                out = self.routes["u"][len(mine)]
-            mine.append(out)
+                probs, sel = out[0], self.routes["u"][len(mine)][2]
+                gate = probs.gather(-1, sel.long())
+                gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+                out = (probs, gate, sel)
+            mine.append(tuple(t.detach() for t in out))
+            self.calls[self.side].append(len(self.x[self.side]))
             return out
 
         tf._ffn, tf._ffn_tp, moe.route_logits = ffn_u, ffn_t, route
@@ -5190,7 +5242,8 @@ class LayerTrace:
                 k = cfg.moe.top_k
                 top = pu.sort(-1, descending=True)[0]
                 flips.append(dict(layer=cfg.n_layers - cfg.n_scan + i, tokens=int(diff.sum()),
-                                  margin=float((top[:, k - 1] - top[:, k])[diff].max())))
+                                  margin=float((top[:, k - 1] - top[:, k])[diff].max()),
+                                  call=self.calls["u"][i]))
         self.clear()
         return dict(gaps=gaps, flips=flips)
 
@@ -5477,6 +5530,335 @@ def tp_serve_phase(dev, qwen, deepseek) -> tuple:
     tp_dryrun_cells(card)
     log("tp_serve", seconds=time.perf_counter() - t0, card=card)
     return row, paths
+
+
+# ---------------------------------------------------------------------------
+# 38. tp_train: tensor-parallel LM training on a local (1, 4) mesh
+# ---------------------------------------------------------------------------
+
+TT_MESH = (1, 4)
+TT_BATCH, TT_SEQ, TT_MICRO = 4, 1024, 2   # (a), (b): cut from train_4k's 256 x 4096
+TT_STEPS = 2
+TT_LOSS_TOL = 1e-5          # |loss difference| over |loss|, against make_train_step's
+TT_GRAD_TOL = 1e-4          # |gradient difference| over max(1, the leaf's largest |gradient|)
+TT_STATE_GB = 60.0          # (b): the reckoned float32 state, 16 bytes a parameter
+TT_TIME_SEQ = 4096          # (c): bf16 at batch 4 x seq 4096
+TT_TIME_REPS = 3
+# PR 28's dry run of the train_4k cells (the parameters gathered whole):
+# GB a rank on the single-pod mesh, and its (compute, memory, collective) s
+PR28_TRAIN = {
+    "deepseek-moe-16b": (217.2, (3.18, 8.91, 4.88)),
+    "granite-moe-3b-a800m": (66.8, (2.8, 13.3, 1.74)),
+    "minitron-4b": (86.3, (7, 14.9, 1.3)),
+    "qwen2.5-3b": (50.0, (4.19, 8.97, 0.756)),
+    "smollm-360m": (13.8, (1.37, 5.9, 0.0895)),
+}
+
+
+def tt_setup(dev, cfg, seq: int, n_steps: int):
+    """Phase 38's tensor-parallel context on a local (1, 4) mesh: the
+    ``TensorParallel``, the two losses (one device, tensor-parallel), the
+    tensor-parallel step's shardings and ``n_steps`` batches from phase
+    33's pipeline seed."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distribution import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+
+    mesh = mesh_lib.local_mesh(TT_MESH, ("data", "model"), device=dev)
+    tp = sharding.TensorParallel(mesh, sharding.LM_TRAIN_RULES)
+    pipe = TokenPipeline(cfg.vocab_size, TT_BATCH, seq, seed=SEED)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in pipe(i).items()}
+               for i in range(n_steps)]
+    one = lambda p, b: transformer.loss_fn(p, b["tokens"], b["labels"], b["mask"], cfg)
+    tpl = lambda p, b: transformer.loss_fn(p, b["tokens"], b["labels"], b["mask"], cfg, tp=tp)
+    return tp, one, tpl, batches
+
+
+def tt_steps(tp, cfg, one, tpl, params, n_micro: int):
+    """``make_train_step(one)`` on ``params`` and the tensor-parallel
+    ``jit_train_step`` on a copy in the stacked-shard form (views of the
+    copy), each with its fresh AdamW state: ``((step, state), (step,
+    state))``."""
+    from repro_torch.distribution import sharding
+    from repro_torch.models import transformer
+    from repro_torch.training import optim, train_loop
+    from repro_torch.training import tree as tree_lib
+
+    logical = transformer.param_logical(cfg)
+    conf = train_loop.TrainStepConfig(adamw=optim.AdamWConfig(), n_micro=n_micro)
+    copy = tree_lib.tree_map(lambda x: x.clone(), params)
+    psh, osh = train_loop.state_shardings(logical, sharding.LM_TRAIN_RULES, tp.mesh,
+                                          zero1=True, params_abs=copy)
+    bsh = train_loop.batch_shardings({k: ("batch", "seq") for k in ("tokens", "labels",
+                                                                   "mask")},
+                                     sharding.LM_TRAIN_RULES, tp.mesh)
+    opt = optim.init(copy)
+    tp_state = (tp.local_form(copy, logical),
+                optim.OptState(tp.local_form(opt.m, logical), tp.local_form(opt.v, logical),
+                               opt.step))
+    return ((train_loop.make_train_step(one, conf), (params, optim.init(params))),
+            (train_loop.jit_train_step(train_loop.make_train_step(tpl, conf), psh, osh, bsh,
+                                       tp=tp), tp_state))
+
+
+def tt_grads(tp, cfg, one, tpl, params, batch, trace=None) -> dict:
+    """A step's loss and gradients (``accumulated_grads`` over TT_MICRO
+    microbatches) on one device and tensor-parallel (the stacked-shard
+    form, views of ``params``; ``trace``'s sides "u" and "t"), held leaf
+    by leaf, each put back whole one at a time: the loss within
+    TT_LOSS_TOL relative and every gradient within TT_GRAD_TOL times
+    max(1, its leaf's largest |gradient|) (``ok``); the largest of each
+    leaf printed."""
+    import contextlib
+
+    import torch
+    from repro_torch.distribution import sharding
+    from repro_torch.models import transformer
+    from repro_torch.training import microbatch
+    from repro_torch.training import tree as tree_lib
+
+    logical = transformer.param_logical(cfg)
+    with trace if trace is not None else contextlib.nullcontext():
+        if trace is not None:
+            trace.side = "u"
+        lu, gu = microbatch.accumulated_grads(one, params, batch, TT_MICRO)
+        if trace is not None:
+            trace.side = "t"
+        lt, gt = microbatch.accumulated_grads(tpl, tp.local_form(params, logical), batch,
+                                              TT_MICRO)
+
+    def leaf(names, got, want):
+        whole = tp.whole_form(got, names)
+        return torch.stack([(whole.float() - want.float()).abs().max(),
+                            want.float().abs().max()]).cpu()
+
+    res = sharding.map_logical(leaf, logical, gt, gu)
+    del gu, gt
+    names, pairs = tree_lib.flatten_with_names(res)
+    rel = {n: float(p[0]) / max(1.0, float(p[1])) for n, p in zip(names, pairs)}
+    loss_rel = abs(float(lt) - float(lu)) / abs(float(lu))
+    return dict(loss_one=float(lu), loss_tp=float(lt), loss_rel_diff=loss_rel,
+                grad_rel_diff=rel, max_grad_rel_diff=max(rel.values()),
+                ok=loss_rel <= TT_LOSS_TOL and max(rel.values()) <= TT_GRAD_TOL)
+
+
+def tp_train_smollm(dev, cfg, card: str) -> dict:
+    """Phase 38a: SmolLM-360M FULL in float32 (the module docstring)."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.models import transformer
+
+    cfg = dc.replace(cfg, compute_dtype=torch.float32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tp, one, tpl, batches = tt_setup(dev, cfg, TT_SEQ, TT_STEPS)
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    grads = tt_grads(tp, cfg, one, tpl, params, batches[0])
+    if not grads["ok"]:
+        raise AssertionError(f"tp_train_smollm: loss or gradients apart: {grads}")
+    (ostep, ostate), (tstep, tstate) = tt_steps(tp, cfg, one, tpl, params, TT_MICRO)
+    metrics = {"one": [], "tp": []}
+    for b in batches:
+        ostate, m1 = ostep(ostate, b)
+        tstate, m2 = tstep(tstate, b)
+        metrics["one"].append({k: float(v) for k, v in m1.items()})
+        metrics["tp"].append({k: float(v) for k, v in m2.items()})
+    rel = [abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(metrics["one"],
+                                                                       metrics["tp"])]
+    if max(rel) > TT_LOSS_TOL:
+        raise AssertionError(f"tp_train_smollm: step losses apart {rel}")
+    out = dict(model=cfg.name, card=card, mesh=list(TT_MESH), rules="LM_TRAIN_RULES",
+               compute_dtype="float32", n_layers=cfg.n_layers,
+               heads=f"{cfg.n_heads} padded to {cfg.n_heads_padded}, "
+                     f"{cfg.n_heads_padded // TT_MESH[1]} a shard; {cfg.n_kv_heads} kv whole",
+               d_ff_a_shard=cfg.d_ff // TT_MESH[1],
+               vocab_a_shard=cfg.vocab_padded // TT_MESH[1], batch=TT_BATCH, seq=TT_SEQ,
+               n_micro=TT_MICRO, steps=TT_STEPS,
+               cut=f"batch {TT_BATCH} x seq {TT_SEQ} of train_4k's 256 x 4096",
+               first_step=grads, step_losses=metrics, step_loss_rel_diff=rel,
+               peak_gb=gb(torch.cuda.max_memory_allocated()),
+               seconds=time.perf_counter() - t0)
+    del params, ostate, tstate
+    torch.cuda.empty_cache()
+    log("tp_train_smollm", **out)
+    return out
+
+
+def tt_depth(cfg) -> tuple:
+    """Phase 38b's depth: the deepest of dense0 plus 3, 2 or 1 MoE layers
+    whose float32 training state, reckoned at 16 bytes a parameter, stays
+    under TT_STATE_GB."""
+    import dataclasses as dc
+
+    for n in (4, 3, 2):
+        c = dc.replace(cfg, n_layers=n)
+        state = 16 * c.physical_param_count() / 1e9
+        if state < TT_STATE_GB:
+            return c, state
+    raise AssertionError(f"{cfg.name}: no depth fits {TT_STATE_GB} GB")
+
+
+def tp_train_deepseek(dev, cfg, card: str) -> dict:
+    """Phase 38b: deepseek-moe-16b FULL width, depth cut (the module
+    docstring)."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.models import transformer
+
+    cfg = dc.replace(cfg, compute_dtype=torch.float32,
+                     moe=dc.replace(cfg.moe, ep_shard_map=True))
+    cfg, state_gb = tt_depth(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tp, one, tpl, batches = tt_setup(dev, cfg, TT_SEQ, 1)
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED + 38), cfg)
+    trace = LayerTrace()
+    runs = {"": tt_grads(tp, cfg, one, tpl, params, batches[0], trace)}
+    rep = trace.report(cfg)
+    flip = rep["flips"][0] if rep["flips"] else None
+    witness = dict(first_flip=flip, flips=rep["flips"][:12], gaps=rep["gaps"],
+                   gap_tol=TP_GAP_TOL, flip_margin_tol=TP_FLIP_MARGIN)
+    if flip is not None:
+        # the FFN calls before the first flip's (forward and remat recompute,
+        # both microbatches) must be close and the flip a near-tie; then the
+        # routing imposed, held as (a)
+        before = rep["gaps"][:flip["call"]]
+        witness["max_gap_before_flip"] = max(before) if before else None
+        if before and max(before) > TP_GAP_TOL:
+            raise AssertionError(f"tp_train_deepseek: gap {max(before)} before the first flip")
+        if flip["margin"] > TP_FLIP_MARGIN:
+            raise AssertionError(f"tp_train_deepseek: the first routing flip {flip} is no "
+                                 "near-tie")
+        trace = LayerTrace(impose=True)
+        runs["_routing_imposed"] = tt_grads(tp, cfg, one, tpl, params, batches[0], trace)
+        trace.report(cfg)
+    elif max(rep["gaps"]) > TP_GAP_TOL:
+        raise AssertionError(f"tp_train_deepseek: gap {max(rep['gaps'])} with no flip")
+    held = runs.get("_routing_imposed", runs[""])
+    if not held["ok"]:
+        raise AssertionError(f"tp_train_deepseek: loss or gradients apart: {held}")
+    out = dict(model=cfg.name, card=card, mesh=list(TT_MESH), compute_dtype="float32",
+               n_layers=cfg.n_layers, moe_layers=cfg.n_scan, ep_shard_map=True,
+               experts_a_shard=cfg.moe.n_experts_padded // TT_MESH[1],
+               params=cfg.physical_param_count(), reckoned_state_gb=state_gb,
+               cut=f"depth {cfg.n_layers} of 28 (dense0 + {cfg.n_scan} MoE layers: float32 "
+                   f"state under {TT_STATE_GB} GB at 16 bytes a parameter); batch "
+                   f"{TT_BATCH} x seq {TT_SEQ}",
+               batch=TT_BATCH, seq=TT_SEQ, n_micro=TT_MICRO, runs=runs, witness=witness,
+               peak_gb=gb(torch.cuda.max_memory_allocated()),
+               seconds=time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+    log("tp_train_deepseek", **out)
+    return out
+
+
+def tp_train_timing(dev, cfg, card: str) -> dict:
+    """Phase 38c: SmolLM-360M FULL in bf16 at batch 4 x seq 4096, the
+    one-device step and the (1, 4) tensor-parallel step timed in turns,
+    one tensor-parallel step profiled."""
+    import torch
+    from repro_torch.models import transformer
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp, one, tpl, batches = tt_setup(dev, cfg, TT_TIME_SEQ, 1)
+    params = transformer.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    (ostep, ostate), (tstep, tstate) = tt_steps(tp, cfg, one, tpl, params, TT_MICRO)
+    box = {"one": [ostep, ostate], "tp": [tstep, tstate]}
+    b = batches[0]
+    ms, peak, loss = {"one": [], "tp": []}, {"one": 0.0, "tp": 0.0}, {}
+
+    def run(side):
+        stp, st = box[side]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        st, m = stp(st, b)
+        loss[side] = float(m["loss"])                # reads the card
+        torch.cuda.synchronize()
+        box[side][1] = st
+        peak[side] = max(peak[side], gb(torch.cuda.max_memory_allocated() - before))
+        return (time.perf_counter() - t) * 1e3
+
+    for side in ("one", "tp"):                    # warm-up, not timed
+        run(side)
+    for _ in range(TT_TIME_REPS):
+        for side in ("one", "tp"):
+            ms[side].append(run(side))
+    prof = profile_decode_step(lambda: box["tp"].__setitem__(1, tstep(box["tp"][1], b)[0]))
+    p50 = {k: float(np.percentile(v, 50)) for k, v in ms.items()}
+    out = dict(model=cfg.name, card=card, mesh=list(TT_MESH), compute_dtype="bfloat16",
+               batch=TT_BATCH, seq=TT_TIME_SEQ, n_micro=TT_MICRO, turns="one, tp x 3",
+               step_ms=ms, p50_ms=p50, tp_over_one=p50["tp"] / p50["one"],
+               tokens_per_s={k: TT_BATCH * TT_TIME_SEQ / (v / 1e3) for k, v in p50.items()},
+               step_peak_over_resident_gb=peak, last_loss=loss,
+               resident_gb=gb(torch.cuda.memory_allocated()),
+               profiled_tp_step={k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                      "device_idle_share", "device_ops",
+                                                      "top")},
+               seconds=time.perf_counter() - t0)
+    del box, ostate, tstate, params
+    torch.cuda.empty_cache()
+    log("tp_train_timing", **out)
+    return out
+
+
+def tp_train_dryrun(card: str) -> None:
+    """Phase 38e: phase 36's dry-run records of the five LM train_4k
+    cells, now the tensor-parallel program: each under 80 GB a rank and
+    under PR 28's figure, its all-gathers over 'model' only the MoE
+    router's logits ``(16 t, E_pad / 16)`` float32 (none in a dense
+    model: no parameter leaf), its terms beside PR 28's."""
+    from repro_torch.configs import get_arch
+
+    recs = {(r["arch"], r["shape"]): r for r in MEASURED["dryrun_single"]}
+    for arch, (old_gb, old_terms) in PR28_TRAIN.items():
+        r = recs[(arch, "train_4k")]
+        cfg = get_arch(arch).config
+        model = r.get("gathers_by_axis", {}).get("model", {})
+        ok_shapes = {k for k in model if cfg.moe is not None and k.endswith(" float32")
+                     and k.split(")")[0].split(", ")[-1] == str(cfg.moe.n_experts_padded // 16)}
+        if set(model) != ok_shapes:
+            raise AssertionError(f"tp_train_dryrun {arch}: gathered over 'model': {model}")
+        if rank_gb(r) >= CARD_GB or rank_gb(r) > old_gb:
+            raise AssertionError(f"tp_train_dryrun {arch}: {rank_gb(r)} GB a rank "
+                                 f"(PR 28: {old_gb})")
+        log("tp_train_dryrun_cell", cell=f"{arch}/train_4k", card=card,
+            gb_per_rank=rank_gb(r), pr28_gb_per_rank=old_gb,
+            terms_s=[r["t_compute_s"], r["t_memory_s"], r["t_collective_s"]],
+            pr28_terms_s=list(old_terms), dominant=r["dominant"],
+            collectives=r["collectives"], coll_by_axis=r["coll_by_axis"],
+            gathers_over_model=model,
+            terms="reckoned from H100 SXM5 data-sheet constants, not measured")
+
+
+def tp_train_phase(dev, smollm, deepseek) -> dict:
+    """Phase 38 (the module docstring): the launches of its paths (the
+    training path reaches no hand kernel; the counts are read all the
+    same)."""
+    import torch
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    _build.reset_launches()
+    tp_train_smollm(dev, smollm, card)
+    tp_train_deepseek(dev, deepseek, card)
+    tp_train_timing(dev, smollm, card)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    tp_train_dryrun(card)
+    log("tp_train", seconds=time.perf_counter() - t0, card=card)
+    return launches
 
 
 def main() -> int:
@@ -5914,13 +6296,19 @@ def main() -> int:
     log("tp_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
     partial_row, tp_paths = tp_serve_phase(dev, qwen2_5_3b.FULL, deepseek_moe_16b.FULL)
 
+    # 38. tensor-parallel LM training on a local (1, 4) mesh, nothing else
+    # resident; the dry run's LM train cells from phase 36
+    torch.cuda.empty_cache()
+    log("tp_train_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
+    tt_launches = tp_train_phase(dev, smollm_360m.FULL, deepseek_moe_16b.FULL)
+
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *past_cap_launches, *sharded_paths, *lm_paths, *event_paths,
              pruned_launches, fig4_launches, table1_launches, oracle_launches,
              sasrec_launches, recsys_launches, *moe_paths, train_launches, *dist_paths,
-             *launch_paths, *tp_paths]
+             *launch_paths, *tp_paths, tt_launches]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
             *event_rows, sharded_rows[1], partial_row]
     for row in rows:
@@ -5946,7 +6334,8 @@ def main() -> int:
         oracle=oracle_launches, sasrec_2stage=sasrec_launches,
         recsys_full=recsys_launches, moe_granite=moe_paths[:4],
         moe_deepseek=moe_paths[4:], gin_max_rel_diff=gin_errs, train=train_launches,
-        dist_ep=dist_paths, launch_cells=launch_paths, tp_serve=tp_paths)
+        dist_ep=dist_paths, launch_cells=launch_paths, tp_serve=tp_paths,
+        tp_train=tt_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

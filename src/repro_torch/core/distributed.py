@@ -220,9 +220,9 @@ class ProcessGroupFabric:
         self._dist = dist
         self.group = group
         self.n_shards = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
         self.device = resolve_device(device)
-        self.shard_ids = torch.tensor(
-            [dist.get_rank(group)], dtype=torch.int32, device=self.device)
+        self.shard_ids = torch.tensor([self.rank], dtype=torch.int32, device=self.device)
 
     def all_to_all(self, buf: torch.Tensor) -> torch.Tensor:
         out = torch.empty_like(buf)
@@ -248,17 +248,34 @@ class ProcessGroupFabric:
         self._dist.all_gather_into_tensor(out, x[0].contiguous(), group=self.group)
         return out.view((n,) + part)
 
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x[0]`` is this rank's ``(n_shards, ...)`` contributions, one a
+        destination rank: returns ``(1, ...)``, its own block summed over
+        the ranks (``reduce_scatter_tensor``)."""
+        out = x.new_empty(x.shape[2:])
+        self._dist.reduce_scatter_tensor(out.view(-1), x[0].reshape(-1), group=self.group)
+        return out[None]
+
 
 # ---------------------------------------------------------------------------
-# Collectives under autograd (a process group's all-reduce has no autograd
-# formula).  On a LocalFabric the sum is a chain of adds and autograd runs
-# through it; over a process group the pair below is Megatron's: the sum
-# of per-rank partials whose result every rank then uses alike
-# (``reduce_from``: identity backward), and an input every rank holds alike
-# whose gradient each rank sees only in part (``copy_to``: all-reduced
-# backward).  ``reduce_from(..., grad="psum")`` is a plain all-reduce whose
-# backward all-reduces too: a mean over data ranks that each rank's loss
-# share then reads.
+# Collectives under autograd (a process group's collectives have no autograd
+# formula).  On a LocalFabric the sum is a chain of adds and the gather the
+# identity, and autograd runs through them; over a process group the
+# functions below are Megatron's and FSDP's:
+#
+#   * ``reduce_from``: the sum of per-rank partials whose result every rank
+#     then uses alike (identity backward); with ``grad="psum"`` a plain
+#     all-reduce whose backward all-reduces too (a mean over data ranks
+#     that each rank's loss share then reads);
+#   * ``copy_to``: an input every rank holds alike whose gradient each rank
+#     sees only in part (all-reduced backward);
+#   * ``gather_from``: an all-gather whose result every rank uses alike (the
+#     router's logits): each rank's gradient is its own slice of the
+#     result's, not summed;
+#   * ``fsdp_gather``: a parameter block all-gathered for one layer over the
+#     data ranks, each of which computes its own rows' loss share with it:
+#     the backward reduce-scatters, so each rank gets its block's gradient
+#     summed over the ranks.
 # ---------------------------------------------------------------------------
 
 
@@ -287,6 +304,28 @@ class _CopyTo(torch.autograd.Function):
         return ctx.fabric.psum(g.contiguous()[None]), None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fabric):
+        ctx.rank = fabric.rank
+        return fabric.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank:ctx.rank + 1].contiguous(), None
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fabric):
+        ctx.fabric = fabric
+        return fabric.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fabric.reduce_scatter(g.contiguous()[None]), None
+
+
 def _tracked(*xs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
@@ -310,6 +349,26 @@ def copy_to(fabric, x: torch.Tensor) -> torch.Tensor:
     if not isinstance(fabric, ProcessGroupFabric) or not _tracked(x):
         return x
     return _CopyTo.apply(x, fabric)
+
+
+def gather_from(fabric, x: torch.Tensor) -> torch.Tensor:
+    """``fabric.all_gather(x)`` (``x`` the local shards' ``(S_local, ...)``
+    blocks, the result every shard's ``(n_shards, ...)``) that autograd
+    runs through: over a process group each rank's gradient is its own
+    slice of the result's (every rank uses the result alike)."""
+    if not isinstance(fabric, ProcessGroupFabric) or not _tracked(x):
+        return fabric.all_gather(x)
+    return _GatherFrom.apply(x, fabric)
+
+
+def fsdp_gather(fabric, x: torch.Tensor) -> torch.Tensor:
+    """``fabric.all_gather(x)`` of a parameter's data-split block ``(1,
+    ...)`` -> ``(n_shards, ...)``: over a process group its backward
+    reduce-scatters, each rank's block gradient summed over the ranks,
+    each of which used the whole for its own rows."""
+    if not isinstance(fabric, ProcessGroupFabric) or not _tracked(x):
+        return fabric.all_gather(x)
+    return _FsdpGather.apply(x, fabric)
 
 
 def route_capacity(n_shards: int, n_walkers_total: int, slack: float) -> int:

@@ -9,9 +9,12 @@ lacks ('pod' on the single-pod mesh).  The five tables carry the
 reference's names and values.
 
 ``TensorParallel`` is the port's explicit form of what GSPMD does with
-the LM serving cells' rules: each leaf dim a rule places on 'model' stays
-a block, computed on as a block (``models/transformer.py``'s tensor-
-parallel prefill and decode), on a process-group mesh or a local one.
+the LM cells' rules: each leaf dim a rule places on 'model' stays a
+block, computed on as a block (``models/transformer.py``'s tensor-
+parallel prefill, decode and training forward), on a process-group mesh
+or a local one; under autograd its collectives are the ones with
+backward formulas (``core/distributed.py``: the FSDP gather's
+reduce-scatter, Megatron's ``copy_to`` / ``reduce_from``).
 
 ``PartitionSpec`` is a tuple, one entry a tensor dim: ``None``, an axis
 name, or a tuple of names; it compares equal to the reference's spec
@@ -32,6 +35,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core.distributed import copy_to, fsdp_gather, reduce_from
 from repro_torch.launch.mesh import Mesh
 from repro_torch.training import tree as tree_lib
 
@@ -320,7 +324,12 @@ class TensorParallel:
 
     ``shards`` hands the body one layer's leaf as ``(stacked, split)``: its
     local shards' blocks on a leading dim (one on a process group) when a
-    dim is on 'model', else the leaf whole on a leading dim of 1."""
+    dim is on 'model', else the leaf whole on a leading dim of 1.  Under
+    autograd a data dim's gather is ``fsdp_gather`` (its gradient comes
+    back reduce-scattered over the data ranks); without it, a plain
+    all-gather.  ``reduce`` and ``copy`` are the model axis's sum of a
+    row-parallel product's partials and the identity on a column-parallel
+    product's input, each with Megatron's backward."""
 
     axis = "model"
 
@@ -391,9 +400,21 @@ class TensorParallel:
             axes = _axes(rules.axes_for(name, self.mesh))
             if not axes or self.axis in axes or self.mesh.axis_size(axes) == 1:
                 continue
-            parts = self.mesh.fabric(axes).all_gather(x[None].contiguous())
+            parts = fsdp_gather(self.mesh.fabric(axes), x[None].contiguous())
             x = parts.movedim(0, d).flatten(d, d + 1)
         return x
+
+    def reduce(self, parts: torch.Tensor, split: bool) -> torch.Tensor:
+        """The local shards' partials ``(S_l, ...)`` of a product over a
+        split leaf summed over the model axis (``reduce_from``: every shard
+        uses the sum alike), or the one part of a whole leaf."""
+        return reduce_from(self.fabric, parts) if split else parts[0]
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, which every shard holds alike and reads in part (the input
+        of a column-parallel product): its gradient summed over the model
+        axis (``copy_to``)."""
+        return copy_to(self.fabric, x)
 
     def local_form(self, tree: Any, logical_tree: Any, rules: Optional[RuleSet] = None
                    ) -> Any:
@@ -413,5 +434,23 @@ class TensorParallel:
                                  f"{self.n} shards")
             at = 1 if logical and logical[0] == "layers" else 0
             return x.unflatten(d, (self.n, x.shape[d] // self.n)).movedim(d, at)
+
+        return map_logical(one, logical_tree, tree)
+
+    def whole_form(self, tree: Any, logical_tree: Any, rules: Optional[RuleSet] = None
+                   ) -> Any:
+        """The local mesh's form (``local_form``) -> whole tensors: each
+        split leaf's shards put back along its model dim (a copy where the
+        stacked form is not a view of a whole tensor)."""
+        if not self.local:
+            raise ValueError("the stacked-shard form is a local mesh's")
+        rules = rules or self.rules
+
+        def one(logical, x):
+            d = self._model_dim(logical, rules)
+            if d is None:
+                return x
+            at = 1 if logical and logical[0] == "layers" else 0
+            return x.movedim(at, d).flatten(d, d + 1)
 
         return map_logical(one, logical_tree, tree)

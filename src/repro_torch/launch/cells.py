@@ -16,10 +16,13 @@ Twin of ``repro/launch/cells.py``.  Each builder returns a ``Cell``:
 
 The per-rank programs:
 
-  * LM train: ``train_loop.jit_train_step`` (ZeRO-1, ``n_micro``), the
-    state DTensors in the reference's placements, every leaf gathered
-    whole for compute (the training half has no tensor-parallel products
-    yet: ROADMAP Queue 1 item 3);
+  * LM train: ``train_loop.jit_train_step`` (ZeRO-1, ``n_micro``) on this
+    rank's blocks of the state in the reference's placements, the loss
+    tensor-parallel (``transformer.loss_fn(tp=)``: Megatron column / row
+    products with their backward passes, the FSDP 'data' dims gathered a
+    layer at a time and their gradients reduce-scattered, the vocab-parallel
+    lookup, head and cross-entropy); no leaf is gathered whole over
+    'model';
   * LM prefill and decode: ``transformer.prefill`` / ``decode_step``
     tensor-parallel on this rank's blocks (``sharding.TensorParallel``:
     every leaf the cell's rules place on 'model' stays a block, the
@@ -206,18 +209,14 @@ def build_lm_cell(
         }
         batch_sh = {k: _ns(mesh, bax, None) for k in batch_abs}
 
-        def loss_fn(p, b):
-            return tf.loss_fn(
-                p, b["tokens"], b["labels"], b["mask"], cfg, mesh=mesh
-            )
-
-        step = train_loop.make_train_step(
-            loss_fn,
-            train_loop.TrainStepConfig(n_micro=n_micro),
-        )
-
         def train(state, b):
-            return train_loop.jit_train_step(step, param_sh, opt_sh, batch_sh)(state, b)
+            tp = shlib.TensorParallel(mesh, rules)
+            step = train_loop.make_train_step(
+                lambda p, bb: tf.loss_fn(p, bb["tokens"], bb["labels"], bb["mask"], cfg,
+                                         tp=tp),
+                train_loop.TrainStepConfig(n_micro=n_micro),
+            )
+            return train_loop.jit_train_step(step, param_sh, opt_sh, batch_sh, tp=tp)(state, b)
 
         return Cell(
             fn=train,
@@ -225,7 +224,7 @@ def build_lm_cell(
             in_shardings=((param_sh, opt_sh), batch_sh),
             out_shardings=((param_sh, opt_sh), None),
             donate=(0,),
-            forms=("dtensor", "whole"),
+            forms=("block", "whole"),
         )
 
     if cell.kind == "prefill":

@@ -10,8 +10,10 @@ reads what it did:
   * ``memory_analysis``: the argument blocks' bytes, the outputs' bytes,
     and ``temp_size`` = the peak of the live storages less the arguments;
   * ``flops`` by the product's dtype, ``hbm_bytes``, ``collectives`` by
-    kind and ``coll_by_axis`` (``launch/hlo_analysis.py``), and the three
-    roofline terms on H100 SXM5 data-sheet constants;
+    kind and ``coll_by_axis`` (``launch/hlo_analysis.py``), each
+    all-gather's result by shape and dtype under its axes
+    (``gathers_by_axis``), and the three roofline terms on H100 SXM5
+    data-sheet constants;
   * ``kernels``: the hand kernels' fake calls (``kernels._build.launches``
     stays 0: nothing launches);
   * ``form``: ``"fixed"`` where a data-dependent loop ran at its static
@@ -24,8 +26,9 @@ Usage (``PYTHONPATH=src``):
       --mesh one --params '{"global_batch": 8}'
 
 ``--mesh`` takes ``single`` (16, 16), ``multi`` (2, 16, 16), ``both``,
-or ``one`` (a one-rank (1, 1) mesh, to set a reckoning beside a card's
-measurement); ``--params`` overrides the cell's shape params.  The fake
+``one`` (a one-rank (1, 1) mesh, to set a reckoning beside a card's
+measurement), or ``small`` (2, 4) (a fake world for SMOKE configs);
+``--params`` overrides the cell's shape params.  The fake
 process group is process-global, so one process runs one world size;
 ``--subprocess`` runs each cell in a process of its own, or with
 ``--jobs N`` N worker processes a mesh, each tracing its share of the
@@ -50,6 +53,7 @@ MESHES = {
     "single": ((16, 16), ("data", "model")),
     "multi": ((2, 16, 16), ("pod", "data", "model")),
     "one": ((1, 1), ("data", "model")),
+    "small": ((2, 4), ("data", "model")),
 }
 
 
@@ -71,9 +75,10 @@ def _storages(tree) -> dict:
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str, n_micro: int = 4,
-             params: dict = None) -> dict:
+             params: dict = None, config=None) -> dict:
     """Trace one cell's rank-0 program and reckon it (the module docstring);
-    ``params`` overrides the shape cell's params."""
+    ``params`` overrides the shape cell's params, ``config`` the arch's
+    config (a test's SMOKE widths)."""
     import torch
 
     from repro_torch import abstract
@@ -86,6 +91,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, n_micro: int = 4,
     from repro_torch.training import tree as tree_lib
 
     spec = get_arch(arch)
+    if config is not None:
+        spec = dataclasses.replace(spec, config=config)
     cell_spec = next(c for c in spec.shapes if c.name == shape)
     if params:
         cell_spec = dataclasses.replace(cell_spec, params={**cell_spec.params, **params})
@@ -133,6 +140,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, n_micro: int = 4,
     rec["peak_bytes"] = peak
     rec["collectives"] = {k: v for k, v in collective_bytes(tally).items() if v > 0}
     rec["coll_by_axis"] = dict(tally.coll_by_axis)
+    rec["gathers_by_axis"] = {a: dict(g) for a, g in tally.gathers.items()}
     rec["kernels"] = dict(tally.kernels)
     rec["n_ops"] = tally.n_ops
     rec["top_bytes"] = dict(sorted(tally.bytes_by_op.items(), key=lambda kv: -kv[1])[:6])
@@ -239,7 +247,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
-    ap.add_argument("--mesh", choices=["single", "multi", "both", "one"],
+    ap.add_argument("--mesh", choices=["single", "multi", "both", "one", "small"],
                     default="both")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="results/dryrun.jsonl")

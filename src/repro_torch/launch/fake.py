@@ -29,7 +29,8 @@ program issues, its backward included:
   * collectives: the payload by kind, with the reference's wire factors
     (all-reduce 2x; all-gather, reduce-scatter, all-to-all and permute
     1x), and by the mesh axes of their group; a group of one rank moves
-    nothing and counts none;
+    nothing and counts none.  Each all-gather's result is listed by shape
+    and dtype under its axes (``gathers``: what a program gathers whole);
   * the hand kernels' fake forms, which charge their own work
     (``kernels._build.charge``) and are counted in ``kernels``, apart from
     ``kernels._build.launches``, which counts real launches only;
@@ -173,6 +174,8 @@ class Tally(TorchDispatchMode):
         self.hbm_bytes = 0.0
         self.collectives: Dict[str, float] = {k: 0.0 for k in COLLECTIVE_FACTOR}
         self.coll_by_axis: Dict[str, float] = {}
+        # axis -> "shape dtype" of each all-gather's result -> count
+        self.gathers: Dict[str, Dict[str, int]] = {}
         self.kernels: Dict[str, int] = {}
         self.bytes_by_op: Dict[str, float] = {}
         self.n_ops = 0
@@ -281,3 +284,8 @@ class Tally(TorchDispatchMode):
         gname = None if group is None else group.group_name
         axis = self.axis_of.get(gname, f"group {gname}")
         self.coll_by_axis[axis] = self.coll_by_axis.get(axis, 0.0) + wire
+        if kind == "all-gather":
+            seen = self.gathers.setdefault(axis, {})
+            for t in _tensors(out if at is None else args[at]):
+                key = f"{tuple(t.shape)} {str(t.dtype).replace('torch.', '')}"
+                seen[key] = seen.get(key, 0) + 1

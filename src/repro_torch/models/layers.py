@@ -1,5 +1,7 @@
 """Shared neural building blocks: RMSNorm, LayerNorm, RoPE, flash
-attention, SwiGLU, the token-mean cross-entropy and its chunked form.
+attention, SwiGLU, the token-mean cross-entropy and its chunked form
+(vocab-parallel over a fabric's shards, the one device its one-shard
+case).
 
 Twin of ``repro/models/layers.py``: the same names, argument orders and
 layouts (``(b, s, heads, head_dim)`` activations), and the reference's
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.distributed import copy_to, reduce_from
 from repro_torch.device import DeviceLike, resolve_device
 
 NEG_INF = -1e30
@@ -187,32 +190,58 @@ def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def _xent_chunk(hb: torch.Tensor, lm_head: torch.Tensor, lb: torch.Tensor,
-                mb: torch.Tensor, n_valid_vocab: Optional[int]) -> torch.Tensor:
-    """One chunk's summed masked NLL: the reference's scan body."""
-    logits = (hb @ lm_head).float()                       # (b, chunk, v)
-    v = logits.shape[-1]
-    if n_valid_vocab is not None and n_valid_vocab < v:
-        bad = torch.arange(v, device=logits.device) >= n_valid_vocab
-        logits = logits.masked_fill(bad, NEG_INF)
-    lse = torch.logsumexp(logits, dim=-1)
-    # the reference's one-hot pick: a label outside [0, v) picks 0 (no
-    # wrap, no NaN) and carries no gradient; a gather gives the same sum
+def _stack_sum(fabric, x: torch.Tensor) -> torch.Tensor:
+    """The shards' ``(S_l, ...)`` partials summed over the model axis
+    (every shard uses the sum alike), or the one shard's."""
+    return x[0] if fabric is None else reduce_from(fabric, x)
+
+
+def _xent_chunk(hb: torch.Tensor, heads: torch.Tensor, lb: torch.Tensor,
+                mb: torch.Tensor, n_valid_vocab: Optional[int], offsets, fabric
+                ) -> torch.Tensor:
+    """One chunk's summed masked NLL (the reference's scan body) over the
+    vocabulary blocks ``heads`` ``(S_l, d, v_loc)``, local shard ``j``
+    holding global columns ``[offsets[j] * v_loc, (offsets[j] + 1) *
+    v_loc)``: each shard's float32 logits, the pad columns (global index
+    from ``n_valid_vocab``) ``-1e30``; the row maximum over every shard
+    (``pmax``), each shard's sum of exponentials and the label's logit
+    summed over the shards (``fabric``; ``None``: the one shard).  The
+    label is picked as the reference's one-hot picks it: from the shard
+    whose columns hold it, and a label outside ``[0, V_pad)`` picks 0
+    (no wrap, no NaN) and carries no gradient.  The maximum carries no
+    gradient (it cancels)."""
+    v_loc = heads.shape[2]
     lab = lb.long()
-    ok = (lab >= 0) & (lab < v)
-    ll = torch.gather(logits, -1, lab.clamp(0, v - 1)[..., None])[..., 0]
-    ll = torch.where(ok, ll, torch.zeros_like(ll))
-    return torch.sum((lse - ll) * mb)
+    logits, maxes, picks = [], [], []
+    for j, c in enumerate(offsets):
+        lg = (hb @ heads[j]).float()                          # (b, chunk, v_loc)
+        lo = c * v_loc
+        if n_valid_vocab is not None and n_valid_vocab < lo + v_loc:
+            bad = lo + torch.arange(v_loc, device=lg.device) >= n_valid_vocab
+            lg = lg.masked_fill(bad, NEG_INF)
+        local = lab - lo
+        mine = (local >= 0) & (local < v_loc)
+        ll = torch.gather(lg, -1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+        picks.append(torch.where(mine, ll, torch.zeros_like(ll)))
+        maxes.append(lg.detach().amax(-1))
+        logits.append(lg)
+    m = torch.stack(maxes)
+    m = m[0] if fabric is None else fabric.pmax(m)
+    sums = torch.stack([torch.exp(lg - m[..., None]).sum(-1) for lg in logits])
+    lse = m + torch.log(_stack_sum(fabric, sums))
+    return torch.sum((lse - _stack_sum(fabric, torch.stack(picks))) * mb)
 
 
 def chunked_softmax_xent(
     hidden: torch.Tensor,     # (b, s, d) final hidden states
-    lm_head: torch.Tensor,    # (d, v)
+    lm_head: torch.Tensor,    # (d, v), or (S_l, d, v_loc) with vocab_blocks
     labels: torch.Tensor,     # (b, s) int
     mask: torch.Tensor,       # (b, s)
     chunk: int = 1024,
     n_valid_vocab: Optional[int] = None,  # mask padded vocab columns
     count: Optional[torch.Tensor] = None,  # the normaliser's token count
+    *,
+    vocab_blocks: Optional[Tuple[Any, Any]] = None,
 ) -> torch.Tensor:
     """CE without materialising ``(b, s, v)`` logits: a loop over sequence
     chunks, the sequence zero-padded to a multiple of ``chunk``.
@@ -224,7 +253,20 @@ def chunked_softmax_xent(
     are 805 MB a sequence.  Columns from ``n_valid_vocab`` on are
     ``-1e30``.  The NLL sum is divided by ``max(count, 1)``: the mask's
     count, or ``count`` where a caller sums shares of a larger batch.
-    """
+
+    ``vocab_blocks`` ``(offsets, fabric)`` makes it vocab-parallel:
+    ``lm_head`` holds the local shards' column blocks, shard ``j`` the
+    ``offsets[j]``-th, and ``fabric`` (the model axis's) reduces the row
+    maximum, the sums of exponentials and the label's logit over the
+    shards (``_xent_chunk``), and under autograd sums ``hidden``'s gradient
+    over them (``copy_to``).  The one-device loss is the one-shard case of
+    the same body."""
+    if vocab_blocks is None:
+        heads, offsets, fabric = lm_head[None], [0], None
+    else:
+        heads, (offsets, fabric) = lm_head, vocab_blocks
+        if fabric is not None:      # each shard's columns give part of its gradient
+            hidden = copy_to(fabric, hidden)
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     n = -(-s // chunk)
@@ -238,11 +280,11 @@ def chunked_softmax_xent(
     for c in range(n):
         sl = slice(c * chunk, (c + 1) * chunk)
         hb, lb, mb = hidden[:, sl], labels[:, sl], mask[:, sl]
+        args = (hb, heads, lb, mb, n_valid_vocab, offsets, fabric)
         if torch.is_grad_enabled():
-            nll = checkpoint(_xent_chunk, hb, lm_head, lb, mb, n_valid_vocab,
-                             use_reentrant=False)
+            nll = checkpoint(_xent_chunk, *args, use_reentrant=False)
         else:
-            nll = _xent_chunk(hb, lm_head, lb, mb, n_valid_vocab)
+            nll = _xent_chunk(*args)
         total = total + nll
         own_count = own_count + torch.sum(mb.float())
     if count is None:

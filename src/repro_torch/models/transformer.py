@@ -59,6 +59,22 @@ Differences from the reference, none of which changes a value:
     m, l)``.  The sums add the shards' partials in shard order where the
     reference's one product sums in its own order: values within float32
     rounding, not bit for bit (tokens and ids exact in the tests);
+  * ``forward`` and ``loss_fn`` take ``tp`` too: the reference's GSPMD train
+    cell written out with the prefill's layer functions, autograd running
+    through them.  Megatron's pairs (``core/distributed.py``) give each
+    product its backward: the normed input of every column-parallel
+    product, K and V (which every shard reads for its own heads) and the
+    final hidden states have their gradients summed over 'model'
+    (``copy_to``); a row-parallel sum, the lookup's sum and the loss's
+    reductions hand every shard the whole gradient (``reduce_from``); the
+    router's logits come back as each shard's slice (``gather_from``); an
+    FSDP 'data' dim is gathered a layer at a time and its gradient
+    reduce-scattered.  The cross-entropy is vocab-parallel
+    (``layers.chunked_softmax_xent(vocab_blocks=)``), every model shard
+    computes the same loss, and with ``remat`` each block is checkpointed
+    (its recompute gathers the FSDP dims again).  The operations run in
+    the unsharded block's order, so one shard gives its bits forward and
+    backward;
   * ``cast_for_serving`` casts the matrices to ``compute_dtype`` once
     (the reference casts with ``.astype(cd)`` at every use, which gives
     the same values); the MoE router stays float32, as the reference
@@ -77,6 +93,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import abstract
+from repro_torch.core.distributed import gather_from, reduce_from
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import merge_partials
@@ -393,17 +410,30 @@ def _qkv(p, x, cfg: LMConfig, positions: torch.Tensor, freqs: torch.Tensor):
     return q, k, v
 
 
-def _expand_kv(x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """``(b, s, kh, dh)`` -> ``(b, s, hp, dh)``: head ``i`` reads kv head
-    ``min(i // group, kh - 1)`` (the reference's ``jnp.take`` map), as a
-    broadcast: its backward sums, with no atomic scatter."""
+def _expand_kv(x: torch.Tensor, cfg: LMConfig, lo: int = 0,
+               n: Optional[int] = None) -> torch.Tensor:
+    """``(b, s, kh, dh)`` -> ``(b, s, n, dh)``, padded heads ``lo`` to ``lo +
+    n`` (all ``hp`` by default): head ``i`` reads kv head ``min(i // group,
+    kh - 1)`` (the reference's ``jnp.take`` map), as a broadcast: its
+    backward sums, with no atomic scatter."""
     b, s, kh, dh = x.shape
     hp = cfg.n_heads_padded
+    n = hp - lo if n is None else n
     group = cfg.n_heads // kh
-    out = x[:, :, :, None].expand(b, s, kh, group, dh).reshape(b, s, kh * group, dh)
-    if hp > kh * group:   # the heads past kh * group all read the last kv head
-        out = torch.cat([out, x[:, :, -1:].expand(b, s, hp - kh * group, dh)], dim=2)
-    return out
+    real = kh * group               # the heads past it all read the last kv head
+    parts = []
+    if lo < real:
+        k0, k1 = lo // group, -(-min(lo + n, real) // group)
+        src = x if (k0, k1) == (0, kh) else x[:, :, k0:k1]
+        out = src[:, :, :, None].expand(b, s, k1 - k0, group, dh).reshape(
+            b, s, (k1 - k0) * group, dh)
+        cut, cnt = lo - k0 * group, min(lo + n, real) - lo
+        if (cut, cnt) != (0, out.shape[2]):
+            out = out[:, :, cut:cut + cnt]
+        parts.append(out)
+    if lo + n > real:
+        parts.append(x[:, :, -1:].expand(b, s, lo + n - max(lo, real), dh))
+    return torch.cat(parts, dim=2) if len(parts) > 1 else parts[0]
 
 
 def _expanded_attention(q, k, v, cfg: LMConfig, q_offset: int = 0):
@@ -459,7 +489,7 @@ def _ffn(p, x: torch.Tensor, cfg: LMConfig, mesh=None) -> Tuple[torch.Tensor, to
                 raise NotImplementedError(
                     "a MoE block without ep_shard_map over a process group with "
                     "several data ranks: routing over the global batch is not "
-                    "ported (see ROADMAP.md, Queue 1)")
+                    "ported (see ROADMAP.md, Queue 1, 'Routing over the global batch')")
             out, aux = moe_ffn(flat, p["moe"], cfg.moe)
         return x + out.reshape(b, s, d), aux
     g = h @ p["w_gate"].to(cd)
@@ -496,25 +526,40 @@ def forward(
     tokens: torch.Tensor,      # (b, s) int32
     cfg: LMConfig,
     mesh=None,
+    *,
+    tp=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token ids -> final hidden states (b, s, d). Returns (hidden, aux_loss),
-    the aux loss summed over the stacked blocks."""
+    the aux loss summed over the stacked blocks.  With ``tp`` the lookup and
+    the blocks run tensor-parallel on ``params`` in its form (``_embed_tp``,
+    ``_block_tp``), ``mesh`` is not read, and over a process group the aux is
+    averaged over the data ranks (each routes its own rows)."""
     b, s = tokens.shape
-    x = _embed(params, tokens, cfg)
+    if tp is None:
+        x = _embed(params, tokens, cfg)
+        block, extra = _block, (mesh,)
+    else:
+        x = _embed_tp(params, tokens, cfg, tp, param_logical(cfg))
+        block, extra = _block_tp, (tp, _layer_logical(cfg))
     dev = x.device
     freqs = layers.rope_frequencies(cfg.head_dim, cfg.rope_theta, device=dev)
     pos = torch.arange(s, device=dev).expand(b, s)
     auxes = []
     remat = cfg.remat and torch.is_grad_enabled()
     for _, p in _layers(params, cfg):
-        if remat:
-            x, aux = checkpoint(_block, p, x, cfg, pos, freqs, mesh, use_reentrant=False)
+        if remat:     # (a tensor-parallel recompute gathers the FSDP dims again)
+            x, aux = checkpoint(block, p, x, cfg, pos, freqs, *extra, use_reentrant=False)
         else:
-            x, aux = _block(p, x, cfg, pos, freqs, mesh)
+            x, aux = block(p, x, cfg, pos, freqs, *extra)
         auxes.append(aux)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     # the reference sums the stacked blocks' aux, not dense0's (zero) one
-    return x, torch.stack(auxes[cfg.n_layers - cfg.n_scan:]).sum()
+    aux = torch.stack(auxes[cfg.n_layers - cfg.n_scan:]).sum()
+    if tp is not None and cfg.moe is not None and not tp.local and tp.data_ranks > 1:
+        aux = reduce_from(tp.mesh.fabric(data_axes(tp.mesh)), aux[None],
+                          grad="psum") / torch.tensor(float(tp.data_ranks),
+                                                      dtype=aux.dtype, device=dev)
+    return x, aux
 
 
 def loss_fn(
@@ -524,6 +569,8 @@ def loss_fn(
     mask: torch.Tensor,        # (b, s)
     cfg: LMConfig,
     mesh=None,
+    *,
+    tp=None,
 ) -> torch.Tensor:
     """Token-mean CE over the real vocabulary (chunked, the logits never
     whole) plus the summed MoE aux loss.
@@ -532,9 +579,20 @@ def loss_fn(
     is its share of the global loss: its CE sum over the token count
     summed over the data ranks, plus its aux over their number; the shares
     add up to the loss over the data axes (``train_loop.jit_train_step``
-    adds them)."""
-    hidden, aux = forward(params, tokens, cfg, mesh=mesh)
-    head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
+    adds them).  With ``tp`` (``sharding.TensorParallel``; its mesh is the
+    mesh) the blocks run tensor-parallel and the CE is vocab-parallel over
+    the head's vocabulary blocks; every model shard computes the same
+    loss."""
+    if tp is not None:
+        mesh = tp.mesh
+    hidden, aux = forward(params, tokens, cfg, mesh=mesh, tp=tp)
+    blocks = None
+    if tp is None:
+        head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
+    else:
+        head, split = _head_tp(params, cfg, tp, param_logical(cfg))
+        head = head.to(cfg.compute_dtype)
+        blocks = (tp.offsets(split), tp.fabric if split else None)
     count = None
     if mesh is not None and mesh.kind == "process_group":
         d_axes = data_axes(mesh)
@@ -544,7 +602,8 @@ def loss_fn(
         aux = aux / torch.tensor(float(n_data), device=aux.device)
     ce = layers.chunked_softmax_xent(hidden, head, labels, mask,
                                      chunk=cfg.loss_chunk,
-                                     n_valid_vocab=cfg.vocab_size, count=count)
+                                     n_valid_vocab=cfg.vocab_size, count=count,
+                                     vocab_blocks=blocks)
     return ce + aux
 
 
@@ -697,7 +756,16 @@ def _embed_tp(params, tokens: torch.Tensor, cfg: LMConfig, tp, top) -> torch.Ten
         mine = (local >= 0) & (local < rows)
         got = gather_rows(table[j].to(cd), local.clamp(0, rows - 1))
         parts.append(torch.where(mine[..., None], got, zero))
-    return nan_rows(tp.fabric.psum(torch.stack(parts)), ok)
+    return nan_rows(tp.reduce(torch.stack(parts), split), ok)
+
+
+def _head_tp(params, cfg: LMConfig, tp, top) -> Tuple[torch.Tensor, bool]:
+    """The head's vocabulary blocks ``(S_l, d, v_loc)`` (the tied table's
+    transposed) and whether the vocabulary is split."""
+    if cfg.tie_embeddings:
+        head, split = tp.shards(params["embed"], top["embed"])
+        return head.transpose(1, 2), split
+    return tp.shards(params["lm_head"], top["lm_head"])
 
 
 def _logits_tp(params, x_last: torch.Tensor, cfg: LMConfig, tp, top) -> torch.Tensor:
@@ -705,11 +773,7 @@ def _logits_tp(params, x_last: torch.Tensor, cfg: LMConfig, tp, top) -> torch.Te
     columns, the pad vocabulary masked by global column on the shard that
     holds it, then the shards' columns gathered into ``(b, V_pad)``."""
     cd = cfg.compute_dtype
-    if cfg.tie_embeddings:
-        head, split = tp.shards(params["embed"], top["embed"])
-        head = head.transpose(1, 2)
-    else:
-        head, split = tp.shards(params["lm_head"], top["lm_head"])
+    head, split = _head_tp(params, cfg, tp, top)
     cols = head.shape[2]
     parts = []
     for j, c in enumerate(tp.offsets(split)):
@@ -726,22 +790,27 @@ def _logits_tp(params, x_last: torch.Tensor, cfg: LMConfig, tp, top) -> torch.Te
 
 def _mlp_tp(h: torch.Tensor, p, names, cfg: LMConfig, tp, lg) -> torch.Tensor:
     """SwiGLU with column-parallel gate / up and a row-parallel down
-    projection: each shard's partial output, one sum over 'model'."""
+    projection: each shard's partial output, one sum over 'model' (under
+    autograd the input's gradient is summed over 'model' too)."""
     cd = cfg.compute_dtype
     wg, split = tp.shards(p[names[0]], lg[names[0]])
     wu, _ = tp.shards(p[names[1]], lg[names[1]])
     wd, _ = tp.shards(p[names[2]], lg[names[2]])
+    if split:
+        h = tp.copy(h)
     parts = torch.stack([layers.swiglu(h @ wg[j].to(cd), h @ wu[j].to(cd)) @ wd[j].to(cd)
                          for j in range(wg.shape[0])])
-    return tp.fabric.psum(parts) if split else parts[0]
+    return tp.reduce(parts, split)
 
 
 def _moe_tp(flat: torch.Tensor, p, cfg: LMConfig, tp, lg) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed experts over 'model' with the shard's own experts only:
-    the router's logits gathered from its expert blocks, the exact top-k
-    of ``moe.route`` on every shard alike, ``ep_partials`` over the local
-    shards' experts, one sum over 'model'.  The capacity is
-    ``capacity(t)`` of this rank's tokens."""
+    the router's logits gathered from its expert blocks (``gather_from``),
+    the exact top-k of ``moe.route`` on every shard alike, ``ep_partials``
+    over the local shards' experts, one sum over 'model'; ``(out, aux)``,
+    the aux alike on every model shard.  The capacity is ``capacity(t)``
+    of this rank's tokens.  Under autograd over a process group the
+    tokens' and gates' gradients are summed over 'model' (``copy_to``)."""
     mcfg = cfg.moe
     router, split = tp.shards(p["router"], lg["router"])
     experts = {n: tp.shards(p[n], lg[n]) for n in ("w_gate", "w_up", "w_down")}
@@ -752,28 +821,32 @@ def _moe_tp(flat: torch.Tensor, p, cfg: LMConfig, tp, lg) -> Tuple[torch.Tensor,
         # reference routes over the global batch
         raise NotImplementedError(
             "a MoE block without ep_shard_map over several data ranks: routing over "
-            "the global batch is not ported (see ROADMAP.md, Queue 1)")
-    logits = torch.stack([flat.float() @ r.float() for r in router])     # (S_l, t, E/n)
-    logits = tp.fabric.all_gather(logits).permute(1, 0, 2).reshape(flat.shape[0], -1)
+            "the global batch is not ported (see ROADMAP.md, Queue 1, 'Routing over "
+            "the global batch')")
+    xr = tp.copy(flat)                  # (float32 a shard at a time: no copy kept)
+    logits = torch.stack([xr.float() @ r.float() for r in router])      # (S_l, t, E/n)
+    logits = gather_from(tp.fabric, logits).permute(1, 0, 2).reshape(flat.shape[0], -1)
     e_loc = experts["w_gate"][0].shape[1]
     w = {n: x.flatten(0, 1) for n, (x, _) in experts.items()}
     shard_ids = torch.tensor(tp.coords, dtype=torch.int32, device=flat.device)
-    partial, aux = ep_partials(flat, w, mcfg, shard_ids, e_loc, logits=logits)
-    return tp.fabric.psum(partial), aux
+    partial, aux = ep_partials(flat, w, mcfg, shard_ids, e_loc, fabric=tp.fabric,
+                               logits=logits)
+    return tp.reduce(partial, split), aux
 
 
-def _ffn_tp(p, x: torch.Tensor, cfg: LMConfig, tp, lg) -> torch.Tensor:
-    """``_ffn`` tensor-parallel: ``x + ffn(x)``."""
+def _ffn_tp(p, x: torch.Tensor, cfg: LMConfig, tp, lg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_ffn`` tensor-parallel: ``(x + ffn(x), aux)``."""
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None and "moe" in p:
         b, s, d = h.shape
         flat = h.reshape(b * s, d)
-        out, _ = _moe_tp(flat, p["moe"], cfg, tp, lg["moe"])
+        out, aux = _moe_tp(flat, p["moe"], cfg, tp, lg["moe"])
         if cfg.moe.n_shared > 0:
             out = out + _mlp_tp(flat, p["moe"], ("shared_gate", "shared_up", "shared_down"),
                                 cfg, tp, lg["moe"])
-        return x + out.reshape(b, s, d)
-    return x + _mlp_tp(h, p, ("w_gate", "w_up", "w_down"), cfg, tp, lg)
+        return x + out.reshape(b, s, d), aux
+    out = _mlp_tp(h, p, ("w_gate", "w_up", "w_down"), cfg, tp, lg)
+    return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _whole_qkv(p, cfg: LMConfig, tp, lg, with_q: bool) -> Dict[str, torch.Tensor]:
@@ -787,41 +860,56 @@ def _whole_qkv(p, cfg: LMConfig, tp, lg, with_q: bool) -> Dict[str, torch.Tensor
 
 def _attention_tp(p, x: torch.Tensor, cfg: LMConfig, pos: torch.Tensor,
                   freqs: torch.Tensor, tp, lg):
-    """Prefill attention with the query heads in blocks over 'model'
-    (``wq`` / ``bq`` column-, ``wo`` row-parallel, one sum), K and V whole
-    on every shard: ``(x + attn, k, v)``.  A shard's head ``i`` is global
-    head ``c * hp_loc + i``: it reads kv head ``min(g // group, kh - 1)``
-    and is zeroed past ``n_heads``, as the reference maps and masks the
-    whole head axis."""
+    """Prefill and training attention with the query heads in blocks over
+    'model' (``wq`` / ``bq`` column-, ``wo`` row-parallel, one sum), K and
+    V whole on every shard: ``(x + attn, k, v)``.  A shard's head ``i`` is
+    global head ``c * hp_loc + i``: it reads kv head ``min(g // group, kh
+    - 1)`` and is zeroed past ``n_heads``, as the reference maps and masks
+    the whole head axis.  The operations run in ``_qkv`` /
+    ``_expanded_attention``'s order, so that one shard gives the unsharded
+    block's bits, forward and backward.  Under autograd the normed input
+    of the query products and K / V (each shard reads them for its own
+    heads) have their gradients summed over 'model'."""
     cd = cfg.compute_dtype
     w = _whole_qkv(p, cfg, tp, lg, with_q=False)
-    h = layers.rmsnorm(x, w["ln1"], cfg.norm_eps)
-    k = _proj(h, w["wk"].to(cd))
-    v = _proj(h, w["wv"].to(cd))
-    if cfg.qkv_bias:
-        k = k + w["bk"].to(cd)
-        v = v + w["bv"].to(cd)
-    k = layers.apply_rope(k, pos, freqs)
     wq, split = tp.shards(p["wq"], lg["wq"])
     wo, _ = tp.shards(p["wo"], lg["wo"])
     bq = tp.shards(p["bq"], lg["bq"])[0] if cfg.qkv_bias else None
+    h = layers.rmsnorm(x, w["ln1"], cfg.norm_eps)
+    hq = tp.copy(h) if split else h
+    qs = [_proj(hq, wq[j].to(cd)) for j in range(wq.shape[0])]
+    k = _proj(h, w["wk"].to(cd))
+    v = _proj(h, w["wv"].to(cd))
+    if cfg.qkv_bias:
+        qs = [q + bq[j].to(cd) for j, q in enumerate(qs)]
+        k = k + w["bk"].to(cd)
+        v = v + w["bv"].to(cd)
+    if split:
+        k, v = tp.copy(k), tp.copy(v)
+    qs = [layers.apply_rope(q, pos, freqs) for q in qs]
+    k = layers.apply_rope(k, pos, freqs)
     hp_loc = wq.shape[2]
-    group = cfg.n_heads // cfg.n_kv_heads
+    # (the unsharded block expands only where the head counts differ)
+    expand = (cfg.n_heads // cfg.n_kv_heads > 1 or cfg.n_heads_padded != cfg.n_kv_heads
+              or hp_loc != cfg.n_heads_padded)
     parts = []
     for j, c in enumerate(tp.offsets(split)):
-        heads = c * hp_loc + torch.arange(hp_loc, device=x.device)
-        q = _proj(h, wq[j].to(cd))
-        if cfg.qkv_bias:
-            q = q + bq[j].to(cd)
-        q = layers.apply_rope(q, pos, freqs)
-        kv = torch.clamp(heads // group, max=cfg.n_kv_heads - 1)
-        attn = layers.flash_attention(q, k.index_select(2, kv), v.index_select(2, kv),
-                                      causal=True, kv_chunk=cfg.kv_chunk)
+        lo = c * hp_loc
+        kj = _expand_kv(k, cfg, lo, hp_loc) if expand else k
+        vj = _expand_kv(v, cfg, lo, hp_loc) if expand else v
+        attn = layers.flash_attention(qs[j], kj, vj, causal=True, kv_chunk=cfg.kv_chunk)
         if cfg.n_heads_padded != cfg.n_heads:
+            heads = lo + torch.arange(hp_loc, device=x.device)
             attn = attn * (heads < cfg.n_heads).to(attn.dtype)[None, None, :, None]
         parts.append(_out_proj(attn, wo[j].to(cd)))
-    parts = torch.stack(parts)
-    return x + (tp.fabric.psum(parts) if split else parts[0]), k, v
+    return x + tp.reduce(torch.stack(parts), split), k, v
+
+
+def _block_tp(p, x: torch.Tensor, cfg: LMConfig, pos: torch.Tensor,
+              freqs: torch.Tensor, tp, lg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block of ``forward`` tensor-parallel: ``(x, aux)``."""
+    x, _, _ = _attention_tp(p, x, cfg, pos, freqs, tp, lg)
+    return _ffn_tp(p, x, cfg, tp, lg)
 
 
 def _cache_blocks(cache_layer: torch.Tensor, tp) -> Tuple[torch.Tensor, bool]:
@@ -853,7 +941,7 @@ def _prefill_tp(params, tokens: torch.Tensor, cfg: LMConfig, max_seq: int, tp):
     lg = _layer_logical(cfg)
     for i, p in _layers(params, cfg):
         x, k, v = _attention_tp(p, x, cfg, pos, freqs, tp, lg)
-        x = _ffn_tp(p, x, cfg, tp, lg)
+        x, _ = _ffn_tp(p, x, cfg, tp, lg)
         ck, split = _cache_blocks(cache["k"][i], tp)
         cv, _ = _cache_blocks(cache["v"][i], tp)
         s_loc = ck.shape[2]
@@ -907,6 +995,6 @@ def _decode_step_tp(params, cache, tokens: torch.Tensor, pos: int, cfg: LMConfig
         if hp != nh:   # pad heads contribute zeros
             attn = F.pad(attn, (0, 0, 0, hp - nh))
         x = x + _out_proj(attn[:, None].to(cd), tp.whole(p["wo"], lg["wo"]).to(cd))
-        x = _ffn_tp(p, x, cfg, tp, lg)
+        x, _ = _ffn_tp(p, x, cfg, tp, lg)
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits_tp(params, x[:, 0], cfg, tp, top), cache

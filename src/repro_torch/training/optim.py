@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,15 +111,28 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
+SumsReduce = Callable[[List[torch.Tensor]], List[torch.Tensor]]
+
+
+def global_norm(tree: PyTree, reduce: Optional[SumsReduce] = None) -> torch.Tensor:
+    """The square root of every leaf's sum of squares, added in leaf
+    order.  ``reduce`` makes it a norm over blocks (each leaf this rank's
+    block of a sharded whole): it takes the per-leaf sums and returns each
+    summed over the mesh axes its leaf is split over, so a leaf replicated
+    over an axis is counted once (``train_loop.jit_train_step`` with
+    ``tp``)."""
+    sums = [torch.sum(torch.square(x.float())) for x in tree_lib.leaves(tree)]
+    if reduce is not None:
+        sums = reduce(sums)
     total = 0
-    for x in tree_lib.leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+    for s in sums:
+        total = total + s
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float) -> Tuple[PyTree, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: PyTree, max_norm: float,
+                        reduce: Optional[SumsReduce] = None) -> Tuple[PyTree, torch.Tensor]:
+    norm = global_norm(grads, reduce)
     # a 0-d tensor over a tensor: torch's float / tensor is a reciprocal
     # times the float, not a division
     scale = torch.clamp(_f32(max_norm, norm) / torch.clamp(norm, min=1e-9), max=1.0)
@@ -160,15 +173,17 @@ def apply_updates(
     return params, state, {"grad_norm": hyper["grad_norm"], "lr": hyper["lr"]}
 
 
-def prepare_step(grads: PyTree, step: torch.Tensor, cfg: AdamWConfig):
+def prepare_step(grads: PyTree, step: torch.Tensor, cfg: AdamWConfig,
+                 norm_reduce: Optional[SumsReduce] = None):
     """The step's shared half: the grads in float32, clipped by their
-    global norm; ``step + 1`` in place; the learning rate and the bias
-    corrections.  Returns ``(grads, hyper)``."""
+    global norm (over blocks with ``norm_reduce``: ``global_norm``);
+    ``step + 1`` in place; the learning rate and the bias corrections.
+    Returns ``(grads, hyper)``."""
     grads = tree_lib.tree_map(lambda g: g.float(), grads)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm_reduce)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, norm_reduce)
     step.add_(1)
     step_f = step.float()
     return grads, dict(

@@ -77,21 +77,28 @@ class TrainStep:
         return (params, opt_state), self.run(params, batch, opt_state.step, update)
 
     def run(self, params: PyTree, batch: PyTree, step: torch.Tensor,
-            update: Callable, reduce: Optional[Callable] = None):
+            update: Callable, reduce: Optional[Callable] = None,
+            grad_reduce: Optional[Callable] = None,
+            norm_reduce: Optional[optim.SumsReduce] = None):
         """The step body: the mean loss and grads of ``loss_fn`` at
         ``params`` over ``batch``'s microbatches; ``reduce`` (a sum over
-        the data ranks) on the loss, then on each grad in the tree's
-        order; the grads clipped and ``step`` counted
-        (``optim.prepare_step``); then ``update(i, grad, hyper)`` for each
-        leaf ``i``.  Returns ``{"grad_norm", "lr", "loss"}``."""
+        the data ranks) on the loss, then ``grad_reduce(i, grad)`` on each
+        grad in the tree's order (``reduce`` itself by default); the grads
+        clipped (by their norm over blocks with ``norm_reduce``) and
+        ``step`` counted (``optim.prepare_step``); then ``update(i, grad,
+        hyper)`` for each leaf ``i``.  Returns ``{"grad_norm", "lr",
+        "loss"}``."""
         cfg = self.config
         loss, grads = microbatch.accumulated_grads(self.loss_fn, params, batch,
                                                    cfg.n_micro)
         with torch.no_grad():
             if reduce is not None:
                 loss = reduce(loss)
-                grads = tree_lib.tree_map(reduce, grads)
-            grads, hyper = optim.prepare_step(grads, step, cfg.adamw)
+                grad_reduce = grad_reduce or (lambda i, g: reduce(g))
+            if grad_reduce is not None:
+                grads = tree_lib.unflatten(grads, [
+                    grad_reduce(i, g) for i, g in enumerate(tree_lib.leaves(grads))])
+            grads, hyper = optim.prepare_step(grads, step, cfg.adamw, norm_reduce)
             for i, g in enumerate(tree_lib.leaves(grads)):
                 update(i, g, hyper)
         return {"grad_norm": hyper["grad_norm"], "lr": hyper["lr"], "loss": loss}
@@ -198,19 +205,31 @@ def jit_train_step(
     opt_sharding: optim.OptState,
     batch_sharding: PyTree,
     donate: bool = True,
+    *,
+    tp=None,
 ):
-    """``train_step`` (from ``make_train_step``) over the process-group
-    mesh of the shardings: ``step((params, opt_state), batch) -> (state',
-    metrics)``, the state DTensors in ``param_sharding`` / ``opt_sharding``
-    (``sharding.place`` puts a whole state there), ``batch`` the whole
-    global batch on every rank (see the module docstring).  ``donate``
-    updates the given state in place; without it the step updates a
-    copy."""
+    """``train_step`` (from ``make_train_step``) over the mesh of the
+    shardings: ``step((params, opt_state), batch) -> (state', metrics)``,
+    ``batch`` the whole global batch on every rank (see the module
+    docstring).  Without ``tp`` the mesh is a process group's and the
+    state DTensors in ``param_sharding`` / ``opt_sharding``
+    (``sharding.place`` puts a whole state there), every parameter gathered
+    whole for compute.  With ``tp`` (a ``sharding.TensorParallel`` on the
+    shardings' mesh, the one the loss computes on) the state is this rank's
+    blocks as plain tensors (``cells.place``' ``"block"`` form), or on a
+    local mesh its stacked-shard form (``tp.local_form``), and nothing is
+    gathered whole (``_blocks_step``).  ``donate`` updates the given state
+    in place; without it the step updates a copy."""
     if not isinstance(train_step, TrainStep):
         raise TypeError("jit_train_step runs a step made by make_train_step, got "
                         f"{type(train_step).__name__}")
     cfg = train_step.config
     mesh = tree_lib.leaves(param_sharding)[0].mesh
+    if tp is not None:
+        if tp.mesh is not mesh:
+            raise ValueError("tp's mesh is not the shardings' mesh")
+        return _blocks_step(train_step, param_sharding, opt_sharding, batch_sharding,
+                            donate, tp)
     if mesh.kind != "process_group":
         raise ValueError("jit_train_step runs over a process-group mesh")
     d_axes = data_axes(mesh)
@@ -220,17 +239,14 @@ def jit_train_step(
     o_sh = tree_lib.leaves(opt_sharding.m)
 
     def all_reduce(x: torch.Tensor) -> torch.Tensor:
-        return reduce.psum(x.reshape(1, *(x.shape or (1,)))).reshape(x.shape)
+        return _all_reduce(reduce, x)
 
     def step(state, batch):
         if not donate:
             state = tree_lib.tree_map(lambda x: x.clone(), state)
         params, opt = state
         full = gather_state(params)
-        b_names, b_leaves = tree_lib.flatten_with_names(batch)
-        local = tree_lib.unflatten(batch, [
-            _rank_rows(x, s, cfg.n_micro, n) for n, x, s in
-            zip(b_names, b_leaves, tree_lib.leaves(batch_sharding))])
+        local = _local_batch(batch, batch_sharding, cfg.n_micro)
         p, pf, m, v = (tree_lib.leaves(t) for t in (params, full, opt.m, opt.v))
 
         def update(i, g, hyper):
@@ -242,6 +258,96 @@ def jit_train_step(
 
         metrics = train_step.run(full, local, _local(opt.step), update,
                                  reduce=all_reduce if reduce is not None else None)
+        return (params, opt), metrics
+
+    return step
+
+
+def _all_reduce(fabric, x: torch.Tensor) -> torch.Tensor:
+    return fabric.psum(x.reshape(1, *(x.shape or (1,)))).reshape(x.shape)
+
+
+def _local_batch(batch: PyTree, batch_sharding: PyTree, n_micro: int) -> PyTree:
+    names, leaves = tree_lib.flatten_with_names(batch)
+    return tree_lib.unflatten(batch, [
+        _rank_rows(x, s, n_micro, n) for n, x, s in
+        zip(names, leaves, tree_lib.leaves(batch_sharding))])
+
+
+def _axes_of(spec: PartitionSpec) -> set:
+    return {a for part in spec if part is not None
+            for a in (part if isinstance(part, tuple) else (part,))}
+
+
+def _blocks_step(train_step: TrainStep, param_sharding, opt_sharding, batch_sharding,
+                 donate: bool, tp):
+    """``jit_train_step`` on each rank's blocks (``tp``).  The loss runs
+    tensor-parallel on them, so each gradient comes out in its parameter's
+    placement; a leaf's data-split (FSDP) dims had their gradient
+    reduce-scattered in the gather's backward, and the rest of the data
+    axes are all-reduced here, leaf by leaf in the tree's order.  Nothing
+    is reduced over 'model': every model shard computes the same loss, so
+    a leaf replicated over it already holds its whole gradient.  The
+    global norm sums each leaf's squares over the axes it is split on
+    (``optim.global_norm``), then the ZeRO-1 block of each leaf (within
+    this rank's block) is updated and all-gathered back over 'data', as
+    the gathered step does.  A local mesh's stacked shards are each leaf's
+    whole (its data axes have size 1): no collective."""
+    cfg = train_step.config
+    mesh = tp.mesh
+    pg = mesh.kind == "process_group"
+    p_specs = [s.spec for s in tree_lib.leaves(param_sharding)]
+    o_specs = [s.spec for s in tree_lib.leaves(opt_sharding.m)]
+    live = [a for a in mesh.axis_names if pg and mesh.shape[a] > 1]
+    d_axes = tuple(a for a in data_axes(mesh) if a in live)
+    grad_axes = [tuple(a for a in d_axes if a not in _axes_of(sp)) for sp in p_specs]
+    norm_axes = [tuple(a for a in live if a in _axes_of(sp)) for sp in p_specs]
+    reduce = mesh.fabric(d_axes) if d_axes else None
+    zero = mesh.fabric("data") if "data" in live else None
+
+    def grad_reduce(i, g):
+        return _all_reduce(mesh.fabric(grad_axes[i]), g) if grad_axes[i] else g
+
+    def norm_reduce(sums):
+        out = list(sums)
+        for axes in dict.fromkeys(a for a in norm_axes if a):
+            idx = [i for i, a in enumerate(norm_axes) if a == axes]
+            got = mesh.fabric(axes).psum(torch.stack([sums[i] for i in idx])[None])
+            for j, i in enumerate(idx):
+                out[i] = got[j]
+        return out
+
+    def zero1_block(i, shape):
+        """This rank's ZeRO-1 block of leaf ``i`` within its parameter
+        block: the dim ZeRO-1 split over 'data' on top of the parameter's
+        placement, if any."""
+        blk = [slice(None)] * len(shape)
+        for d, (a, b) in enumerate(zip(p_specs[i], o_specs[i])):
+            if a != b:
+                n = shape[d] // zero.n_shards
+                blk[d] = slice(zero.rank * n, (zero.rank + 1) * n)
+        return tuple(blk)
+
+    def step(state, batch):
+        if not donate:
+            state = tree_lib.tree_map(lambda x: x.clone(), state)
+        params, opt = state
+        local = _local_batch(batch, batch_sharding, cfg.n_micro)
+        p, m, v = (tree_lib.leaves(t) for t in (params, opt.m, opt.v))
+
+        def update(i, g, hyper):
+            if zero is None:
+                optim.adamw_leaf(p[i], m[i], v[i], g, hyper, cfg.adamw)
+                return
+            blk = zero1_block(i, p[i].shape)
+            region = p[i][blk]
+            optim.adamw_leaf(region, m[i], v[i], g[blk], hyper, cfg.adamw)
+            _write_back(p[i], region, p_specs[i], o_specs[i], zero)
+
+        metrics = train_step.run(
+            params, local, opt.step, update,
+            reduce=(lambda x: _all_reduce(reduce, x)) if reduce is not None else None,
+            grad_reduce=grad_reduce, norm_reduce=norm_reduce)
         return (params, opt), metrics
 
     return step

@@ -1457,6 +1457,67 @@ def test_lm_train_steps_on_card_match_cpu(cuda_device, name):
     assert _same_bits(got, again)
 
 
+# the tensor-parallel training cases of tests/test_torch_tp_training.py
+TP_TRAIN = {
+    "qwen2_5_3b": {},
+    "granite_moe_3b_a800m": dict(pad_heads_to=8, vocab_size=509, pad_vocab_to=512,
+                                 moe=dict(pad_experts_to=12, ep_shard_map=True)),
+    "deepseek_moe_16b": dict(moe=dict(ep_shard_map=True)),
+    "minitron_4b": dict(pad_heads_to=8),
+}
+
+
+def _tp_loss_grads(dev, cfg, params, batch):
+    """The tensor-parallel loss and its gradients on a local (1, 4) mesh
+    on ``dev``, the gradients back in the whole tree's form."""
+    from repro_torch.distribution import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.training import microbatch
+
+    tp = sharding.TensorParallel(mesh_lib.local_mesh((1, 4), device=dev),
+                                 sharding.LM_TRAIN_RULES)
+    logical = transformer.param_logical(cfg)
+    loss, grads = microbatch.value_and_grad(lambda p: transformer.loss_fn(
+        p, batch["tokens"], batch["labels"], batch["mask"], cfg, tp=tp))(
+            tp.local_form(params, logical))
+    return loss, tp.whole_form(grads, logical)
+
+
+@pytest.mark.parametrize("name", list(TP_TRAIN))
+def test_tp_train_loss_grads_on_card_match_cpu(cuda_device, name):
+    """The local (1, 4) tensor-parallel loss and gradients (SMOKE, float32,
+    remat on, a ragged mask, labels -1, V and V_pad) on the card within 2e-6
+    times max(1, the CPU's largest magnitude) of the CPU port's, leaf by
+    leaf; a second card run gives the same bits."""
+    import importlib
+
+    from repro_torch.training import tree
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    over = dict(TP_TRAIN[name])
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").SMOKE
+    if "moe" in over:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **over.pop("moe")))
+    cfg = dataclasses.replace(cfg, remat=True, **over)
+    host = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(2)
+    labels = rng.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    labels[0, :3] = (-1, cfg.vocab_size, cfg.vocab_padded)
+    mask = (rng.random((4, 32)) > 0.2).astype(np.float32)
+    mask[0, 1] = 0.0
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32)).astype(
+        np.int32)), "labels": torch.from_numpy(labels), "mask": torch.from_numpy(mask)}
+    want_loss, want = _tp_loss_grads(torch.device("cpu"), cfg, host, batch)
+    card_batch = _to(batch, cuda_device)
+    got_loss, got = _tp_loss_grads(cuda_device, cfg, _to(host, cuda_device), card_batch)
+    again_loss, again = _tp_loss_grads(cuda_device, cfg, _to(host, cuda_device), card_batch)
+    _within(got_loss, want_loss, f"{name} loss")
+    for n, g, w in zip(tree.flatten_with_names(want)[0], tree.leaves(got),
+                       tree.leaves(want)):
+        _within(g, w, f"{name} grad {n}")
+    assert torch.equal(got_loss, again_loss) and _same_bits(got, again)
+
+
 def _hybrid_step(loss_fn, table_key):
     """The reference's dlrm train cell: rowwise AdaGrad (lr 0.01) on the
     table, AdamW on the rest."""

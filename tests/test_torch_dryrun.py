@@ -510,6 +510,98 @@ def test_roofline_report_rows(full_cells):
     assert troof.fmt_row(qwen).endswith(f"| {ratio:.2f} |") and 0 < ratio < 1
 
 
+@pytest.fixture(scope="module")
+def smoke_train_cells(tmp_path_factory):
+    """The LM train cell at SMOKE widths traced on a fake (2, 4) world:
+    qwen2.5-3b (dense) and granite with ``ep_shard_map`` (MoE), 2
+    microbatches of 2 rows a rank, seq 16; each record, the shapes of the
+    step's gradients (``microbatch.accumulated_grads`` spied on) and the
+    state's blocks and whole shapes from the cell's shardings."""
+    tmp = tmp_path_factory.mktemp("dryrun_train")
+    body = """
+        import dataclasses, json
+        from repro_torch.configs import get_arch
+        from repro_torch.launch import cells, dryrun, mesh
+        from repro_torch.training import microbatch, tree
+
+        grads = []
+        accumulated = microbatch.accumulated_grads
+
+        def spy(loss_fn, params, batch, n_micro):
+            loss, g = accumulated(loss_fn, params, batch, n_micro)
+            grads.append([list(x.shape) for x in tree.leaves(g)])
+            return loss, g
+
+        microbatch.accumulated_grads = spy
+        shape = {"seq_len": 16, "global_batch": 8}
+        out = {}
+        for name, arch, moe in (("qwen", "qwen2.5-3b", None),
+                                ("granite", "granite-moe-3b-a800m", {"ep_shard_map": True})):
+            spec = get_arch(arch)
+            cfg = spec.smoke_config
+            if moe:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+            grads.clear()
+            rec = dryrun.run_cell(arch, "train_4k", "small", n_micro=2, params=shape,
+                                  config=cfg)
+            cell_spec = next(c for c in spec.shapes if c.name == "train_4k")
+            cell_spec = dataclasses.replace(cell_spec, params={**cell_spec.params, **shape})
+            abstract = mesh.Mesh((2, 4), ("data", "model"), kind="abstract")
+            c = cells.build_cell(dataclasses.replace(spec, config=cfg), cell_spec, abstract,
+                                 n_micro=2)
+            (params, opt), batch = c.args
+            (psh, osh), _ = c.in_shardings
+            blocks = lambda t, sh: [[n // s.shards(d) for d, n in enumerate(x.shape)]
+                                    for x, s in zip(tree.leaves(t), tree.leaves(sh))]
+            out[name] = {"rec": rec, "grads": grads[-1], "n_grad_calls": len(grads),
+                         "param_blocks": blocks(params, psh),
+                         "state_blocks": blocks((params, opt), (psh, osh)),
+                         "whole": [list(x.shape) for x in tree.leaves(params)],
+                         "split": [any(p == "model" for p in s.spec)
+                                   for s in tree.leaves(psh)],
+                         "batch_bytes": sum(x.numel() * x.element_size()
+                                            for x in tree.leaves(batch)),
+                         "n_moe": cfg.n_scan if cfg.moe else 0,
+                         "e_pad": cfg.moe.n_experts_padded if cfg.moe else 0}
+        print(json.dumps(out))
+    """
+    return _run_port(body, tmp)
+
+
+@pytest.mark.parametrize("name", ["qwen", "granite"])
+def test_smoke_train_cell_holds_blocks_and_gathers_no_leaf_over_model(smoke_train_cells,
+                                                                      name):
+    """The tensor-parallel train cell on a fake (2, 4) world: each
+    gradient is its parameter's block (a leaf split over 'model' a quarter
+    of its whole, and of its 'data' dims a half), so the per-rank
+    parameter and gradient bytes fall by the 'model' size on those leaves;
+    the argument bytes are the state's blocks and the whole batch; the
+    all-gathers over 'model' carry only the MoE router's logits ``(4 t,
+    E_pad / 4)`` float32 (none in a dense model), and the FSDP gradients
+    come back reduce-scattered over 'data'."""
+    import math
+
+    out = smoke_train_cells[name]
+    rec = out["rec"]
+    assert rec["status"] == "ok" and rec["kind"] == "train" and rec["n_chips"] == 8
+    assert out["n_grad_calls"] == 1
+    assert out["grads"] == out["param_blocks"]
+    split_whole = sum(math.prod(w) for w, s in zip(out["whole"], out["split"]) if s)
+    split_grad = sum(math.prod(g) for g, s in zip(out["grads"], out["split"]) if s)
+    assert split_whole // 8 <= split_grad <= split_whole // 4
+    assert sum(math.prod(g) for g in out["grads"]) < sum(math.prod(w) for w in out["whole"]) / 2
+    state = sum(4 * math.prod(b) for b in out["state_blocks"])   # float32, step int32
+    assert rec["memory_analysis"]["argument_size"] == state + out["batch_bytes"]
+    t = (8 // 2 // 2) * 16                       # a rank's tokens a microbatch
+    model = rec["gathers_by_axis"].get("model", {})
+    if out["n_moe"]:
+        assert model == {f"({4 * t}, {out['e_pad'] // 4}) float32": 2 * out["n_moe"]}
+    else:
+        assert model == {}
+    assert rec["collectives"]["reduce-scatter"] > 0 and rec["gathers_by_axis"]["data"]
+    assert {"data", "model"} <= set(rec["coll_by_axis"])
+
+
 # ---------------------------------------------------------------------------
 # Autograd through the cells' collectives, two gloo ranks
 # ---------------------------------------------------------------------------
