@@ -476,10 +476,10 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              (margin within 1e-5), then again with the unsharded expert
              selection imposed, held as (a).  (c) smollm_360m.FULL in bf16
              at batch 4 x seq 4096, 2 microbatches: the one-device step and
-             the (1, 4) step, a warm-up each, then 3 each in turns, their
+             the (1, 4) step, 3 each in turns (no warm-up), their
              p50 ms, tokens/s and peak GB over what was resident; one
-             tensor-parallel step profiled (device operations, busy ms,
-             idle share).  (d) is phase 35c.  (e) phase 36's dry-run records
+             tensor-parallel step profiled on the device only (device
+             operations, busy ms, idle share).  (d) is phase 35c.  (e) phase 36's dry-run records
              of the five LM train_4k cells, now the tensor-parallel
              program: each under 80 GB a rank and under PR 28's figure,
              its all-gathers over 'model' only the MoE router's logits
@@ -2682,16 +2682,20 @@ def summary_check(prof, device: dict, host: dict) -> dict:
                 names=len(device) + len(host), key_averages_s=ka_s, rel_tol=SUMMARY_REL_TOL)
 
 
-def profile_decode_step(fn, check: bool = False) -> dict:
+def profile_decode_step(fn, check: bool = False, host: bool = True) -> dict:
     """One step (a decode step, a train step) under torch.profiler: wall
     ms, device busy ms and the idle share, the device operations it
     issued, and the host operations that took the most host time (self
-    time, profiler overhead included).  ``check``: ``summary_check`` too."""
+    time, profiler overhead included).  ``check``: ``summary_check`` too.
+    Without ``host`` only the device is traced (its launches the only host
+    operations): a step of ~10^6 host operations exports and parses in a
+    fraction of the time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if host else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -5174,9 +5178,10 @@ class LayerTrace:
     ``transformer._ffn_tp`` (the tensor-parallel step, "t") and
     ``moe.route_logits`` (both) wrapped while it is entered.  With
     ``impose`` the tensor-parallel pass takes the unsharded pass's expert
-    selection layer by layer (the unsharded pass runs first), its gates
-    its own router probabilities at those experts, renormalised as
-    ``route_logits`` does (so autograd runs through them in training)."""
+    selection and gate values layer by layer (the unsharded pass runs
+    first); under autograd the gates' gradient is that of its own router
+    probabilities at those experts, renormalised as ``route_logits``
+    does (the value plus a zero that carries it)."""
 
     def __init__(self, impose: bool = False):
         from repro_torch.models import moe, transformer
@@ -5211,10 +5216,10 @@ class LayerTrace:
             out = route_logits(logits, cfg)
             mine = self.routes[self.side]
             if self.side == "t" and self.impose:
-                probs, sel = out[0], self.routes["u"][len(mine)][2]
+                probs, (_, gate_u, sel) = out[0], self.routes["u"][len(mine)]
                 gate = probs.gather(-1, sel.long())
                 gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-                out = (probs, gate, sel)
+                out = (probs, gate_u + (gate - gate.detach()), sel)
             mine.append(tuple(t.detach() for t in out))
             self.calls[self.side].append(len(self.x[self.side]))
             return out
@@ -5788,12 +5793,11 @@ def tp_train_timing(dev, cfg, card: str) -> dict:
         peak[side] = max(peak[side], gb(torch.cuda.max_memory_allocated() - before))
         return (time.perf_counter() - t) * 1e3
 
-    for side in ("one", "tp"):                    # warm-up, not timed
-        run(side)
     for _ in range(TT_TIME_REPS):
         for side in ("one", "tp"):
             ms[side].append(run(side))
-    prof = profile_decode_step(lambda: box["tp"].__setitem__(1, tstep(box["tp"][1], b)[0]))
+    prof = profile_decode_step(lambda: box["tp"].__setitem__(1, tstep(box["tp"][1], b)[0]),
+                               host=False)
     p50 = {k: float(np.percentile(v, 50)) for k, v in ms.items()}
     out = dict(model=cfg.name, card=card, mesh=list(TT_MESH), compute_dtype="bfloat16",
                batch=TT_BATCH, seq=TT_TIME_SEQ, n_micro=TT_MICRO, turns="one, tp x 3",
