@@ -5,7 +5,11 @@
 them, here on CPU profiles of a decode step and of a MoE training step
 (forward and autograd's backward thread).  ``tp_witness`` holds a float32
 tensor-parallel lockstep run to what explains its gap; its three refusals
-are driven with made-up pass reports.
+are driven with made-up pass reports.  ``LayerTrace(impose=True)``, which
+phases 37 and 38 use, gives the tensor-parallel pass the unsharded pass's
+expert selection and gate values bit for bit while the router's gradient
+still flows through the tensor-parallel side's own gates (phase 38b's
+``tt_grads`` on deepseek SMOKE, a local (1, 4) mesh on the CPU).
 """
 
 import importlib
@@ -110,3 +114,28 @@ def test_tp_witness(case, passes, logits, error):
     else:
         with pytest.raises(AssertionError, match=error):
             cs.tp_witness(out, case)
+
+
+def test_layer_trace_imposes_unsharded_gates_and_keeps_the_router_gradient(monkeypatch):
+    import dataclasses
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "TT_BATCH", 4)
+    cpu = torch.device("cpu")
+    base = deepseek_moe_16b.SMOKE
+    cfg = dataclasses.replace(base, remat=True,
+                              moe=dataclasses.replace(base.moe, ep_shard_map=True))
+    tp, one, tpl, batches = cs.tt_setup(cpu, cfg, 16, 1)
+    params = transformer.init_params(torch.Generator().manual_seed(1), cfg)
+    free = cs.tt_grads(tp, cfg, one, tpl, params, batches[0])
+    trace = cs.LayerTrace(impose=True)
+    held = cs.tt_grads(tp, cfg, one, tpl, params, batches[0], trace)
+    routes = trace.routes
+    assert len(routes["u"]) == len(routes["t"]) >= cfg.n_scan
+    for (_, gu, su), (_, gt, st) in zip(routes["u"], routes["t"]):
+        assert torch.equal(su, st) and torch.equal(gu, gt)
+    assert free["ok"] and held["ok"], (free, held)
+    # the router's gradient is there on the imposed run, and matches
+    assert held["grad_rel_diff"]["['blocks']/['moe']/['router']"] <= cs.TT_GRAD_TOL
+    report = trace.report(cfg)
+    assert report["flips"] == [] and len(report["gaps"]) >= cfg.n_layers
