@@ -314,10 +314,13 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
     every expert) stand in for ``x @ params["router"]`` where the router is
     split over the shards and its logits were gathered.
 
-    ``fabric`` (the 'model' group of a process-group mesh) makes the
-    tokens and gates the experts read ``copy_to`` it: under autograd each
-    rank's part of their gradient, from its own experts, is all-reduced
-    over the group, so the router and the layers below see the whole."""
+    ``fabric`` (the 'model' group of a process-group mesh) makes the gates
+    the experts read ``copy_to`` it: under autograd each rank's part of
+    their gradient, from its own experts, is all-reduced over the group,
+    so the router sees the whole.  The tokens ``x`` are the caller's to put
+    under ``copy_to``: with ``logits`` they are read in part by the router's
+    block too (and by the shared experts), and one all-reduce sums all of
+    it."""
     t, d = x.shape
     k = cfg.top_k
     cd, dev = x.dtype, x.device
@@ -329,7 +332,7 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
     aux = load_balance_aux(probs, sel, cfg)
 
     if fabric is not None:
-        x, gate = copy_to(fabric, x), copy_to(fabric, gate)
+        gate = copy_to(fabric, gate)
     order, dest_g, keep, cap = dispatch(sel, t, cfg)
     st = order // k
     sg = gate.reshape(-1)[order]
@@ -379,8 +382,8 @@ def moe_ffn_sharded(
     process-group mesh ``x`` is this rank's data block and the sum is the
     'model' group's all-reduce.  Autograd runs through both forms: over a
     process group the partials' sum hands its gradient to every rank
-    (``reduce_from``), the experts' inputs all-reduce theirs over 'model'
-    (``ep_partials``), and the data ranks' aux mean all-reduces its own,
+    (``reduce_from``), the experts' tokens and gates all-reduce theirs over
+    'model' (``copy_to``), and the data ranks' aux mean all-reduces its own,
     so each rank's grads are those of its share of the global loss (the
     form ``train_loop.jit_train_step`` sums over the data axes)."""
     e_pad = cfg.n_experts_padded
@@ -404,8 +407,11 @@ def moe_ffn_sharded(
             auxes.append(aux)
         out, aux = torch.cat(outs), torch.stack(auxes)
     else:
-        partial, aux = ep_partials(x, params, cfg, model.shard_ids, e_loc,
-                                   fabric=model)
+        # the whole router reads x on every rank; the experts' part of its
+        # gradient is each rank's own
+        logits = x.float() @ params["router"].float()
+        partial, aux = ep_partials(copy_to(model, x), params, cfg, model.shard_ids, e_loc,
+                                   fabric=model, logits=logits)
         out, aux = reduce_from(model, partial), aux[None]
     if d_axes:      # pmean: the sum over the data shards over their count
         aux = reduce_from(mesh.fabric(d_axes), aux, grad="psum") / torch.tensor(

@@ -45,7 +45,8 @@ Differences from the reference, none of which changes a value:
     ``w_gate`` / ``w_up`` (and the shared experts') on 'mlp', row-parallel
     ``w_down`` and one sum over 'model'; the routed experts of the shard
     only (``moe.ep_partials``), the router's logits gathered over 'model'
-    before the exact top-k; a vocab-parallel lookup (each shard gathers its
+    before the exact top-k, their partials and the shared experts' added
+    before one sum; a vocab-parallel lookup (each shard gathers its
     rows, one sum, then the reference's wrap and NaN rows) and head (each
     shard its columns, the pad vocabulary masked by global column, the
     logits gathered); in prefill the attention heads on 'model' (``wq`` /
@@ -788,29 +789,35 @@ def _logits_tp(params, x_last: torch.Tensor, cfg: LMConfig, tp, top) -> torch.Te
     return whole.permute(1, 0, 2).reshape(x_last.shape[0], tp.n * cols)
 
 
-def _mlp_tp(h: torch.Tensor, p, names, cfg: LMConfig, tp, lg) -> torch.Tensor:
+def _mlp_parts(h: torch.Tensor, p, names, cfg: LMConfig, tp, lg, copy: bool = True
+               ) -> Tuple[torch.Tensor, bool]:
     """SwiGLU with column-parallel gate / up and a row-parallel down
-    projection: each shard's partial output, one sum over 'model' (under
-    autograd the input's gradient is summed over 'model' too)."""
+    projection: the local shards' partial outputs ``(S_l, ..., d)``, to be
+    summed over 'model', and whether the leaves are split (else the one
+    part is the whole).  Under autograd a split product's input has its
+    gradient summed over 'model' (``copy_to``; ``copy=False``: ``h`` is
+    under it already)."""
     cd = cfg.compute_dtype
     wg, split = tp.shards(p[names[0]], lg[names[0]])
     wu, _ = tp.shards(p[names[1]], lg[names[1]])
     wd, _ = tp.shards(p[names[2]], lg[names[2]])
-    if split:
+    if split and copy:
         h = tp.copy(h)
     parts = torch.stack([layers.swiglu(h @ wg[j].to(cd), h @ wu[j].to(cd)) @ wd[j].to(cd)
                          for j in range(wg.shape[0])])
-    return tp.reduce(parts, split)
+    return parts, split
 
 
-def _moe_tp(flat: torch.Tensor, p, cfg: LMConfig, tp, lg) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_tp(xr: torch.Tensor, p, cfg: LMConfig, tp, lg) -> Tuple[torch.Tensor, torch.Tensor]:
     """The routed experts over 'model' with the shard's own experts only:
     the router's logits gathered from its expert blocks (``gather_from``),
     the exact top-k of ``moe.route`` on every shard alike, ``ep_partials``
-    over the local shards' experts, one sum over 'model'; ``(out, aux)``,
-    the aux alike on every model shard.  The capacity is ``capacity(t)``
-    of this rank's tokens.  Under autograd over a process group the
-    tokens' and gates' gradients are summed over 'model' (``copy_to``)."""
+    over the local shards' experts; ``(partials (S_l, t, d), aux)``, the
+    partials to be summed over 'model' and the aux alike on every model
+    shard.  The capacity is ``capacity(t)`` of this rank's tokens.  The
+    tokens ``xr`` are under ``copy_to`` (``_ffn_tp``), and under autograd
+    over a process group the gates' gradients are summed over 'model'
+    too."""
     mcfg = cfg.moe
     router, split = tp.shards(p["router"], lg["router"])
     experts = {n: tp.shards(p[n], lg[n]) for n in ("w_gate", "w_up", "w_down")}
@@ -823,30 +830,35 @@ def _moe_tp(flat: torch.Tensor, p, cfg: LMConfig, tp, lg) -> Tuple[torch.Tensor,
             "a MoE block without ep_shard_map over several data ranks: routing over "
             "the global batch is not ported (see ROADMAP.md, Queue 1, 'Routing over "
             "the global batch')")
-    xr = tp.copy(flat)                  # (float32 a shard at a time: no copy kept)
     logits = torch.stack([xr.float() @ r.float() for r in router])      # (S_l, t, E/n)
-    logits = gather_from(tp.fabric, logits).permute(1, 0, 2).reshape(flat.shape[0], -1)
+    logits = gather_from(tp.fabric, logits).permute(1, 0, 2).reshape(xr.shape[0], -1)
     e_loc = experts["w_gate"][0].shape[1]
     w = {n: x.flatten(0, 1) for n, (x, _) in experts.items()}
-    shard_ids = torch.tensor(tp.coords, dtype=torch.int32, device=flat.device)
-    partial, aux = ep_partials(flat, w, mcfg, shard_ids, e_loc, fabric=tp.fabric,
-                               logits=logits)
-    return tp.reduce(partial, split), aux
+    shard_ids = torch.tensor(tp.coords, dtype=torch.int32, device=xr.device)
+    return ep_partials(xr, w, mcfg, shard_ids, e_loc, fabric=tp.fabric, logits=logits)
 
 
 def _ffn_tp(p, x: torch.Tensor, cfg: LMConfig, tp, lg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_ffn`` tensor-parallel: ``(x + ffn(x), aux)``."""
+    """``_ffn`` tensor-parallel: ``(x + ffn(x), aux)``.  In a MoE block the
+    router, the routed experts and the shared ones all read the tokens in
+    part: one ``copy_to`` sums the three gradients over 'model', and one
+    sum adds the routed and shared partials over it."""
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None and "moe" in p:
         b, s, d = h.shape
-        flat = h.reshape(b * s, d)
-        out, aux = _moe_tp(flat, p["moe"], cfg, tp, lg["moe"])
+        xr = tp.copy(h.reshape(b * s, d))
+        parts, aux = _moe_tp(xr, p["moe"], cfg, tp, lg["moe"])
         if cfg.moe.n_shared > 0:
-            out = out + _mlp_tp(flat, p["moe"], ("shared_gate", "shared_up", "shared_down"),
-                                cfg, tp, lg["moe"])
-        return x + out.reshape(b, s, d), aux
-    out = _mlp_tp(h, p, ("w_gate", "w_up", "w_down"), cfg, tp, lg)
-    return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
+            shared, split = _mlp_parts(xr, p["moe"], ("shared_gate", "shared_up",
+                                                      "shared_down"), cfg, tp, lg["moe"],
+                                       copy=False)
+            if not split:
+                raise ValueError("a tensor-parallel MoE block places the shared experts' "
+                                 "'mlp' on the model axis")
+            parts = parts + shared
+        return x + tp.reduce(parts, True).reshape(b, s, d), aux
+    parts, split = _mlp_parts(h, p, ("w_gate", "w_up", "w_down"), cfg, tp, lg)
+    return x + tp.reduce(parts, split), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _whole_qkv(p, cfg: LMConfig, tp, lg, with_q: bool) -> Dict[str, torch.Tensor]:

@@ -12,11 +12,16 @@ The mesh half resolves shardings from the logical rule table
 the moments sharded over 'data' on top of the parameter sharding) and
 ``batch_shardings``, as ``NamedSharding`` trees whose specs equal the
 reference's.  There is no jit: ``jit_train_step`` returns a step over a
-process-group mesh whose state is DTensors in those placements, through
-the same step body (``TrainStep.run``).  Each step:
+mesh through the same step body (``TrainStep.run``), in one of two forms.
+With ``tp`` (an LM whose loss runs tensor-parallel, ``loss_fn(tp=)``)
+the state is each rank's blocks and nothing is gathered whole
+(``_blocks_step``).  Without it the mesh is a process group's, the state
+DTensors in those placements, and the loss takes whole parameters (the
+recsys models' ``loss_fn(mesh=)``, and an LM's without ``tp``).  Each
+step of that gathered form:
 
   1. gathers every parameter whole (leaves placed on 'model' too: FSDP
-     style; tensor-parallel products are a later item);
+     style);
   2. takes this rank's rows of every microbatch (the batch dim split over
      its sharding's axes, each microbatch split as GSPMD splits it) and
      runs ``accumulated_grads`` on them; the loss must return this rank's
@@ -77,24 +82,22 @@ class TrainStep:
         return (params, opt_state), self.run(params, batch, opt_state.step, update)
 
     def run(self, params: PyTree, batch: PyTree, step: torch.Tensor,
-            update: Callable, reduce: Optional[Callable] = None,
+            update: Callable, loss_reduce: Optional[Callable] = None,
             grad_reduce: Optional[Callable] = None,
             norm_reduce: Optional[optim.SumsReduce] = None):
         """The step body: the mean loss and grads of ``loss_fn`` at
-        ``params`` over ``batch``'s microbatches; ``reduce`` (a sum over
-        the data ranks) on the loss, then ``grad_reduce(i, grad)`` on each
-        grad in the tree's order (``reduce`` itself by default); the grads
-        clipped (by their norm over blocks with ``norm_reduce``) and
-        ``step`` counted (``optim.prepare_step``); then ``update(i, grad,
-        hyper)`` for each leaf ``i``.  Returns ``{"grad_norm", "lr",
-        "loss"}``."""
+        ``params`` over ``batch``'s microbatches; ``loss_reduce`` (a sum
+        over the data ranks) on the loss and ``grad_reduce(i, grad)`` on
+        each grad in the tree's order; the grads clipped (by their norm
+        over blocks with ``norm_reduce``) and ``step`` counted
+        (``optim.prepare_step``); then ``update(i, grad, hyper)`` for each
+        leaf ``i``.  Returns ``{"grad_norm", "lr", "loss"}``."""
         cfg = self.config
         loss, grads = microbatch.accumulated_grads(self.loss_fn, params, batch,
                                                    cfg.n_micro)
         with torch.no_grad():
-            if reduce is not None:
-                loss = reduce(loss)
-                grad_reduce = grad_reduce or (lambda i, g: reduce(g))
+            if loss_reduce is not None:
+                loss = loss_reduce(loss)
             if grad_reduce is not None:
                 grads = tree_lib.unflatten(grads, [
                     grad_reduce(i, g) for i, g in enumerate(tree_lib.leaves(grads))])
@@ -238,9 +241,6 @@ def jit_train_step(
     p_specs = [s.spec for s in tree_lib.leaves(param_sharding)]
     o_sh = tree_lib.leaves(opt_sharding.m)
 
-    def all_reduce(x: torch.Tensor) -> torch.Tensor:
-        return _all_reduce(reduce, x)
-
     def step(state, batch):
         if not donate:
             state = tree_lib.tree_map(lambda x: x.clone(), state)
@@ -256,8 +256,10 @@ def jit_train_step(
             optim.adamw_leaf(region, _local(m[i]), _local(v[i]), g[blk], hyper, cfg.adamw)
             _write_back(p[i], region, p_specs[i], o_sh[i].spec, zero)
 
-        metrics = train_step.run(full, local, _local(opt.step), update,
-                                 reduce=all_reduce if reduce is not None else None)
+        metrics = train_step.run(
+            full, local, _local(opt.step), update,
+            loss_reduce=(lambda x: _all_reduce(reduce, x)) if reduce is not None else None,
+            grad_reduce=(lambda i, g: _all_reduce(reduce, g)) if reduce is not None else None)
         return (params, opt), metrics
 
     return step
@@ -346,7 +348,7 @@ def _blocks_step(train_step: TrainStep, param_sharding, opt_sharding, batch_shar
 
         metrics = train_step.run(
             params, local, opt.step, update,
-            reduce=(lambda x: _all_reduce(reduce, x)) if reduce is not None else None,
+            loss_reduce=(lambda x: _all_reduce(reduce, x)) if reduce is not None else None,
             grad_reduce=grad_reduce, norm_reduce=norm_reduce)
         return (params, opt), metrics
 

@@ -10,6 +10,8 @@ phases 37 and 38 use, gives the tensor-parallel pass the unsharded pass's
 expert selection and gate values bit for bit while the router's gradient
 still flows through the tensor-parallel side's own gates (phase 38b's
 ``tt_grads`` on deepseek SMOKE, a local (1, 4) mesh on the CPU).
+``tt_grads`` holds each leaf to its own largest gradient, so a leaf the
+tensor-parallel side loses fails however small its gradient is.
 """
 
 import importlib
@@ -136,6 +138,35 @@ def test_layer_trace_imposes_unsharded_gates_and_keeps_the_router_gradient(monke
         assert torch.equal(su, st) and torch.equal(gu, gt)
     assert free["ok"] and held["ok"], (free, held)
     # the router's gradient is there on the imposed run, and matches
-    assert held["grad_rel_diff"]["['blocks']/['moe']/['router']"] <= cs.TT_GRAD_TOL
+    router = held["grads"]["['blocks']/['moe']/['router']"]
+    assert router["max_abs"] > 0 and router["rel"] <= cs.TT_GRAD_TOL
     report = trace.report(cfg)
     assert report["flips"] == [] and len(report["gaps"]) >= cfg.n_layers
+
+
+def test_tt_grads_holds_each_leaf_to_its_own_largest_gradient(monkeypatch):
+    """A leaf whose gradient the tensor-parallel side loses (``ln1`` read
+    detached, as a missing ``copy_to`` path would lose it) fails
+    ``tt_grads`` whatever that gradient's size."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "TT_BATCH", 4)
+    cpu = torch.device("cpu")
+    cfg = qwen2_5_3b.SMOKE
+    tp, one, tpl, batches = cs.tt_setup(cpu, cfg, 16, 1)
+    params = transformer.init_params(torch.Generator().manual_seed(2), cfg)
+    sound = cs.tt_grads(tp, cfg, one, tpl, params, batches[0])
+    assert sound["ok"], sound
+    whole_qkv = transformer._whole_qkv
+
+    def lose_ln1(*args, **kwargs):
+        w = whole_qkv(*args, **kwargs)
+        return dict(w, ln1=w["ln1"].detach())
+
+    monkeypatch.setattr(transformer, "_whole_qkv", lose_ln1)
+    # the gradient scaled down: the old bound (1e-4 of max(1, largest)) passed a
+    # lost leaf whose gradient stays under 1e-4
+    small = cs.tt_grads(tp, cfg, lambda p, b: one(p, b) * 1e-6,
+                        lambda p, b: tpl(p, b) * 1e-6, params, batches[0])
+    ln1 = small["grads"]["['blocks']/['ln1']"]
+    assert ln1["max_abs"] < 1e-4 and ln1["rel"] == 1.0
+    assert not small["ok"]

@@ -458,15 +458,14 @@ def _only_step_collectives(rec, cfg, rows, n):
     every shard's ``(o, m, l)`` (float32, ``dh + 2`` a head) and, for a MoE
     block, of the router's logits; the logits' all-gather; one sum of the
     ``(rows, d)`` activation (compute dtype, counted twice on the wire) per
-    FFN product (the routed and the shared experts apart) and for the
-    lookup.  No parameter leaf or cache layer is gathered."""
+    FFN (a MoE block's routed and shared partials in the same sum) and for
+    the lookup.  No parameter leaf or cache layer is gathered."""
     d, dh, nh = cfg.d_model, cfg.head_dim, cfg.n_heads
     n_moe = cfg.n_scan if cfg.moe is not None else 0
     experts = cfg.moe.n_experts_padded if n_moe else 0
-    shared = n_moe if n_moe and cfg.moe.n_shared else 0
     gather = 4 * rows * (cfg.n_layers * n * nh * (dh + 2) + cfg.vocab_padded
                          + n_moe * experts)
-    sums = 1 + cfg.n_layers + shared
+    sums = 1 + cfg.n_layers
     assert set(rec["coll_by_axis"]) == {"model"}
     assert rec["collectives"]["all-gather"] == gather
     assert rec["collectives"]["all-reduce"] == 2 * sums * rows * d * 2      # bf16
