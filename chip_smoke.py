@@ -488,6 +488,38 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              its all-gathers over 'model' only the MoE router's logits
              (none in a dense model: no parameter leaf), its three terms
              beside PR 28's.  The phase's seconds.
+39. global_route after phase 38, nothing resident: MoE routing over the
+             global batch across data ranks (moe.moe_ffn_global, the
+             reference's GSPMD moe_ffn without ep_shard_map), on
+             deepseek_moe_16b.FULL at full width in float32 without
+             ep_shard_map, its depth cut as 38b's (dense0 + 3 MoE
+             layers).  (a) One microbatch of 4 x 256 tokens (drawn from
+             256 ids: skewed, so that the cut binds) through
+             transformer.forward and loss_fn with mesh= a local
+             ("data", "model") mesh of (2, 1) and of (4, 1) (the data
+             blocks one after another over a LocalFabric), held to the
+             one device's forward / loss_fn of the whole batch: hidden
+             states within 2e-6 times max(1, |one device's|), the loss
+             within 1e-6 relative, every leaf's gradient within 1e-4 of its
+             own largest |gradient| (each leaf's printed in the
+             global_route_grads lines).  (b) decode.generate on a
+             128-token prompt at batch 4 with the (2, 1) mesh: the prefill
+             and 8 greedy decode steps (decode_attention launched, the
+             phase's counts) give the one device's tokens.  (c) The
+             witness line: each MoE layer's assignments kept by the
+             global cut and by per-rank cuts of 2 and 4 blocks
+             (moe.kept_assignments), the experts past the global
+             capacity; the cuts must keep different sets.  (d) Two gloo
+             processes on the card, started with the phase, probe an
+             all-reduce and an all-gather of CUDA tensors; where the
+             installation runs them, once the parent has freed the card,
+             each runs forward and loss_fn with mesh= a (2, 1)
+             process-group mesh on its rows and holds them to the one
+             device's whole batch (hidden rows, the ranks' summed loss,
+             the gradients of the routers and norms summed over the
+             ranks); where it does not, the line says so and nothing
+             stands in for it.  The phase's seconds and peak GB beside the
+             card's name and power limit.
 
 Launch counts are reset just before and read just after each path that
 is driven (phases 2, 4, 4b and its sharded batch, 5c, 6, 7, 9, 10, 12,
@@ -496,8 +528,8 @@ models launch no hand kernel, 30 and 31, 33-34, whose training path
 reaches none, 35's expert-parallel decode paths, 36's two real cells:
 walk_steps_fused from the replicated Pixie cell, decode_attention_partial
 from the decode cell (the dry run launches nothing), 37's
-tensor-parallel steps, each reset and read around the step, and 38's
-training, which reaches none); the kernels
+tensor-parallel steps, each reset and read around the step, 38's
+training, which reaches none, and 39's split prefill and decode); the kernels
 line sums them, and every one of its ten kernels (the eight TPU kernels',
 decode_attention's partial form and walk_bits) must have launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
@@ -5884,6 +5916,328 @@ def tp_train_phase(dev, smollm, deepseek) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 39. MoE routing over the global batch across data ranks
+# ---------------------------------------------------------------------------
+
+GR_BLOCKS = (2, 4)          # (a): the tokens in 2 and in 4 data blocks
+GR_BATCH, GR_SEQ = 4, 256   # (a): one microbatch
+GR_IDS = 256                # the tokens' ids: a skewed draw, so that the cut binds
+GR_PROMPT = 128             # (b): batch GR_BATCH split 2 ways
+GR_DECODE = 8               # (b): greedy decode steps after the prefill's token
+GR_HIDDEN_TOL = 2e-6        # |hidden difference| over max(1, |one device's|)
+GR_LOSS_TOL = 1e-6          # |loss difference| over |loss|
+GR_GRAD_TOL = 1e-4          # a leaf's |gradient difference| over its own largest (phase 38)
+# a gloo rank's hidden rows against the one device's: its dense products run
+# on half the rows, where cuBLAS may pick another kernel (another summation
+# order) than for the whole batch; phase 37's bound on reordered products
+GR_RANK_HIDDEN_TOL = TP_GAP_TOL
+GR_RANKS = 2                # gloo processes on the one card
+GR_GLOO_LEAVES = ("blocks/moe/router", "blocks/ln1", "blocks/ln2", "final_norm")
+GR_WAIT_S = 300.0
+
+
+def gr_config(deepseek):
+    """deepseek-moe-16b FULL in float32 without ``ep_shard_map``, its depth
+    cut as phase 38b cuts it (dense0 + 3 MoE layers)."""
+    import dataclasses as dc
+
+    import torch
+
+    cfg = dc.replace(deepseek, compute_dtype=torch.float32,
+                     moe=dc.replace(deepseek.moe, ep_shard_map=False))
+    return tt_depth(cfg)
+
+
+def gr_batch(dev, cfg, seed: int = SEED + 39) -> dict:
+    """(a)'s microbatch: GR_BATCH x GR_SEQ tokens drawn from GR_IDS ids,
+    the next token its label, the last position masked."""
+    import torch
+
+    tokens = torch.randint(0, GR_IDS, (GR_BATCH, GR_SEQ), dtype=torch.int32,
+                           generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    mask = torch.ones((GR_BATCH, GR_SEQ), dtype=torch.float32, device=dev)
+    mask[:, -1] = 0.0
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1), "mask": mask}
+
+
+def gr_params(dev, cfg):
+    import torch
+    from repro_torch.models import transformer
+
+    return transformer.init_params(torch.Generator(device=dev).manual_seed(SEED + 39), cfg)
+
+
+def gr_witness(cfg, sels: list) -> list:
+    """(c): each MoE layer's kept assignments under the global cut and
+    under per-rank cuts of GR_BLOCKS blocks (``moe.kept_assignments``),
+    the experts past the global capacity and the assignments the cuts
+    keep differently."""
+    from repro_torch.models import moe
+
+    rows = []
+    for i, sel in enumerate(sels):
+        whole = moe.kept_assignments(sel, cfg.moe)
+        counts = sel.reshape(-1).long().bincount(minlength=cfg.moe.n_experts_padded)
+        row = dict(layer=cfg.n_layers - cfg.n_scan + i, assignments=sel.numel(),
+                   capacity=cfg.moe.capacity(sel.shape[0]),
+                   experts_over_capacity=int((counts > cfg.moe.capacity(sel.shape[0])).sum()),
+                   kept_global=int(whole.sum()))
+        for n in GR_BLOCKS:
+            split = moe.kept_assignments(sel, cfg.moe, n)
+            row[f"kept_per_rank_{n}"] = int(split.sum())
+            row[f"differ_{n}"] = int((whole != split).sum())
+        rows.append(row)
+    for n in GR_BLOCKS:
+        if not any(r[f"differ_{n}"] for r in rows):
+            raise AssertionError(f"global_route: the global cut and {n} per-rank cuts keep "
+                                 f"the same assignments: {rows}")
+    if not any(r["kept_global"] < r["assignments"] for r in rows):
+        raise AssertionError(f"global_route: the global cut drops nothing: {rows}")
+    return rows
+
+
+def gr_grads(loss, leaves) -> list:
+    import torch
+
+    return [g.detach() for g in torch.autograd.grad(loss, leaves)]
+
+
+def gr_compare_grads(names, got, want) -> dict:
+    out = {}
+    for n, a, b in zip(names, got, want):
+        diff, top = float((a - b).abs().max()), float(b.abs().max())
+        out[n] = dict(max_diff=diff, max_abs=top,
+                      rel=diff / top if top > 0 else (0.0 if diff == 0 else float("inf")))
+    return out
+
+
+_GR_RANK = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.global_route_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+"""
+
+
+def global_route_rank(rank: int, work: str, device: str, config: str) -> None:
+    """One of phase 39's GR_RANKS gloo processes on the one card: the
+    collectives the route needs (an all-reduce and an all-gather of CUDA
+    tensors) probed, then, once the parent has freed the card (its ``go``
+    file), the deepseek model of (a) through ``transformer.forward`` and
+    ``loss_fn`` with ``mesh=`` a (2, 1) process-group mesh on this rank's
+    rows, held to the one device's whole batch, which each rank computes
+    too: its hidden rows, the loss (the ranks' shares summed), and the
+    gradients of GR_GLOO_LEAVES (summed over the ranks; the router's reads
+    every rank's probabilities through the global aux).  ``config`` names
+    the deepseek config (``FULL``; ``SMOKE`` in a rehearsal on the CPU,
+    ``device`` "cpu")."""
+    import datetime
+
+    import torch
+    import torch.distributed as tdist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.training import tree as tree_lib
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    res = {"rank": rank}
+    tdist.init_process_group("gloo", init_method=f"file://{work}/store", world_size=GR_RANKS,
+                             rank=rank, timeout=datetime.timedelta(seconds=120))
+    try:
+        x = torch.full((3,), float(rank + 1), device=dev)
+        tdist.all_reduce(x)
+        y = torch.empty(GR_RANKS * 2, dtype=torch.long, device=dev)
+        tdist.all_gather_into_tensor(y, torch.full((2,), rank, dtype=torch.long, device=dev))
+        res["probe"] = dict(all_reduce=x.tolist(), all_gather=y.tolist())
+        res["gloo_cuda"] = (x.tolist() == [3.0] * 3 and y.tolist() == [0, 0, 1, 1])
+    except Exception as e:        # the installation's gloo takes no CUDA tensors
+        res["gloo_cuda"], res["error"] = False, repr(e)[:500]
+    if res["gloo_cuda"]:
+        go = Path(work) / "go"
+        t = time.perf_counter()
+        while not go.exists():
+            if time.perf_counter() - t > GR_WAIT_S:
+                raise TimeoutError("phase 39's parent never freed the card")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        assert_fp32_matmuls()
+        cfg, _ = gr_config(getattr(deepseek_moe_16b, config))
+        params = gr_params(dev, cfg)
+        b = gr_batch(dev, cfg)
+        mesh = mesh_lib.process_group_mesh((GR_RANKS, 1), ("data", "model"), device=dev)
+        data = mesh.fabric("data")
+        rows = slice(rank * GR_BATCH // GR_RANKS, (rank + 1) * GR_BATCH // GR_RANKS)
+        traces = [LayerTrace(), LayerTrace()]
+        with torch.no_grad(), traces[0]:
+            h0, _ = transformer.forward(params, b["tokens"], cfg)
+        with torch.no_grad(), traces[1]:
+            h1, _ = transformer.forward(params, b["tokens"][rows], cfg, mesh=mesh)
+        scale = max(1.0, float(h0[rows].abs().max()))
+        res["hidden_rel_diff"] = float((h1 - h0[rows]).abs().max()) / scale
+        # each layer's output gap (dense0's has no MoE: the dense products alone)
+        res["layer_gaps"] = [float((u - w[rows]).abs().max()) / max(1.0, float(w.abs().max()))
+                             for w, u in zip(traces[0].x["u"], traces[1].x["u"])]
+        del h0, h1, traces
+        names, leaves = tree_lib.flatten_with_names(params)
+        keep = [i for i, n in enumerate(names)
+                if n.replace("['", "").replace("']", "") in GR_GLOO_LEAVES]
+        sub = [leaves[i] for i in keep]
+        for x_ in sub:
+            x_.requires_grad_(True)
+        l0 = transformer.loss_fn(params, b["tokens"], b["labels"], b["mask"], cfg)
+        g0 = gr_grads(l0, sub)
+        l1 = transformer.loss_fn(params, b["tokens"][rows], b["labels"][rows],
+                                 b["mask"][rows], cfg, mesh=mesh)
+        g1 = [data.psum(g[None]) for g in gr_grads(l1, sub)]
+        loss = float(data.psum(l1.detach()[None]))
+        l0 = float(l0.detach())
+        res.update(loss_one=l0, loss_ranks=loss, loss_rel_diff=abs(loss - l0) / abs(l0),
+                   grads=gr_compare_grads([names[i] for i in keep], g1, g0),
+                   peak_gb=(gb(torch.cuda.max_memory_allocated()) if dev.type == "cuda"
+                            else None),
+                   seconds=time.perf_counter() - t0)
+    tdist.destroy_process_group()
+    with open(Path(work) / f"rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def global_route_phase(dev, deepseek) -> dict:
+    """Phase 39 (the module docstring); returns (b)'s launches."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import deepseek_moe_16b
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+    from repro_torch.serving import decode
+    from repro_torch.training import tree as tree_lib
+
+    t0 = time.perf_counter()
+    card = card_line()
+    work = tempfile.mkdtemp(prefix="chip_smoke_route_")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    here = str(Path(__file__).resolve().parent)
+    config = next(k for k in ("FULL", "SMOKE") if getattr(deepseek_moe_16b, k) is deepseek)
+    ranks = [subprocess.Popen([sys.executable, "-c", _GR_RANK, here, str(r), work, str(dev),
+                               config],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for r in range(GR_RANKS)]
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        assert_fp32_matmuls()
+        cfg, state_gb = gr_config(deepseek)
+        params = gr_params(dev, cfg)
+        b = gr_batch(dev, cfg)
+        # (a) forward, then the loss and every leaf's gradient, per block count
+        trace = LayerTrace()
+        with torch.no_grad(), trace:
+            h0, a0 = transformer.forward(params, b["tokens"], cfg)
+        sels = [r[2] for r in trace.routes["u"]]
+        scale = max(1.0, float(h0.abs().max()))
+        names, leaves = tree_lib.flatten_with_names(params)
+        for x in leaves:
+            x.requires_grad_(True)
+        l0 = transformer.loss_fn(params, b["tokens"], b["labels"], b["mask"], cfg)
+        g0 = gr_grads(l0, leaves)
+        blocks = {}
+        for n in GR_BLOCKS:
+            mesh = mesh_lib.local_mesh((n, 1), ("data", "model"), device=dev)
+            with torch.no_grad():
+                h, a = transformer.forward(params, b["tokens"], cfg, mesh=mesh)
+            l1 = transformer.loss_fn(params, b["tokens"], b["labels"], b["mask"], cfg,
+                                     mesh=mesh)
+            grads = gr_compare_grads(names, gr_grads(l1, leaves), g0)
+            blocks[n] = dict(hidden_rel_diff=float((h - h0).abs().max()) / scale,
+                             aux=float(a), aux_one=float(a0), loss=float(l1.detach()),
+                             loss_one=float(l0.detach()),
+                             loss_rel_diff=abs(float(l1.detach()) - float(l0.detach()))
+                             / abs(float(l0.detach())),
+                             max_grad_rel_diff=max(g["rel"] for g in grads.values()),
+                             grads=grads)
+            del h, l1, grads
+        del h0, g0, l0
+        for x in leaves:
+            x.requires_grad_(False)
+        bad = {n: r for n, r in blocks.items()
+               if r["hidden_rel_diff"] > GR_HIDDEN_TOL or r["loss_rel_diff"] > GR_LOSS_TOL
+               or r["max_grad_rel_diff"] > GR_GRAD_TOL}
+        # (c) the cuts keep different sets at (a)'s batch
+        witness = gr_witness(cfg, sels)
+        # (b) prefill and greedy decode split 2 ways against one device
+        prompt = b["tokens"][:, :GR_PROMPT].contiguous()
+        with torch.no_grad():
+            want = decode.generate(params, prompt, cfg, max_new_tokens=GR_DECODE + 1)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            got = decode.generate(params, prompt, cfg, max_new_tokens=GR_DECODE + 1,
+                                  mesh=mesh_lib.local_mesh((2, 1), ("data", "model"),
+                                                           device=dev))
+            torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        tokens_equal = bool(torch.equal(got, want))
+        peak = gb(torch.cuda.max_memory_allocated())
+        del params, leaves, b, prompt, got, want, trace, sels
+        torch.cuda.empty_cache()
+        # the gloo ranks, once the card is free
+        (Path(work) / "go").touch()
+        outs = [p.communicate(timeout=GR_WAIT_S + 120) for p in ranks]
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(ranks, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"global_route: a gloo rank failed: {err[-3000:]}")
+    gloo = [json.loads((Path(work) / f"rank{r}.json").read_text()) for r in range(GR_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    gloo_ok = all(g["gloo_cuda"] for g in gloo)
+    gloo_bad = [g["rank"] for g in gloo if gloo_ok and (
+        g["hidden_rel_diff"] > GR_RANK_HIDDEN_TOL or g["loss_rel_diff"] > GR_LOSS_TOL
+        or max(v["rel"] for v in g["grads"].values()) > GR_GRAD_TOL)]
+    log("global_route_witness", card=card, model=cfg.name, batch=GR_BATCH, seq=GR_SEQ,
+        token_ids=GR_IDS, layers=witness)
+    log("global_route_gloo", card=card, ranks=GR_RANKS, gloo_cuda=gloo_ok,
+        leaves=list(GR_GLOO_LEAVES), per_rank=gloo,
+        tol=dict(hidden=GR_RANK_HIDDEN_TOL, loss=GR_LOSS_TOL, grad=GR_GRAD_TOL),
+        note=None if gloo_ok else "gloo on this installation takes no CUDA tensors: "
+                                  "the process-group route was not run on the card")
+    out = dict(model=cfg.name, card=card, compute_dtype="float32", ep_shard_map=False,
+               n_layers=cfg.n_layers, moe_layers=cfg.n_scan, params=cfg.physical_param_count(),
+               reckoned_state_gb=state_gb, batch=GR_BATCH, seq=GR_SEQ, token_ids=GR_IDS,
+               cut=f"depth {cfg.n_layers} of 28 (phase 38b's cut); one microbatch of "
+                   f"{GR_BATCH} x {GR_SEQ}",
+               blocks={n: {k: v for k, v in r.items() if k != "grads"}
+                       for n, r in blocks.items()},
+               tol=dict(hidden=GR_HIDDEN_TOL, loss=GR_LOSS_TOL, grad=GR_GRAD_TOL),
+               serve=dict(prompt=GR_PROMPT, batch=GR_BATCH, data_blocks=2,
+                          decode_steps=GR_DECODE, tokens_equal_one_device=tokens_equal,
+                          launches=launches),
+               peak_gb=peak, gloo_peak_gb=[g.get("peak_gb") for g in gloo],
+               seconds=time.perf_counter() - t0)
+    log("global_route", **out)
+    for n, r in blocks.items():
+        log("global_route_grads", card=card, data_blocks=n, grads=r["grads"])
+    if bad:
+        raise AssertionError(f"global_route: the data blocks {sorted(bad)} apart from one "
+                             f"device: {out['blocks']}")
+    if gloo_bad:
+        raise AssertionError(f"global_route: gloo ranks {gloo_bad} apart from one device")
+    if not tokens_equal:
+        raise AssertionError("global_route: the split prefill and decode gave other tokens")
+    if launches["decode_attention"] == 0:
+        raise AssertionError("global_route: the split decode never launched decode_attention")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6325,13 +6679,18 @@ def main() -> int:
     log("tp_train_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
     tt_launches = tp_train_phase(dev, smollm_360m.FULL, deepseek_moe_16b.FULL)
 
+    # 39. MoE routing over the global batch in data blocks, nothing else resident
+    torch.cuda.empty_cache()
+    log("global_route_start", resident_gb=torch.cuda.memory_allocated() / 1e9)
+    gr_launches = global_route_phase(dev, deepseek_moe_16b.FULL)
+
     # the kernels line ---------------------------------------------------------------
     paths = [serve_launches, board_launches, batch_launches["pallas"], ranked_launches,
              open_launches, rlaunches["pallas"], user_launches, chaos_launches,
              *past_cap_launches, *sharded_paths, *lm_paths, *event_paths,
              pruned_launches, fig4_launches, table1_launches, oracle_launches,
              sasrec_launches, recsys_launches, *moe_paths, train_launches, *dist_paths,
-             *launch_paths, *tp_paths, tt_launches]
+             *launch_paths, *tp_paths, tt_launches, gr_launches]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
             *event_rows, sharded_rows[1], partial_row]
     for row in rows:
@@ -6358,7 +6717,7 @@ def main() -> int:
         recsys_full=recsys_launches, moe_granite=moe_paths[:4],
         moe_deepseek=moe_paths[4:], gin_max_rel_diff=gin_errs, train=train_launches,
         dist_ep=dist_paths, launch_cells=launch_paths, tp_serve=tp_paths,
-        tp_train=tt_launches)
+        tp_train=tt_launches, global_route=gr_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

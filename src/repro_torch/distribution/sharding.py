@@ -352,6 +352,13 @@ class TensorParallel:
         self.coords: List[int] = (list(range(self.n)) if self.local
                                   else [mesh.coordinate(self.axis)])
         self.data_ranks = mesh.axis_size(others)
+        self._data_axes = tuple(others)
+
+    @property
+    def data_fabric(self):
+        """The collectives over the data axes (the MoE route over the
+        global batch, the aux's mean over the data ranks)."""
+        return self.mesh.fabric(self._data_axes)
 
     def split(self, name: Optional[str], rules: Optional[RuleSet] = None) -> bool:
         """The logical name is placed on the model axis (alone)."""

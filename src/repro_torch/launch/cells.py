@@ -32,7 +32,11 @@ The per-rank programs:
     ``kv_seq`` block of the cache, and decode attends over that block
     (``decode_attention_partial``) and merges the shards' partial
     softmaxes after one gather of their ``(o, m, l)``;
-  * MoE blocks with ``ep_shard_map``: ``moe_ffn_sharded`` over the mesh;
+  * MoE blocks with ``ep_shard_map``: each shard's own experts routed on
+    this rank's tokens (the reference's ``shard_map``); without it over
+    several data ranks, routing over the global batch
+    (``moe.moe_ffn_global``: each expert's count all-gathered over the
+    data axes, the aux summed over them);
   * GIN: the edges split over every axis, the partial aggregates summed
     (``gnn.forward(edge_fabric=)``), parameters replicated;
   * DLRM: ``embedding.lookup_sharded`` over 'model', the batch over the

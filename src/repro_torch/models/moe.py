@@ -50,7 +50,11 @@ That quirk is the reference's and is kept.
 ``launch.mesh.Mesh``: each 'model' shard keeps its own experts'
 assignments of the routing every shard computes alike, and one sum of
 the ``(t_local, d)`` partial outputs over 'model' combines them (see the
-section below).
+section below).  ``moe_ffn_global`` is ``moe_ffn`` over the tokens of
+several data ranks, the reference's GSPMD semantics without
+``ep_shard_map``: one capacity and one expert order for the global batch,
+each rank's positions offset by the lower ranks' counts (exchanged, not
+the tokens), and the aux from the global means (the last section).
 """
 
 from __future__ import annotations
@@ -175,23 +179,47 @@ def route_logits(logits: torch.Tensor, cfg: MoEConfig):
     return probs, gate, sel
 
 
-def dispatch(sel: torch.Tensor, t: int, cfg: MoEConfig):
-    """The sort-based dispatch plan: ``(order, dest, keep)`` over the
-    ``t * k`` assignments in expert order, and ``cap``.  ``dest`` is each
-    assignment's row of the ``(e_pad * cap + 1)`` buffer, the last row the
-    drop slot."""
-    k, e_pad = cfg.top_k, cfg.n_experts_padded
-    cap = cfg.capacity(t)
+def expert_segments(sel: torch.Tensor, cfg: MoEConfig):
+    """The ``t * k`` assignments sorted by expert id (stably): ``(order,
+    se, seg_start)``, ``se`` the sorted expert ids and ``seg_start`` the
+    first index of each expert's segment (``se`` is sorted: no bincount,
+    whose output size would read the card).  An expert's count is the
+    next segment's start less its own."""
     flat_expert = sel.reshape(-1).long()
     order = torch.argsort(flat_expert, stable=True)
     se = flat_expert[order]
-    # the first index of each expert's segment (se is sorted): no bincount,
-    # whose output size would read the card
-    seg_start = torch.searchsorted(se, torch.arange(e_pad, device=se.device))
+    seg_start = torch.searchsorted(se, torch.arange(cfg.n_experts_padded, device=se.device))
+    return order, se, seg_start
+
+
+def dispatch(sel: torch.Tensor, t: int, cfg: MoEConfig, start: Optional[torch.Tensor] = None,
+             cap: Optional[int] = None, segments=None):
+    """The sort-based dispatch plan: ``(order, dest, keep)`` over the
+    ``t * k`` assignments in expert order, and the buffer's rows an
+    expert.  ``dest`` is each assignment's row of the ``(e_pad * rows +
+    1)`` buffer, the last row the drop slot.
+
+    Alone (no ``start``) the tokens are the whole batch: an assignment's
+    position is its place in its expert's segment, cut at
+    ``cfg.capacity(t)``, which is also the rows an expert.  With
+    ``start`` (``(e_pad,)``: each expert's assignments on the lower data
+    ranks) and ``cap`` (the global batch's capacity) its global position
+    is that place plus ``start``, cut at ``cap``; the buffer holds this
+    rank's assignments only, each at its place in the segment, in
+    ``min(cap, t)`` rows an expert (a rank holds at most ``t`` of an
+    expert's, and keeps fewer than ``cap``).  ``segments`` is
+    ``expert_segments(sel, cfg)`` where the caller has it."""
+    k, e_pad = cfg.top_k, cfg.n_experts_padded
+    order, se, seg_start = segments if segments is not None else expert_segments(sel, cfg)
     pos = torch.arange(t * k, device=se.device) - seg_start[se]
-    keep = pos < cap
-    dest = torch.where(keep, se * cap + pos, e_pad * cap)
-    return order, dest, keep, cap
+    if start is None:
+        rows = cfg.capacity(t)
+        keep = pos < rows
+    else:
+        rows = min(cap, t)
+        keep = pos + start[se] < cap
+    dest = torch.where(keep, se * rows + pos, e_pad * rows)
+    return order, dest, keep, rows
 
 
 def load_balance_aux(probs: torch.Tensor, sel: torch.Tensor,
@@ -304,10 +332,8 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
 
     Each shard sees the full routing: the capacity is ``cfg.capacity(t_loc)``
     and an assignment's position counts every expert's, as the reference's
-    ``local_fn`` counts; a shard keeps its own experts' assignments.  Its
-    partial adds each token's k assignments in ascending expert id, the
-    others' as ``0 * (gate * 0)`` (zero, or NaN for a NaN gate), as the
-    reference adds them from its drop slot.
+    ``local_fn`` counts; a shard keeps its own experts' assignments
+    (``shard_partials``).
 
     The expert leaves hold every expert or just the local shards' (a
     tensor-parallel rank's block); ``logits`` (the router's, float32, over
@@ -321,19 +347,30 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
     under ``copy_to``: with ``logits`` they are read in part by the router's
     block too (and by the shared experts), and one all-reduce sums all of
     it."""
+    if logits is None:
+        logits = x.float() @ params["router"].float()
+    probs, gate, sel = route_logits(logits, cfg)
+    plan = dispatch(sel, x.shape[0], cfg)
+    return (shard_partials(x, gate, sel, params, cfg, shard_ids, e_loc, plan, fabric),
+            load_balance_aux(probs, sel, cfg))
+
+
+def shard_partials(x: torch.Tensor, gate: torch.Tensor, sel: torch.Tensor,
+                   params: Dict[str, torch.Tensor], cfg: MoEConfig, shard_ids: torch.Tensor,
+                   e_loc: int, plan, fabric=None) -> torch.Tensor:
+    """The experts' half of ``ep_partials`` for routed tokens (``gate``,
+    ``sel``) and a ``dispatch`` plan: each local model shard's partial
+    outputs ``(S_local, t, d)``.  A shard keeps its own experts'
+    assignments of the plan; its partial adds each token's k assignments
+    in ascending expert id, the others' as ``0 * (gate * 0)`` (zero, or
+    NaN for a NaN gate), as the reference adds them from its drop slot."""
     t, d = x.shape
     k = cfg.top_k
     cd, dev = x.dtype, x.device
     s_l = shard_ids.numel()
-    if logits is None:
-        probs, gate, sel = route(x, params["router"], cfg)
-    else:
-        probs, gate, sel = route_logits(logits, cfg)
-    aux = load_balance_aux(probs, sel, cfg)
-
     if fabric is not None:
         gate = copy_to(fabric, gate)
-    order, dest_g, keep, cap = dispatch(sel, t, cfg)
+    order, dest_g, keep, cap = plan
     st = order // k
     sg = gate.reshape(-1)[order]
     owner = sel.reshape(-1).long()[order] // e_loc            # (t * k,)
@@ -358,7 +395,7 @@ def ep_partials(x: torch.Tensor, params: Dict[str, torch.Tensor], cfg: MoEConfig
         a = rank[:, j]
         is_own = (own[a][None, :] == shard)[..., None]        # (S_l, t, 1)
         partial = partial + torch.where(is_own, contrib[a][None], other[a][None])
-    return partial, aux
+    return partial
 
 
 def moe_ffn_sharded(
@@ -419,3 +456,105 @@ def moe_ffn_sharded(
     else:
         aux = aux[0]
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Routing over the global batch across data ranks
+#
+# Without ep_shard_map the reference's moe_ffn runs under GSPMD on the
+# tokens of every data rank: one capacity for the global batch, one stable
+# sort of every rank's assignments (rank-major: the flattened (b * s)
+# tokens, the batch split over ('pod', 'data')), and the aux loss from the
+# global means.  Each rank here routes its own tokens and exchanges only
+# each expert's count: an assignment's global position is the lower ranks'
+# count of its expert plus its place among the rank's own.
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn_global(
+    x: torch.Tensor,                 # (t, d): this rank's tokens, or every block's
+    params: Dict[str, torch.Tensor],
+    cfg: MoEConfig,
+    data,
+    shard_ids: Optional[torch.Tensor] = None,
+    e_loc: Optional[int] = None,
+    model=None,
+    logits: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn``'s routed experts over the global batch of the data
+    ranks of ``data`` (a fabric over the data axes, ranks in mesh order,
+    major to minor).  Returns the partial outputs ``(S_local, t, d)`` of
+    the model shards ``shard_ids`` (``ep_partials``' arguments; by default
+    one shard holding every expert) and the global aux loss, the same on
+    every rank.  Shared experts are the caller's to add.
+
+    A ``ProcessGroupFabric`` makes ``x`` this rank's data block; a
+    ``LocalFabric`` makes it every block, split in rows (major to minor)
+    and run one block after another, the exchanges over the stacked
+    blocks (the router's product is one over every block: a row's logits
+    are the whole batch's).  Each block routes its tokens
+    (``route_logits`` of the router's logits, or of the gathered
+    ``logits``), takes each expert's count among its ``t_loc
+    * k`` assignments from its segment starts, and all-gathers the counts
+    over ``data``: an assignment's global position is the lower ranks'
+    count of its expert plus its place among the block's own, cut at
+    ``cfg.capacity(t_loc * n_data)``, and ``dispatch`` sizes the block's
+    buffer at ``min(cap, t_loc)`` rows an expert.  The aux is the
+    reference's ``w * E * sum(mean(one_hot) * mean(probs))`` over every
+    token: each block's one-hot and probability sums, summed over
+    ``data`` (the probabilities' sum hands its gradient back summed too:
+    ``reduce_from(grad="psum")``), each over the global token count.  No
+    gradient reaches the counts or the density.
+
+    ``model`` (the 'model' group of a tensor-parallel rank) puts the gates
+    under ``copy_to``, as ``ep_partials`` does."""
+    e, k = cfg.n_experts, cfg.top_k
+    dev = x.device
+    n_loc, n_data = data.shard_ids.numel(), data.n_shards
+    t = x.shape[0]
+    if t % n_loc:
+        raise ValueError(f"{t} tokens do not split over {n_loc} data blocks")
+    t_loc = t // n_loc
+    cap = cfg.capacity(t_loc * n_data)
+    if shard_ids is None:
+        shard_ids, e_loc = torch.zeros(1, dtype=torch.int32, device=dev), cfg.n_experts_padded
+    if logits is None:      # one product over the local blocks, as ``route`` takes it
+        logits = x.float() @ params["router"].float()
+    blocks = []
+    for j in range(n_loc):
+        probs, gate, sel = route_logits(logits[j * t_loc:(j + 1) * t_loc], cfg)
+        blocks.append((probs, gate, sel, expert_segments(sel, cfg)))
+    end = torch.full((1,), t_loc * k, dtype=torch.long, device=dev)
+    counts = torch.stack([torch.diff(seg[2], append=end) for *_, seg in blocks])
+    every = data.all_gather(counts)                         # (n_data, e_pad)
+    start = (torch.cumsum(every, 0) - every)[data.shard_ids.long()]
+    parts = [shard_partials(x[j * t_loc:(j + 1) * t_loc], gate, sel, params, cfg, shard_ids,
+                            e_loc, dispatch(sel, t_loc, cfg, start[j], cap, seg), model)
+             for j, (_, gate, sel, seg) in enumerate(blocks)]
+    ones = torch.ones(t_loc, dtype=torch.float32, device=dev)
+    density = data.psum(torch.stack([
+        torch.zeros(e, dtype=torch.float32, device=dev).index_add_(0, sel[:, 0].long(), ones)
+        for _, _, sel, _ in blocks]))
+    proxy = reduce_from(data, torch.stack([probs.sum(0) for probs, *_ in blocks]),
+                        grad="psum")
+    n_tok = torch.tensor(float(t_loc * n_data), dtype=torch.float32, device=dev)
+    aux = cfg.router_aux_weight * e * torch.sum((density / n_tok) * (proxy / n_tok))
+    return torch.cat(parts, dim=1), aux
+
+
+def kept_assignments(sel: torch.Tensor, cfg: MoEConfig, n_blocks: int = 1) -> torch.Tensor:
+    """``(t, k)``: which of the tokens' assignments the capacity cut keeps
+    when the ``t`` tokens are split into ``n_blocks`` blocks of rows, each
+    routed and cut alone at ``cfg.capacity(t / n_blocks)`` (the per-rank
+    cut); one block is the global batch's cut.  The tests' and the card's
+    witness that the global cut binds where the per-rank cut keeps
+    another set."""
+    t, k = sel.shape
+    t_loc = t // n_blocks
+    out = []
+    for j in range(n_blocks):
+        order, _, keep, _ = dispatch(sel[j * t_loc:(j + 1) * t_loc], t_loc, cfg)
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        out.append(kept.reshape(t_loc, k))
+    return torch.cat(out)

@@ -21,7 +21,10 @@ Differences from the reference, none of which changes a value:
     ignored;
   * ``mesh`` (a ``launch.mesh.Mesh``) reaches the MoE blocks: with
     ``ep_shard_map`` they take ``moe.moe_ffn_sharded`` (experts owned by
-    'model' shards, the reference's expert-parallel route), and
+    'model' shards, the reference's expert-parallel route); without it
+    over several data ranks ``moe.moe_ffn_global`` (the reference's GSPMD
+    ``moe_ffn``: routing over the global batch, a rank's block on a
+    process group, a local mesh's data blocks one after another); and
     ``loss_fn`` over a process-group mesh returns this rank's share of
     the global loss (``train_loop.jit_train_step``);
   * GQA expands K/V to the padded heads by ``expand`` (a broadcast whose
@@ -102,7 +105,7 @@ from repro_torch.launch.mesh import data_axes
 from repro_torch.models import layers
 from repro_torch.models.embedding import gather_rows, nan_rows, take_rows, wrap_ids
 from repro_torch.models.moe import (
-    MoEConfig, ep_partials, init_moe_params, moe_ffn, moe_ffn_sharded,
+    MoEConfig, ep_partials, init_moe_params, moe_ffn, moe_ffn_global, moe_ffn_sharded,
     moe_param_specs,
 )
 
@@ -465,12 +468,25 @@ def _use_ep(cfg: LMConfig, mesh, n_tokens: int) -> bool:
     return n_tokens % mesh.axis_size([a for a in mesh.axis_names if a != "model"]) == 0
 
 
+def _use_global(cfg: LMConfig, mesh, n_tokens: int) -> bool:
+    """Routing over the global batch in data blocks (``moe.moe_ffn_global``):
+    no ``ep_shard_map`` and a mesh with several data ranks.  A
+    process-group rank holds its own block; a local mesh splits the tokens
+    into its data blocks where they divide (else ``moe_ffn`` of the whole,
+    which is the global batch too)."""
+    if cfg.moe.ep_shard_map or mesh is None:
+        return False
+    n_data = mesh.axis_size(data_axes(mesh))
+    return n_data > 1 and (mesh.kind == "process_group" or n_tokens % n_data == 0)
+
+
 def _ffn(p, x: torch.Tensor, cfg: LMConfig, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The FFN half of a block: ``(x + ffn(x), aux loss)``.  MoE when the
     block holds ``moe`` (the reference's test), on the flattened ``b * s``
-    tokens, whose count sets the capacity (a data shard's count on the
-    expert-parallel route, whose shared experts are dense products
-    outside it)."""
+    tokens, whose count sets the capacity: a data shard's count on the
+    expert-parallel route, the global batch's on the others (``moe_ffn``,
+    or ``moe_ffn_global`` over the data blocks of a mesh).  The shared
+    experts are dense products added after the routed output."""
     cd = cfg.compute_dtype
     h = layers.rmsnorm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe is not None and "moe" in p:
@@ -478,20 +494,17 @@ def _ffn(p, x: torch.Tensor, cfg: LMConfig, mesh=None) -> Tuple[torch.Tensor, to
         flat = h.reshape(b * s, d)
         if _use_ep(cfg, mesh, b * s):
             out, aux = moe_ffn_sharded(flat, p["moe"], cfg.moe, mesh)
-            if cfg.moe.n_shared > 0:
-                gs = flat @ p["moe"]["shared_gate"].to(cd)
-                us = flat @ p["moe"]["shared_up"].to(cd)
-                out = out + layers.swiglu(gs, us) @ p["moe"]["shared_down"].to(cd)
-        else:
-            if (mesh is not None and mesh.kind == "process_group"
-                    and mesh.axis_size(data_axes(mesh)) > 1):
-                # moe_ffn on a rank's rows would cap and average over them,
-                # where the reference routes over the global batch
-                raise NotImplementedError(
-                    "a MoE block without ep_shard_map over a process group with "
-                    "several data ranks: routing over the global batch is not "
-                    "ported (see ROADMAP.md, Queue 1, 'Routing over the global batch')")
+        elif _use_global(cfg, mesh, b * s):
+            parts, aux = moe_ffn_global(flat, p["moe"], cfg.moe,
+                                        mesh.fabric(data_axes(mesh)))
+            out = parts[0]
+        else:           # (moe_ffn adds its shared experts itself)
             out, aux = moe_ffn(flat, p["moe"], cfg.moe)
+            return x + out.reshape(b, s, d), aux
+        if cfg.moe.n_shared > 0:
+            gs = flat @ p["moe"]["shared_gate"].to(cd)
+            us = flat @ p["moe"]["shared_up"].to(cd)
+            out = out + layers.swiglu(gs, us) @ p["moe"]["shared_down"].to(cd)
         return x + out.reshape(b, s, d), aux
     g = h @ p["w_gate"].to(cd)
     u = h @ p["w_up"].to(cd)
@@ -533,8 +546,10 @@ def forward(
     """Token ids -> final hidden states (b, s, d). Returns (hidden, aux_loss),
     the aux loss summed over the stacked blocks.  With ``tp`` the lookup and
     the blocks run tensor-parallel on ``params`` in its form (``_embed_tp``,
-    ``_block_tp``), ``mesh`` is not read, and over a process group the aux is
-    averaged over the data ranks (each routes its own rows)."""
+    ``_block_tp``), ``mesh`` is not read, and over a process group the
+    expert-parallel aux is averaged over the data ranks (each routes its
+    own rows; without ``ep_shard_map`` the aux is the global batch's
+    already)."""
     b, s = tokens.shape
     if tp is None:
         x = _embed(params, tokens, cfg)
@@ -556,10 +571,10 @@ def forward(
     x = layers.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     # the reference sums the stacked blocks' aux, not dense0's (zero) one
     aux = torch.stack(auxes[cfg.n_layers - cfg.n_scan:]).sum()
-    if tp is not None and cfg.moe is not None and not tp.local and tp.data_ranks > 1:
-        aux = reduce_from(tp.mesh.fabric(data_axes(tp.mesh)), aux[None],
-                          grad="psum") / torch.tensor(float(tp.data_ranks),
-                                                      dtype=aux.dtype, device=dev)
+    if (tp is not None and cfg.moe is not None and cfg.moe.ep_shard_map and not tp.local
+            and tp.data_ranks > 1):
+        aux = reduce_from(tp.data_fabric, aux[None], grad="psum") / torch.tensor(
+            float(tp.data_ranks), dtype=aux.dtype, device=dev)
     return x, aux
 
 
@@ -814,27 +829,27 @@ def _moe_tp(xr: torch.Tensor, p, cfg: LMConfig, tp, lg) -> Tuple[torch.Tensor, t
     the exact top-k of ``moe.route`` on every shard alike, ``ep_partials``
     over the local shards' experts; ``(partials (S_l, t, d), aux)``, the
     partials to be summed over 'model' and the aux alike on every model
-    shard.  The capacity is ``capacity(t)`` of this rank's tokens.  The
-    tokens ``xr`` are under ``copy_to`` (``_ffn_tp``), and under autograd
-    over a process group the gates' gradients are summed over 'model'
-    too."""
+    shard.  With ``ep_shard_map`` (or one data rank) the capacity is
+    ``capacity(t)`` of this rank's tokens and the aux its own; without it
+    over several data ranks the tokens are routed over the global batch
+    (``moe_ffn_global``: the counts and the aux sums over the data axes,
+    the aux global).  The tokens ``xr`` are under ``copy_to``
+    (``_ffn_tp``), and under autograd over a process group the gates'
+    gradients are summed over 'model' too."""
     mcfg = cfg.moe
     router, split = tp.shards(p["router"], lg["router"])
     experts = {n: tp.shards(p[n], lg[n]) for n in ("w_gate", "w_up", "w_down")}
     if not (split and all(sp for _, sp in experts.values())):
         raise ValueError("a tensor-parallel MoE block places 'experts' on the model axis")
-    if not mcfg.ep_shard_map and tp.data_ranks > 1:
-        # a rank's rows would be routed, capped and averaged alone, where the
-        # reference routes over the global batch
-        raise NotImplementedError(
-            "a MoE block without ep_shard_map over several data ranks: routing over "
-            "the global batch is not ported (see ROADMAP.md, Queue 1, 'Routing over "
-            "the global batch')")
     logits = torch.stack([xr.float() @ r.float() for r in router])      # (S_l, t, E/n)
     logits = gather_from(tp.fabric, logits).permute(1, 0, 2).reshape(xr.shape[0], -1)
     e_loc = experts["w_gate"][0].shape[1]
     w = {n: x.flatten(0, 1) for n, (x, _) in experts.items()}
     shard_ids = torch.tensor(tp.coords, dtype=torch.int32, device=xr.device)
+    if not mcfg.ep_shard_map and tp.data_ranks > 1:
+        # the reference's GSPMD moe_ffn: one cut and one aux over the data ranks
+        return moe_ffn_global(xr, w, mcfg, tp.data_fabric, shard_ids, e_loc,
+                              model=tp.fabric, logits=logits)
     return ep_partials(xr, w, mcfg, shard_ids, e_loc, fabric=tp.fabric, logits=logits)
 
 

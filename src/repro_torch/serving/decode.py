@@ -41,7 +41,8 @@ def generate(
     """Returns (b, s0 + max_new_tokens) generated token ids.  ``mesh``
     (port only, a ``launch.mesh.Mesh``) reaches the MoE blocks of prefill
     and every decode step: the expert-parallel route of configs with
-    ``ep_shard_map``."""
+    ``ep_shard_map``, routing over the global batch in the mesh's data
+    blocks without it."""
     b, s0 = prompt.shape
     max_seq = s0 + max_new_tokens
     logits, cache = tf.prefill(params, prompt, cfg, max_seq=max_seq, mesh=mesh)

@@ -73,7 +73,11 @@ of the float64 sums.  The distribution layer: expert-parallel decode on a
 local (1, 4) and (2, 2) mesh on the card gives the unsharded greedy
 tokens (the attention kernel launched) and the CPU mesh run's hidden
 states within the same bound; ``compressed_psum`` over four local shards
-gives the CPU port's reduced values and residuals bit for bit.
+gives the CPU port's reduced values and residuals bit for bit.  Routing
+over the global batch (``moe.moe_ffn_global`` over 2 and 4 local data
+blocks) gives ``moe_ffn``'s output, aux and gradients of the whole batch
+on the card within 2e-6 times max(1, magnitude), a NaN token kept to its
+own row.
 """
 
 import dataclasses
@@ -1720,3 +1724,50 @@ def test_compressed_psum_on_card_equals_cpu(cuda_device):
     for k in grads:
         assert torch.equal(red_g[k].cpu(), red_c[k]), k
         assert torch.equal(res_g[k].cpu(), res_c[k]), k
+
+
+@pytest.mark.parametrize("n_blocks", [2, 4])
+@pytest.mark.parametrize("case", ["top2", "top3_padded", "dropping_padded"])
+def test_global_route_local_form_on_card_equals_moe_ffn(cuda_device, case, n_blocks):
+    """``moe.moe_ffn_global`` over ``LocalFabric(n_blocks)`` on the card
+    (routing over the global batch, the data blocks one after another)
+    against ``moe.moe_ffn`` of the whole batch on the card: the output,
+    the aux and the gradients (router, experts, tokens) within 2e-6 times
+    max(1, magnitude), the cut binding (``tests/test_torch_moe_global.py``'s
+    cases); then a NaN token on the last block: its own row NaN, the aux
+    NaN, the other rows within the same bound."""
+    from repro_torch.models import moe
+    from test_torch_moe_global import assert_global_cut_binds, moe_case
+
+    cfg, params, x = moe_case(case, cuda_device)
+    sel = moe.route(x, params["router"], cfg)[2].cpu()
+    assert_global_cut_binds(cfg, [sel], n_blocks, case)
+    outs = []
+    for route in ("one", "blocks"):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        xx = x.clone().requires_grad_(True)
+        if route == "one":
+            y, aux = moe.moe_ffn(xx, p, cfg)
+        else:
+            parts, aux = moe.moe_ffn_global(xx, p, cfg,
+                                            distributed.LocalFabric(n_blocks, cuda_device))
+            y = parts[0]
+        loss = (y * torch.linspace(-1, 1, y.shape[1], device=cuda_device)).square().sum()
+        leaves = [p["router"], p["w_gate"], p["w_up"], p["w_down"], xx]
+        outs.append((y.detach(), aux.detach(),
+                     torch.autograd.grad(loss + 50.0 * aux, leaves)))
+    (y0, a0, g0), (y1, a1, g1) = outs
+    _within(y1, y0, "output")
+    _within(a1, a0, "aux")
+    for n, a, b in zip(("router", "w_gate", "w_up", "w_down", "tokens"), g1, g0):
+        _within(a, b, f"grad {n}")
+    bad = x.shape[0] - x.shape[0] // n_blocks + 3
+    x = x.clone()
+    x[bad, 5] = float("nan")
+    y0, a0 = moe.moe_ffn(x, params, cfg)
+    parts, a1 = moe.moe_ffn_global(x, params, cfg,
+                                   distributed.LocalFabric(n_blocks, cuda_device))
+    assert bool(torch.isnan(a0)) and bool(torch.isnan(a1))
+    assert torch.isnan(parts[0]).any(-1).nonzero().flatten().tolist() == [bad]
+    ok = torch.arange(x.shape[0], device=cuda_device) != bad
+    _within(parts[0][ok], y0[ok], "output beside the NaN token")

@@ -17,6 +17,16 @@ package's GSPMD-sharded serving cells.
     cache of 16 positions in blocks of 4: ``pos`` 0 (blocks 1-3 empty),
     ``pos`` 4 (a block's first position), 9 with the wrapping ids ``-1``,
     ``-V`` and ``-V_pad`` among the tokens, and 15 (the last);
+  * routing over the global batch (``moe.moe_ffn_global`` in
+    ``transformer._moe_tp``): granite SMOKE with its experts padded 8 ->
+    12 and deepseek SMOKE, both without ``ep_shard_map``, on the (2, 2)
+    gloo ranks against the reference's GSPMD cells (``moe_ffn`` on every
+    data rank's tokens: one capacity, one expert order, the aux from the
+    global means); their prompts are skewed (six token ids) so that the
+    prefill's cut binds, which each test asserts (``moe.kept_assignments``:
+    some expert past its global capacity, and the per-rank cuts keep
+    another set); decode routes 4 tokens under a capacity of 8, so there
+    the route keeps every assignment, as the reference's does;
   * the vocab-parallel lookup with the ids ``-1``, ``-V``, ``-V_pad``,
     ``V_pad``, ``V_pad + 3`` and ``-V_pad - 1`` against the reference's
     ``jnp.take`` of a table split over 'model': wrapped rows, NaN rows;
@@ -50,6 +60,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import layers
 from repro_torch.models import transformer as tf
+from test_torch_moe_global import assert_global_cut_binds, routes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 2e-6
@@ -65,6 +76,17 @@ CASES = {
     "deepseek": ("deepseek-moe-16b", {"cache_dtype": "float32",
                                       "moe.ep_shard_map": True}),
 }
+# routing over the global batch: the (2, 2) mesh only (one data rank
+# routes its tokens alone, as the cases above do)
+GLOBAL_CASES = {
+    "granite_global": ("granite-moe-3b-a800m", {"cache_dtype": "float32",
+                                                "moe.pad_experts_to": 12,
+                                                "moe.ep_shard_map": False}),
+    "deepseek_global": ("deepseek-moe-16b", {"cache_dtype": "float32",
+                                             "moe.ep_shard_map": False}),
+}
+ALL_CASES = {**CASES, **GLOBAL_CASES}
+GLOBAL_PROMPT_IDS = 6          # the skewed prompts draw from this many ids
 DECODE_POS = (0, 4, 9, 15)
 WRAP_STEP = 2          # the step whose tokens hold -1, -V and -V_pad
 MODES = ["local_1x4", "gloo_1x4", "gloo_2x2"]
@@ -74,7 +96,7 @@ def _port_config(name):
     """The case's SMOKE config with its overrides, as the port's."""
     import dataclasses
 
-    arch, over = CASES[name]
+    arch, over = ALL_CASES[name]
     cfg = get_arch(arch).smoke_config
     for key, val in over.items():
         if "." in key:
@@ -96,7 +118,7 @@ def _write_inputs(path):
     """Seeded numpy parameters, prompts, caches and tokens for every case,
     flattened by name (``case/params/blocks/wq``)."""
     arrays = {}
-    for ci, name in enumerate(CASES):
+    for ci, name in enumerate(ALL_CASES):
         cfg = _port_config(name)
         rng = np.random.default_rng(100 + ci)
         names, leaves = _flat(tf.abstract_params(cfg))
@@ -109,8 +131,8 @@ def _write_inputs(path):
             else:
                 a = rng.normal(size=shape) / np.sqrt(cfg.d_model)
             arrays[f"{name}/params/{n}"] = a.astype(np.float32)
-        arrays[f"{name}/prompt"] = rng.integers(0, cfg.vocab_size, (BATCH, PROMPT),
-                                                dtype=np.int32)
+        ids = GLOBAL_PROMPT_IDS if name in GLOBAL_CASES else cfg.vocab_size
+        arrays[f"{name}/prompt"] = rng.integers(0, ids, (BATCH, PROMPT), dtype=np.int32)
         shape = (cfg.n_layers, BATCH, CACHE, cfg.n_kv_heads, cfg.head_dim)
         arrays[f"{name}/cache_k"] = rng.normal(size=shape).astype(np.float32)
         arrays[f"{name}/cache_v"] = rng.normal(size=shape).astype(np.float32)
@@ -228,7 +250,8 @@ def job(name, arch, over, mname, shape):
     return {f"{name}/{mname}/{k}": np.asarray(v) for k, v in res.items()}
 
 
-jobs = [(n, a, o, m, s) for n, (a, o) in K["cases"].items() for m, s in K["meshes"].items()]
+jobs = [(n, a, o, m, s) for n, (a, o) in K["cases"].items() for m, s in K["meshes"].items()
+        if m in K["case_meshes"][n]]
 with ThreadPoolExecutor(len(jobs)) as pool:
     parts = list(pool.map(lambda j: job(*j), jobs))
 out = {}
@@ -303,6 +326,8 @@ out = {}
 for mname, shape in K["meshes"].items():
     mesh = M.process_group_mesh(shape, ("data", "model"), device=cpu)
     for name, (arch, over) in K["cases"].items():
+        if mname not in K["case_meshes"][name]:
+            continue
         cfg = config(arch, over)
         spec = dataclasses.replace(get_arch(arch), config=cfg)
         params = unflat(name + "/params/")
@@ -382,12 +407,15 @@ def _local_outputs(inp) -> dict:
 def runs(tmp_path_factory):
     """The reference's subprocess and the four gloo ranks started side by
     side, the local mesh run here meanwhile: ``(reference, {mode:
-    outputs})``, each a dict of arrays by ``case/mesh/output``."""
+    outputs})``, each a dict of arrays by ``case/mesh/output`` (and the
+    inputs under ``"inputs"``)."""
     d = tmp_path_factory.mktemp("tp_serving")
     inp_path = str(d / "inp.npz")
     _write_inputs(inp_path)
-    k = dict(inp=inp_path, cases=CASES, meshes=MESHES, prompt=PROMPT, cache=CACHE,
-             batch=BATCH, pos=list(DECODE_POS))
+    k = dict(inp=inp_path, cases=ALL_CASES, meshes=MESHES, prompt=PROMPT, cache=CACHE,
+             batch=BATCH, pos=list(DECODE_POS),
+             case_meshes={n: ["2x2"] if n in GLOBAL_CASES else list(MESHES)
+                          for n in ALL_CASES})
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     ref_proc = subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(_REFERENCE),
@@ -399,14 +427,15 @@ def runs(tmp_path_factory):
                              env=env) for r in range(4)]
     try:
         with np.load(inp_path) as f:
-            local = _local_outputs(dict(f))
+            inputs = dict(f)
+        local = _local_outputs(inputs)
     finally:
         outs = [p.communicate(timeout=400) for p in [ref_proc] + gloo]
     for p, (_, err) in zip([ref_proc] + gloo, outs):
         assert p.returncode == 0, err[-3000:]
     ref = dict(np.load(d / "ref.npz"))
     gl = dict(np.load(d / "gloo.npz"))
-    port = {"local_1x4": local, "gloo_1x4": gl, "gloo_2x2": gl}
+    port = {"local_1x4": local, "gloo_1x4": gl, "gloo_2x2": gl, "inputs": inputs}
     return ref, port
 
 
@@ -456,6 +485,38 @@ def test_tp_decode_matches_reference(runs, mode, case):
                               ref[key + "/logits"].argmax(-1)), key
         for k in "kv":
             _close(got[f"{key}/{k}"], ref[f"{key}/{k}"], f"{key}/{k}")
+
+
+@pytest.mark.parametrize("case", list(GLOBAL_CASES))
+def test_global_route_serving_matches_reference(runs, case):
+    """Prefill and the four decode steps through routing over the global
+    batch on the (2, 2) gloo ranks against the reference's GSPMD cells;
+    the prompt makes the prefill's cut bind (the port's one-device routing
+    of the whole batch, each MoE layer's selection)."""
+    ref, port = runs
+    cfg = _port_config(case)
+    inp = port["inputs"]
+    whole = _unflat({k: torch.from_numpy(v) for k, v in inp.items()}, case + "/params/")
+    with torch.no_grad():
+        sels = routes(lambda: tf.prefill(whole, torch.from_numpy(inp[case + "/prompt"]), cfg,
+                                          max_seq=PROMPT))
+    kept = assert_global_cut_binds(cfg, sels, MESHES["2x2"][0], case)
+    got = port["gloo_2x2"]
+    key = f"{case}/2x2/prefill"
+    err = _close(got[key + "/logits"], ref[key + "/logits"], key, cfg, logits=True)
+    for k in "kv":
+        _close(got[f"{key}/{k}"], ref[f"{key}/{k}"], f"{key}/{k}")
+    assert np.array_equal(got[key + "/logits"].argmax(-1), ref[key + "/logits"].argmax(-1))
+    for i, pos in enumerate(DECODE_POS):
+        key = f"{case}/2x2/decode{i}"
+        _close(got[key + "/logits"], ref[key + "/logits"], f"{key} pos {pos}", cfg,
+               logits=True)
+        assert np.array_equal(got[key + "/logits"].argmax(-1),
+                              ref[key + "/logits"].argmax(-1)), key
+        for k in "kv":
+            _close(got[f"{key}/{k}"], ref[f"{key}/{k}"], f"{key}/{k}")
+    print(f"{case}: prefill logits {err:.3g} from the reference; kept (global, per rank, "
+          f"of) by MoE layer {kept}")
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -19,6 +19,16 @@ cell.
     (parameters, ``m``, ``v``) after each step; each rank's leaves placed
     on no axis of a rank group equal bit for bit over that group; the
     ZeRO-1 blocks' shapes;
+  * routing over the global batch (``moe.moe_ffn_global`` in
+    ``transformer._moe_tp``): granite SMOKE with its experts padded 8 ->
+    12 and deepseek SMOKE, both without ``ep_shard_map``, on the (2, 2)
+    gloo ranks: the loss and every leaf's gradient of the whole batch
+    (``loss_fn(tp=)`` on each rank's rows, summed over 'data' as the step
+    sums them) against the reference's ``jax.value_and_grad`` of its
+    ``loss_fn`` jitted with the train cell's shardings, and one train
+    cell step's state against the reference's; the tokens are skewed (six
+    ids) so that the cut binds in the gradient's batch and in the step's
+    first microbatch, which the test asserts (``moe.kept_assignments``);
   * ``distributed.gather_from`` and ``fsdp_gather`` over gloo groups, each
     rank's gradient against the local mesh's (a ``LocalFabric``);
   * the vocab-parallel ``layers.chunked_softmax_xent`` (four vocabulary
@@ -52,6 +62,7 @@ from repro_torch.models import layers
 from repro_torch.models import transformer as tf
 from repro_torch.training import optim, train_loop
 from repro_torch.training import tree
+from test_torch_moe_global import assert_global_cut_binds, routes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 2e-6
@@ -67,13 +78,21 @@ CASES = {
     "deepseek": ("deepseek-moe-16b", {"moe.ep_shard_map": True}),
     "minitron": ("minitron-4b", {"pad_heads_to": 8}),
 }
+# routing over the global batch: the (2, 2) mesh only, one step
+GLOBAL_CASES = {
+    "granite_global": ("granite-moe-3b-a800m", {"moe.pad_experts_to": 12,
+                                                "moe.ep_shard_map": False}),
+    "deepseek_global": ("deepseek-moe-16b", {"moe.ep_shard_map": False}),
+}
+ALL_CASES = {**CASES, **GLOBAL_CASES}
+GLOBAL_TOKEN_IDS = 6           # the skewed batches draw their tokens from this many ids
 MODES = ["local_1x4", "gloo_1x4", "gloo_2x2"]
 # the vocab-parallel CE alone: (b, s, d), V, V_pad, chunk
 XENT = dict(b=2, s=12, d=24, v=509, vp=512, chunk=5)
 
 
 def _port_config(name):
-    arch, over = CASES[name]
+    arch, over = ALL_CASES[name]
     cfg = get_arch(arch).smoke_config
     for key, val in over.items():
         if "." in key:
@@ -119,7 +138,7 @@ def _write_inputs(path):
     """Seeded numpy parameters and batches for every case, and the CE's
     inputs, flattened by name (``case/params/blocks/wq``)."""
     arrays = {}
-    for ci, name in enumerate(CASES):
+    for ci, name in enumerate(ALL_CASES):
         cfg = _port_config(name)
         rng = np.random.default_rng(300 + ci)
         names, leaves = _flat(tf.abstract_params(cfg))
@@ -135,8 +154,8 @@ def _write_inputs(path):
                 a = rng.normal(size=shape) / np.sqrt(cfg.d_model)
             arrays[f"{name}/params/{n}"] = a.astype(np.float32)
         for i in range(STEPS):
-            arrays[f"{name}/tokens{i}"] = rng.integers(0, cfg.vocab_size, (BATCH, SEQ),
-                                                       dtype=np.int32)
+            ids = GLOBAL_TOKEN_IDS if name in GLOBAL_CASES else cfg.vocab_size
+            arrays[f"{name}/tokens{i}"] = rng.integers(0, ids, (BATCH, SEQ), dtype=np.int32)
             lab = rng.integers(0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int32)
             lab[0, :3] = (-1, cfg.vocab_size, cfg.vocab_padded)
             arrays[f"{name}/labels{i}"] = lab
@@ -217,6 +236,8 @@ def flat(tree_, prefix):
 
 
 def job(name, arch, over, mname, shape):
+    from repro.models import transformer as T
+
     cfg = config(arch, over)
     spec = dataclasses.replace(registry.get_arch(arch), config=cfg)
     mesh = Mesh(devs.reshape(shape), ("data", "model"))
@@ -229,8 +250,17 @@ def job(name, arch, over, mname, shape):
         c = C.build_cell(spec, cell, mesh, n_micro=K["n_micro"])
         fn = jax.jit(c.fn, in_shardings=c.in_shardings, out_shardings=c.out_shardings,
                      donate_argnums=c.donate)
+        if name in K["grads"]:
+            # the whole first batch as one microbatch, the cell's shardings
+            b0 = {k: jnp.asarray(inp[f"{name}/{k}0"]) for k in ("tokens", "labels", "mask")}
+            vg = jax.jit(jax.value_and_grad(lambda p, b: T.loss_fn(
+                p, b["tokens"], b["labels"], b["mask"], cfg, mesh=mesh)),
+                in_shardings=(c.in_shardings[0][0], c.in_shardings[1]))
+            loss, g = vg(params, b0)
+            res["grad/loss"] = np.asarray(loss)
+            res.update(flat({"params": g}, "grad/"))
         state = jax.device_put((params, optim.init(params)), c.in_shardings[0])
-        for i in range(K["steps"]):
+        for i in range(K["case_steps"][name]):
             batch = {k: jnp.asarray(inp[f"{name}/{k}{i}"]) for k in ("tokens", "labels", "mask")}
             state, m = fn(state, batch)
             for k in ("loss", "grad_norm"):
@@ -252,7 +282,8 @@ def xent():
             "xent/grad_hidden": np.asarray(gh), "xent/grad_head": np.asarray(gw)}
 
 
-jobs = [(n, a, o, m, s) for n, (a, o) in K["cases"].items() for m, s in K["meshes"].items()]
+jobs = [(n, a, o, m, s) for n, (a, o) in K["cases"].items() for m, s in K["meshes"].items()
+        if m in K["case_meshes"][n]]
 with ThreadPoolExecutor(len(jobs) + 1) as pool:
     xent_part = pool.submit(xent)
     parts = list(pool.map(lambda j: job(*j), jobs)) + [xent_part.result()]
@@ -277,12 +308,15 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 from repro_torch.configs import get_arch
 from repro_torch.core.distributed import fsdp_gather, gather_from
+from repro_torch.distribution import sharding
 from repro_torch.launch import cells as C
 from repro_torch.launch import mesh as M
 from repro_torch.models import layers
+from repro_torch.models import transformer as tf
 from repro_torch.training import optim, tree
 
 rank, init, K = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
+BATCH = K["batch"]
 torch.set_num_threads(1)      # four ranks beside the reference's process
 dist.init_process_group("gloo", init_method=init, world_size=4, rank=rank)
 cpu = torch.device("cpu")
@@ -337,10 +371,31 @@ def replicated_equal(mesh, local, shardings):
     return bad
 
 
+def whole_grads(mesh, cfg, spec, params, shardings, batch):
+    # loss_fn(tp=) on this rank's rows of the whole batch (one microbatch),
+    # each gradient summed over 'data' unless it is split on it (then it came
+    # back reduce-scattered), as the step reduces it; gathered whole
+    tp = sharding.TensorParallel(mesh, C._lm_train_rules(spec))
+    leaves = [x[s.block(x.shape)].clone().requires_grad_(True)
+              for x, s in zip(tree.leaves(params), tree.leaves(shardings))]
+    n, d = mesh.shape["data"], mesh.coordinate("data")
+    rows = slice(d * BATCH // n, (d + 1) * BATCH // n)
+    loss = tf.loss_fn(tree.unflatten(params, leaves), batch["tokens"][rows],
+                      batch["labels"][rows], batch["mask"][rows], cfg, tp=tp)
+    fab = mesh.fabric("data")
+    on_data = lambda spec: any(p == "data" or (isinstance(p, tuple) and "data" in p)
+                               for p in spec)
+    grads = [g if on_data(s.spec) else fab.psum(g.contiguous()[None])
+             for g, s in zip(torch.autograd.grad(loss, leaves), tree.leaves(shardings))]
+    return fab.psum(loss.detach()[None]), gathered(mesh, grads, shardings)
+
+
 out, info = {}, {"replicated_unequal": [], "shapes": {}}
 for mname, shape in K["meshes"].items():
     mesh = M.process_group_mesh(shape, ("data", "model"), device=cpu)
     for name, (arch, over) in K["cases"].items():
+        if mname not in K["case_meshes"][name]:
+            continue
         cfg = config(arch, over)
         spec = dataclasses.replace(get_arch(arch), config=cfg)
         base = next(c for c in spec.shapes if c.kind == "train")
@@ -349,11 +404,16 @@ for mname, shape in K["meshes"].items():
         c = C.build_cell(spec, cell, mesh, n_micro=K["n_micro"])
         params = unflat(name + "/params/")
         first = {k: torch.from_numpy(inp[f"{name}/{k}0"]) for k in ("tokens", "labels", "mask")}
+        if name in K["grads"]:
+            loss, g = whole_grads(mesh, cfg, spec, params, c.in_shardings[0][0], first)
+            out[f"{name}/{mname}/grad/loss"] = loss.numpy()
+            for n, x in zip(tree.flatten_with_names((params,))[0], g):
+                out[f"{name}/{mname}/grad/{n}"] = x.numpy().copy()
         state, _ = C.place(c, ((params, optim.init(params)), first))
         if name == "qwen":
             info["shapes"][mname] = {n: list(x.shape) for n, x in
                                      zip(*tree.flatten_with_names(state))}
-        for i in range(K["steps"]):
+        for i in range(K["case_steps"][name]):
             batch = {k: torch.from_numpy(inp[f"{name}/{k}{i}"])
                      for k in ("tokens", "labels", "mask")}
             state, m = c.fn(state, batch)
@@ -504,8 +564,11 @@ def runs(tmp_path_factory):
     inp_path = str(d / "inp.npz")
     _write_inputs(inp_path)
     _collective_inputs(inp_path)
-    k = dict(inp=inp_path, cases=CASES, meshes=MESHES, seq=SEQ, batch=BATCH,
-             n_micro=N_MICRO, steps=STEPS, chunk=XENT["chunk"], v=XENT["v"])
+    k = dict(inp=inp_path, cases=ALL_CASES, meshes=MESHES, seq=SEQ, batch=BATCH,
+             n_micro=N_MICRO, chunk=XENT["chunk"], v=XENT["v"], grads=list(GLOBAL_CASES),
+             case_meshes={n: ["2x2"] if n in GLOBAL_CASES else list(MESHES)
+                          for n in ALL_CASES},
+             case_steps={n: 1 if n in GLOBAL_CASES else STEPS for n in ALL_CASES})
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     ref_proc = subprocess.Popen(
         [sys.executable, "-c", textwrap.dedent(_REFERENCE),
@@ -517,7 +580,8 @@ def runs(tmp_path_factory):
                              env=env) for r in range(4)]
     try:
         with np.load(inp_path) as f:
-            local = _local_outputs(dict(f))
+            inputs = dict(f)
+        local = _local_outputs(inputs)
     finally:
         outs = [p.communicate(timeout=400) for p in [ref_proc] + gloo]
     for p, (_, err) in zip([ref_proc] + gloo, outs):
@@ -526,7 +590,7 @@ def runs(tmp_path_factory):
     gl = dict(np.load(d / "gloo.npz"))
     with open(str(d / "gloo.npz") + ".json") as f:
         info = json.load(f)
-    port = {"local_1x4": local, "gloo_1x4": gl, "gloo_2x2": gl}
+    port = {"local_1x4": local, "gloo_1x4": gl, "gloo_2x2": gl, "inputs": inputs}
     return ref, port, info
 
 
@@ -569,6 +633,48 @@ def test_tp_train_steps_match_reference(runs, mode, case):
             worst = max(worst, _close(got[f"{key}/{n}"], ref[f"{key}/{_ref_name(n)}"],
                                       f"{key}/{n}"))
     print(f"{mode} {case}: largest |state - reference| {worst:.3g}")
+
+
+def _kept(cfg, params, tokens, n_data: int, what: str) -> list:
+    """The witness on the port's one-device routing of ``tokens``."""
+    with torch.no_grad():
+        sels = routes(lambda: tf.forward(params, torch.from_numpy(tokens), cfg))
+    return assert_global_cut_binds(cfg, sels, n_data, what)
+
+
+@pytest.mark.parametrize("case", list(GLOBAL_CASES))
+def test_global_route_train_matches_reference(runs, case):
+    """Routing over the global batch on the (2, 2) gloo ranks: the whole
+    batch's loss and every leaf's gradient, then one train cell step's
+    state, against the reference's GSPMD ``value_and_grad`` and train
+    cell.  The batch's cut and its first microbatch's bind."""
+    ref, port, _ = runs
+    cfg = _port_config(case)
+    got = port["gloo_2x2"]
+    inp = port["inputs"]
+    params = _unflat({k: torch.from_numpy(v) for k, v in inp.items()}, case + "/params/")
+    n_data = MESHES["2x2"][0]
+    tokens = inp[f"{case}/tokens0"]
+    kept = {"batch": _kept(cfg, params, tokens, n_data, case + " batch"),
+            "micro0": _kept(cfg, params, tokens[:BATCH // N_MICRO], n_data,
+                            case + " microbatch 0")}
+    key = f"{case}/2x2"
+    _close(got[f"{key}/grad/loss"], ref[f"{key}/grad/loss"], f"{key} loss")
+    names = _state_names(cfg)
+    worst = {}
+    for n in names:
+        if n.startswith("[0]/"):
+            worst[n] = _close(got[f"{key}/grad/{n}"], ref[f"{key}/grad/{_ref_name(n)}"],
+                              f"{key} grad {n}")
+    for k in ("loss", "grad_norm"):
+        _close(got[f"{key}/step0/{k}"], ref[f"{key}/step0/{k}"], f"{key}/step0/{k}")
+    for n in names:
+        if not n.endswith(".step"):
+            _close(got[f"{key}/step0/{n}"], ref[f"{key}/step0/{_ref_name(n)}"],
+                   f"{key}/step0/{n}")
+    print(f"{case}: loss {float(got[key + '/grad/loss'])!r} vs "
+          f"{float(ref[key + '/grad/loss'])!r}; largest gradient difference "
+          f"{max(worst.values()):.3g}; kept (global, per rank, of) {kept}")
 
 
 def test_replicated_leaves_equal_bit_for_bit_on_every_rank(runs):
