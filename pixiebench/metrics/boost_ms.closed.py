@@ -1,0 +1,10 @@
+"""Layer ``core/counter.py`` boost_combine, program span: the mean over
+the closed loop's batches (answered before the profiler started) of the
+record's ``pixie.boost`` span, on the device clock.  Moves
+``throughput_qps``."""
+
+from pixiebench import records
+
+
+def read(run):
+    return records.span_ms(run, "pixie.boost")

@@ -37,6 +37,7 @@ import torch
 
 from repro_torch import abstract
 from repro_torch.kernels import ops
+from repro_torch.serving import batch_trace
 
 
 def dense_accumulate(
@@ -212,6 +213,7 @@ def _topk(rows: torch.Tensor, keys: torch.Tensor,
     ties = keys == kth
     need = k - above.sum(-1, keepdim=True)
     take = above | (ties & (torch.cumsum(ties, dim=-1) <= need))
+    batch_trace.host_sync("topk.nonzero")              # sized by the data
     idx = take.nonzero()[:, 1].reshape(-1, k)          # ascending per row
     top, perm = torch.sort(torch.gather(keys, 1, idx), dim=-1, descending=True,
                            stable=True)

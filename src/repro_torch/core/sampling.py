@@ -26,6 +26,7 @@ from typing import Tuple, Union
 import torch
 
 from repro_torch.core import prng
+from repro_torch.serving import batch_trace
 
 IntLike = Union[int, torch.Tensor]
 
@@ -135,6 +136,8 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
 def scaling_factor(degree: torch.Tensor, max_degree: IntLike) -> torch.Tensor:
     """Eq. 1 with C = the max pin degree; degree-0 query pins get 0."""
     deg = degree.float()
+    if not torch.is_tensor(max_degree):
+        batch_trace.host_sync("walk.plan")      # an int copied to the device
     c_lit = torch.clamp(
         torch.as_tensor(max_degree, device=deg.device).float(), min=1.0
     )
@@ -158,6 +161,8 @@ def allocate_steps(
     w = weights.float() * s
     denom = torch.clamp(_sum_last_f32(w), min=1e-9)
     frac = w / denom[..., None]
+    if not torch.is_tensor(n_total):
+        batch_trace.host_sync("walk.plan")
     total = torch.as_tensor(n_total, device=w.device).float()
     if total.dim():
         total = total[..., None]
@@ -176,6 +181,7 @@ def allocate_walkers(
     """
     n_slots = n_q.shape[-1]
     total = torch.clamp(n_q.sum(-1, dtype=torch.int32), min=1)
+    batch_trace.host_sync("walk.plan")          # a float copied to the device
     ratio = torch.tensor(float(n_walkers), device=n_q.device) / total.float()
     ideal = n_q.float() * ratio[..., None]
     base = torch.floor(ideal).to(torch.int32)

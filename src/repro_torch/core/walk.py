@@ -46,6 +46,7 @@ from repro_torch.core import prng, sampling
 from repro_torch.core.graph import PinBoardGraph
 from repro_torch.kernels import ops
 from repro_torch.kernels import walk_step as ws
+from repro_torch.serving import batch_trace
 
 BACKENDS = ("xla", "pallas")
 GATHER_MODES = ("scalar", "dma")
@@ -230,10 +231,20 @@ def _check_feats(feats: torch.Tensor, graph: PinBoardGraph) -> None:
     n_feats = graph.p2b.n_feats
     if abstract.is_fake(feats):
         return              # a dry run's features hold no values to check
-    if feats.numel() and (int(feats.min()) < 0 or int(feats.max()) >= n_feats):
+    if not feats.numel():
+        return
+    batch_trace.host_sync("walk.feat_check", 2)     # the min and the max
+    if int(feats.min()) < 0 or int(feats.max()) >= n_feats:
         raise ValueError(
             f"user features must lie in [0, {n_feats}) for a biased walk"
         )
+
+
+def _any_live(active: torch.Tensor) -> bool:
+    """Whether any query or slot still walks: a host read of the device,
+    before each chunk."""
+    batch_trace.host_sync("walk.live_rows")
+    return bool(active.any())
 
 
 def _walk_chunk(
@@ -362,6 +373,7 @@ def _debit_query_pins(per_slot, safe_q, high, n_v):
     r = torch.arange(rows.shape[0], device=rows.device)
     q = safe_q.reshape(-1).long()
     q_reached = (rows[r, q] >= n_v).to(torch.int32)
+    batch_trace.host_sync("walk.debit")     # the 0 copied to the device
     rows[r, q] = 0
     return high - q_reached
 
@@ -403,7 +415,7 @@ def pixie_random_walk(
     slot_active = plan.valid_q.clone()
     curr = query_of_walker.clone()
     it = 0
-    while it < cfg.max_chunks() and bool(slot_active.any()):
+    while it < cfg.max_chunks() and _any_live(slot_active):
         walker_active = slot_active[slot_of_walker.long()]
         curr2, sev, pev, bev = _walk_chunk(
             graph, curr, query_of_walker, feat, slot_of_walker, key,
@@ -426,6 +438,7 @@ def pixie_random_walk(
             plan.valid_q & (steps_taken < plan.n_q) & (high <= cfg.n_p)
         )
         it += 1
+    batch_trace.count_chunks(it)
     per_slot = counts.view(n_slots, n_pins)
     n_high = _debit_query_pins(per_slot, plan.safe_q, high, cfg.n_v)
     return WalkResult(
@@ -539,7 +552,7 @@ def pixie_walk_events(
     slot_active = plan.valid_q.clone()
     curr = query_of_walker.clone()
     it = 0
-    while it < max_chunks and bool(slot_active.any()):
+    while it < max_chunks and _any_live(slot_active):
         walker_active = slot_active[slot_of_walker.long()]
         curr2, sev, pev, _ = _walk_chunk(
             graph, curr, query_of_walker, feat, slot_of_walker, key,
@@ -711,7 +724,7 @@ def pixie_random_walk_batched(
     row_active = valid_row.clone()
     curr = query_of_walker.clone()
     it = 0
-    while it < cfg.max_chunks() and bool(row_active.any()):
+    while it < cfg.max_chunks() and _any_live(row_active):
         walker_active = row_active[row_of_walker]
         curr2, qev, sev, pev, bev = _walk_chunk_batched(
             graph, curr, query_of_walker, feat_of_walker, slot_of_walker,
@@ -738,6 +751,7 @@ def pixie_random_walk_batched(
         )
         row_active = valid_row & (steps_taken < n_q_row) & (high <= cfg.n_p)
         it += 1
+    batch_trace.count_chunks(it)
     per_slot = counts.view(n_queries, n_slots, n_pins)
     n_high = _debit_query_pins(per_slot, plan.safe_q, high, cfg.n_v)
     return WalkResult(
@@ -753,13 +767,17 @@ def recommend_with_stats_batched(
     graph, query_pins, query_weights, user_feats, keys, cfg, step_budgets=None
 ):
     """Batch-native ``recommend_with_stats``: ``(scores (B, top_k), ids
-    (B, top_k), steps_taken (B, S), n_high (B, S))``."""
-    res = pixie_random_walk_batched(
-        graph, query_pins, query_weights, user_feats, keys, cfg,
-        step_budgets=step_budgets,
-    )
-    boosted = counter_lib.boost_combine(res.counts)
-    scores, ids = counter_lib.topk_dense(boosted, cfg.top_k)
+    (B, top_k), steps_taken (B, S), n_high (B, S))``; the walk, the boost
+    and the top-k are spans of a served batch's record."""
+    with batch_trace.span("pixie.walk"):
+        res = pixie_random_walk_batched(
+            graph, query_pins, query_weights, user_feats, keys, cfg,
+            step_budgets=step_budgets,
+        )
+    with batch_trace.span("pixie.boost"):
+        boosted = counter_lib.boost_combine(res.counts)
+    with batch_trace.span("pixie.topk"):
+        scores, ids = counter_lib.topk_dense(boosted, cfg.top_k)
     return scores, ids, res.steps_taken, res.n_high
 
 

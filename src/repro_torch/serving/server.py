@@ -13,6 +13,10 @@ unsharded part of ``repro/serving/server.py``.
   * dispatch records a CUDA event on the current stream after the serving
     call; ``harvest`` synchronises on it (JAX's async dispatch plus
     ``block_until_ready`` in the reference);
+  * every batch keeps a record (``batch_trace.BatchTrace``): its spans on
+    the device clock and its host waits and walk chunks, which
+    ``harvest`` hangs on each of the batch's results (``QueryResult.trace``)
+    and folds into ``stats``;
   * ``swap_graph`` is the daily reload behind a generation barrier: queued
     requests dispatch on the old graph first, and each result carries the
     generation its batch dispatched under;
@@ -51,10 +55,18 @@ import torch
 
 from repro_torch.core import distributed as dist_lib
 from repro_torch.core import prng, service, walk as walk_lib
+from repro_torch.serving import batch_trace
 from repro_torch.serving.resilience import ResilienceConfig, elastic_step_budget
 
 # the padding lanes' stream: fold_in(server_key, int32 max)
 _PAD_REQ = 2**31 - 1
+
+
+def _h2d(a, dev: torch.device) -> torch.Tensor:
+    """A host array onto the device: a pageable copy, which the host
+    waits for."""
+    batch_trace.host_sync("dispatch.h2d")
+    return torch.as_tensor(a, device=dev)
 
 
 class LatencyRing:
@@ -111,7 +123,9 @@ class ServerStats:
     ``rejected`` breaks the admission rejections down by bucket
     (``n_slots``).  On a sharded replica ``route_dropped`` sums the walkers
     dropped by routing overflow and ``killed`` those lost to dead shards,
-    over every harvested batch."""
+    over every harvested batch.  ``spans`` keeps one ring a span name of
+    ``batch_trace.SPANS``: the span's milliseconds, one a batch that held
+    it."""
 
     capacity: int = 4096
     latencies_ms: LatencyRing = None
@@ -124,6 +138,7 @@ class ServerStats:
     graph_generation: int = 0
     route_dropped: int = 0
     killed: int = 0
+    spans: Dict[str, LatencyRing] = None
 
     def __post_init__(self):
         if self.latencies_ms is None:
@@ -134,6 +149,9 @@ class ServerStats:
             self.compute_ms = LatencyRing(self.capacity)
         if self.rejected is None:
             self.rejected = {}
+        if self.spans is None:
+            self.spans = {name: LatencyRing(self.capacity)
+                          for name in batch_trace.SPANS}
 
     @property
     def rejected_total(self) -> int:
@@ -141,10 +159,13 @@ class ServerStats:
         return sum(self.rejected.values())
 
     def percentile(self, p: float, which: str = "latency") -> float:
+        """``which``: ``"latency"``, ``"wait"``, ``"compute"`` or a span
+        name (``"pixie.walk"``)."""
         ring = {
             "latency": self.latencies_ms,
             "wait": self.wait_ms,
             "compute": self.compute_ms,
+            **self.spans,
         }[which]
         return ring.percentile(p)
 
@@ -154,14 +175,16 @@ class ServerStats:
 
 class QueryResult:
     """Per-query result: unpacks as ``scores, ids = result`` and carries
-    the request id, graph generation, latency split and dispatched Eq. 2
-    budget."""
+    the request id, graph generation, latency split, dispatched Eq. 2
+    budget and its batch's resolved record (``trace``, shared by the
+    batch's results; None on a multi-interest user's merged result, whose
+    lanes may span batches)."""
 
     __slots__ = ("req_id", "scores", "ids", "generation", "wait_ms",
-                 "compute_ms", "latency_ms", "batch_seq", "budget")
+                 "compute_ms", "latency_ms", "batch_seq", "budget", "trace")
 
     def __init__(self, req_id, scores, ids, generation, wait_ms,
-                 compute_ms, batch_seq, budget=0):
+                 compute_ms, batch_seq, budget=0, trace=None):
         self.req_id = req_id
         self.scores = scores
         self.ids = ids
@@ -171,6 +194,7 @@ class QueryResult:
         self.latency_ms = wait_ms + compute_ms
         self.batch_seq = batch_seq
         self.budget = budget
+        self.trace = trace
 
     def __iter__(self):
         return iter((self.scores, self.ids))
@@ -230,6 +254,7 @@ class _InFlight:
     t_dispatch_wall: float            # wall clock, for compute time
     batch_seq: int
     budgets: List[int]
+    trace: batch_trace.BatchTrace
     # sharded replicas: () int32 routing drops and dead-shard kills
     route_dropped: Optional[torch.Tensor] = None
     killed: Optional[torch.Tensor] = None
@@ -538,13 +563,12 @@ class PixieServer:
         keys = torch.stack([e.key for e in entries] + [self._pad_key] * pad)
         dev = self.graph.device
         extra = {}
+        host = {}   # the batch's fifth array: budgets, scenarios or shard liveness
         if self._sharded:
             # shard liveness rides every dispatch as (n_shards,) data
-            extra.update(
-                with_stats=True, fabric=self.fabric, slack=self.slack,
-                shard_dead_at=torch.tensor(self._shard_dead_at, device=dev),
-                return_killed=True,
-            )
+            extra.update(with_stats=True, fabric=self.fabric, slack=self.slack,
+                         return_killed=True)
+            host["shard_dead_at"] = self._shard_dead_at.copy()
             entry_budgets = [self.cfg.n_steps] * n_real
         elif self._takes_budgets:
             rcfg = self.resilience
@@ -557,31 +581,28 @@ class PixieServer:
                     wait_ms = max(0.0, (now - e.t_enqueue) * 1e3)
                     b = elastic_step_budget(b, wait_ms, rcfg)
                 budgets[i] = b
-            extra["step_budgets"] = torch.as_tensor(budgets, device=dev)
+            host["step_budgets"] = budgets
             entry_budgets = [int(budgets[i]) for i in range(n_real)]
         else:
             extra["rank"] = self.ranker
-            extra["scenario"] = torch.as_tensor(scen, device=dev)
+            host["scenario"] = scen
             entry_budgets = [self.cfg.n_steps] * n_real
         t_wall = time.perf_counter()
-        out = service.serve_batch(
-            self.graph,
-            torch.as_tensor(pins, device=dev),
-            torch.as_tensor(weights, device=dev),
-            torch.as_tensor(feats, device=dev),
-            keys.to(dev), self.cfg, **extra,
-        )
+        # the record spans the copies, the serving call and the completion
+        # event it records on leaving (rec.done)
+        with batch_trace.BatchTrace(dev) as rec:
+            out = service.serve_batch(
+                self.graph, _h2d(pins, dev), _h2d(weights, dev),
+                _h2d(feats, dev), _h2d(keys, dev), self.cfg, **extra,
+                **{name: _h2d(a, dev) for name, a in host.items()},
+            )
         scores, ids = out[:2]
         route_dropped, killed = out[4:] if self._sharded else (None, None)
-        done = None
-        if dev.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
         self._inflight.append(_InFlight(
-            entries=entries, scores=scores, ids=ids, done=done,
+            entries=entries, scores=scores, ids=ids, done=rec.done,
             generation=self.stats.graph_generation,
             t_dispatch=now, t_dispatch_wall=t_wall,
-            batch_seq=self._batch_seq, budgets=entry_budgets,
+            batch_seq=self._batch_seq, budgets=entry_budgets, trace=rec,
             route_dropped=route_dropped, killed=killed,
         ))
         self._batch_seq += 1
@@ -622,7 +643,13 @@ class PixieServer:
     def harvest(self) -> List[QueryResult]:
         """Wait for every in-flight batch and account latency per query:
         ``wait = dispatch - enqueue`` (logical clock), ``compute`` = wall
-        time from dispatch to completion, ``latency = wait + compute``.
+        time from the batch's dispatch to the end of this wait on it,
+        ``latency = wait + compute``.  ``compute`` also holds the host time
+        of every batch dispatched after it before this ``harvest`` (in one
+        ``pump``, dispatch blocks the host on the device's work), so the
+        batch's own time is its record's ``pixie.batch`` span.  Each
+        batch's record is resolved after the wait (no further wait) and
+        hung on its results.
 
         A cluster lane parks in its user's assembly; a user whose lanes
         have all returned is emitted as one result merged by
@@ -631,12 +658,19 @@ class PixieServer:
         lane budgets and the generation stamped at ``submit_user``."""
         out: List[QueryResult] = []
         for fl in self._inflight:
+            rec = fl.trace
+            rec.count_sync("harvest.done")
             if fl.done is not None:
                 fl.done.synchronize()
             t_done_wall = time.perf_counter()
             compute_ms = (t_done_wall - fl.t_dispatch_wall) * 1e3
+            rec.resolve()
+            for name, span in rec.spans.items():
+                self.stats.spans[name].append(span.ms)
+            rec.count_sync("harvest.d2h", 2)
             s_np, i_np = fl.scores.cpu().numpy(), fl.ids.cpu().numpy()
             if fl.killed is not None:
+                rec.count_sync("harvest.d2h", 2)
                 self.stats.route_dropped += int(fl.route_dropped)
                 self.stats.killed += int(fl.killed)
             for i, e in enumerate(fl.entries):
@@ -653,7 +687,7 @@ class PixieServer:
                     req_id=e.req_id, scores=s_np[i], ids=i_np[i],
                     generation=fl.generation, wait_ms=wait_ms,
                     compute_ms=compute_ms, batch_seq=fl.batch_seq,
-                    budget=fl.budgets[i],
+                    budget=fl.budgets[i], trace=rec,
                 ))
                 self.stats.queries += 1
                 self.stats.wait_ms.append(wait_ms)

@@ -78,6 +78,13 @@ over the global batch (``moe.moe_ffn_global`` over 2 and 4 local data
 blocks) gives ``moe_ffn``'s output, aux and gradients of the whole batch
 on the card within 2e-6 times max(1, magnitude), a NaN token kept to its
 own row.
+A served batch's record (``serving/batch_trace.py``): under
+``torch.cuda.set_sync_debug_mode("warn")`` the batch warns once for each
+host wait the record counts but ``harvest.done``, an event wait, which
+that mode cannot see; a profiled batch's chrome trace holds each
+``pixie.*`` range once, the walk kernel's launches inside ``pixie.walk``;
+the record's own host cost a batch, timed over 1,000 records, is
+printed (``batch_record_host_us``) and held under 1 ms.
 """
 
 import dataclasses
@@ -1771,3 +1778,114 @@ def test_global_route_local_form_on_card_equals_moe_ffn(cuda_device, case, n_blo
     assert torch.isnan(parts[0]).any(-1).nonzero().flatten().tolist() == [bad]
     ok = torch.arange(x.shape[0], device=cuda_device) != bad
     _within(parts[0][ok], y0[ok], "output beside the NaN token")
+
+
+def _served_batches(graph, slots, n_batches=1):
+    """One warm batch of the related-pins shape ((8, 1)) or the homefeed
+    shape ((1, 8)), then ``n_batches`` more; returns the server and the
+    last batch's answers."""
+    from repro_torch.serving.server import PixieServer
+
+    cfg = walk.WalkConfig(n_steps=2048, n_walkers=64, chunk_steps=8, top_k=20,
+                          n_p=10**6, n_v=3, backend="pallas")
+    server = PixieServer(graph, cfg, buckets=[(8, 1), (1, 8)], seed=3)
+    out = None
+    for _ in range(1 + n_batches):
+        for i in range(8 if slots == 1 else 1):
+            server.submit(list(range(5 + i, 5 + i + slots)), [1.0] * slots,
+                          user_feat=i % 3, now=0.0)
+        server.pump(now=1.0)
+        out = server.harvest()
+    return server, out
+
+
+@pytest.mark.parametrize("slots", [1, 8])
+def test_sync_debug_mode_sees_every_counted_wait_but_the_event(graph, slots):
+    import warnings
+
+    server, _ = _served_batches(graph, slots, n_batches=0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            for i in range(8 if slots == 1 else 1):
+                server.submit(list(range(5 + i, 5 + i + slots)), [1.0] * slots,
+                              user_feat=i % 3, now=0.0)
+            server.pump(now=1.0)
+            out = server.harvest()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    warned = sum("synchronizing CUDA operation" in str(w.message) for w in seen)
+    rec = out[0].trace
+    counted = sum(rec.host_syncs.values())
+    assert rec.chunks == 4 and counted == 18, rec.host_syncs
+    assert warned == counted - rec.host_syncs["harvest.done"]
+
+
+def test_a_profiled_batch_holds_each_range_once_on_the_kernels_clock(graph, tmp_path):
+    import collections
+    import json
+
+    from repro_torch.serving import batch_trace
+
+    server, _ = _served_batches(graph, 1, n_batches=0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(8):
+            server.submit([5 + i], [1.0], user_feat=i % 3, now=0.0)
+        server.pump(now=1.0)
+        out = server.harvest()
+    path = tmp_path / "batch.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    ranges = [e for e in events
+              if e.get("cat") == "user_annotation" and e["name"].startswith("pixie.")]
+    assert collections.Counter(e["name"] for e in ranges) == {
+        name: 1 for name in batch_trace.SPANS}
+    walk_range = next(e for e in ranges if e["name"] == "pixie.walk")
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and "walk_steps_fused" in e["name"]]
+    assert len(kernels) == out[0].trace.chunks == 4
+    launch_at = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    for k in kernels:
+        t = launch_at[k["args"]["correlation"]]
+        assert walk_range["ts"] <= t <= walk_range["ts"] + walk_range["dur"]
+    spans = out[0].trace.spans
+    inner = sum(spans[n].ms for n in ("pixie.walk", "pixie.boost", "pixie.topk"))
+    assert 0.0 < inner <= spans["pixie.batch"].ms
+
+
+def test_the_batch_record_costs_little_host_time(cuda_device):
+    import time
+
+    from repro_torch.serving import batch_trace
+
+    sites = (("dispatch.h2d", 5), ("walk.plan", 2), ("walk.feat_check", 2),
+             ("walk.live_rows", 4), ("walk.debit", 1), ("topk.nonzero", 1))
+    n = 1000
+    records = []
+    t = time.perf_counter()
+    for _ in range(n):
+        with batch_trace.BatchTrace(cuda_device) as rec:
+            for site, k in sites:
+                for _ in range(k):
+                    batch_trace.host_sync(site)
+            for name in ("pixie.walk", "pixie.boost", "pixie.topk"):
+                with batch_trace.span(name):
+                    pass
+            batch_trace.count_chunks(4)
+        records.append(rec)
+    open_s = time.perf_counter() - t
+    torch.cuda.synchronize()        # the server's own wait, not the record's
+    t = time.perf_counter()
+    for rec in records:
+        rec.count_sync("harvest.done")
+        rec.resolve()
+        rec.count_sync("harvest.d2h", 2)
+    us = (open_s + time.perf_counter() - t) / n * 1e6
+    print(f"batch_record_host_us={us:.2f} ({torch.cuda.get_device_name(cuda_device)})")
+    assert all(sum(r.host_syncs.values()) == 18 for r in records)
+    assert us < 1000.0
