@@ -20,7 +20,13 @@ Phases (any failure exits non-zero; nothing is caught and reported ok):
              times printed.  Kernel launch counts are reset before and read
              after this run.  Then one more request under torch.profiler:
              the device's busy and idle share and its time by kernel (the
-             trace goes to chiprun_out/chip_smoke_trace.json).
+             trace goes to chiprun_out/chip_smoke_trace.json).  2b: the
+             top-k's selection kernel (topk_select) against its twin
+             (counter.topk_select_plain) on a request's real boosted
+             counts, its 8 slots as 8 rows of 140M (the related cell's
+             shape) and its 8-slot boost as one row, k = top_k: the same
+             indices bit for bit; timed beside the twin, its byte bound
+             and torch.topk (the kernels line's two topk_select rows).
  3. parity   the same requests through serve_batch with backend="xla" (the
              plain PyTorch twins, on the card): ids, scores, steps_taken and
              n_high must be bit-identical to the kernel path.
@@ -530,8 +536,9 @@ walk_steps_fused from the replicated Pixie cell, decode_attention_partial
 from the decode cell (the dry run launches nothing), 37's
 tensor-parallel steps, each reset and read around the step, 38's
 training, which reaches none, and 39's split prefill and decode); the kernels
-line sums them, and every one of its ten kernels (the eight TPU kernels',
-decode_attention's partial form and walk_bits) must have launched.  The build
+line sums them, and every one of its eleven kernels (the eight TPU kernels',
+decode_attention's partial form, walk_bits and topk_select) must have
+launched.  The build
 fails on a register spill of the walk, hop, word-table, bag or counter
 kernels (ptxas -v).  The profiled
 dense, event-mode and sharded requests (phases 2, 21, 14) must draw no
@@ -1223,6 +1230,35 @@ def check_counter_kernel(name, kernel, plain, n_bins, lanes, kw, replaces,
         replaces=replaces, launches=None, max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
         bound_by="bytes", library_ms=library_ms,
+    )
+
+
+def check_topk_select(keys, k: int, label: str) -> dict:
+    """Phase 2b: the top-k's selection kernel against its twin on the
+    card, the same indices bit for bit; timed beside the twin, its bound
+    (the keys read once) and ``torch.topk`` (no tie rule)."""
+    import torch
+    from repro_torch.core import counter
+    from repro_torch.kernels import topk_select as ts
+
+    kth = torch.topk(keys, k, dim=-1, sorted=True).values[:, -1:]
+    got = ts.topk_select(keys, kth, k)
+    if not torch.equal(got, counter.topk_select_plain(keys, kth, k)):
+        raise AssertionError(f"topk_select differs from its twin at {label}")
+    ms = device_ms(lambda: ts.topk_select(keys, kth, k), 20)
+    plain_ms = cuda_ms(lambda: counter.topk_select_plain(keys, kth, k), 3)
+    library_ms = device_ms(lambda: torch.topk(keys, k, dim=-1, sorted=True), 5)
+    nbytes = keys.numel() * keys.element_size()
+    log("kernel", name="topk_select", shape=label, device_ms=ms, k=k,
+        above_kth=int((keys > kth).sum()), ties_at_kth=int((keys == kth).sum()),
+        bound_bytes=nbytes, torch_topk_ms=library_ms)
+    return dict(
+        name="topk_select", route="cuda", shape=label,
+        source="src/repro_torch/kernels/csrc/topk_select.cu",
+        replaces="none (counter._topk's selection; the reference's top-k is lax.top_k)",
+        launches=None, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=library_ms,
     )
 
 
@@ -6314,7 +6350,13 @@ def main() -> int:
     phase_ms["boost"] = wall_ms(lambda: boosted.setdefault(
         "b", counter_lib.boost_combine(res["w"].counts)))
     phase_ms["topk"] = wall_ms(lambda: counter_lib.topk_dense(boosted["b"], cfg.top_k))
+    # 2b. the selection kernel on these counts: 8 one-slot rows, then one row
+    rows8 = counter_lib.boost_combine(res["w"].counts.reshape(shape.n_slots, 1, -1))
+    topk_rows = [check_topk_select(rows8, cfg.top_k, f"({shape.n_slots}, {graph.n_pins})")]
+    del rows8
+    topk_rows.append(check_topk_select(boosted["b"], cfg.top_k, f"(1, {graph.n_pins})"))
     del res, boosted
+    torch.cuda.empty_cache()
     log("serve", requests=len(results), p50_ms=float(np.percentile(lat, 50)),
         max_ms=float(np.max(lat)), latencies_ms=lat, phase_ms=phase_ms,
         launches=serve_launches,
@@ -6546,8 +6588,9 @@ def main() -> int:
     if any(batch_launches["pallas"][k] == 0 for k in
            ("walk_steps_fused", "visit_counter_update_high", "visit_counter_wide")):
         raise AssertionError(f"batched run missed a kernel: {batch_launches['pallas']}")
-    if any(batch_launches["xla"].values()):
-        raise AssertionError("the plain path launched a kernel")
+    # the top-k's selection is the kernel on any CUDA tensor, on both paths
+    if {k for k, v in batch_launches["xla"].items() if v} != {"topk_select"}:
+        raise AssertionError("the plain path launched a walk kernel")
     for a, b in zip(outs["pallas"], outs["xla"]):
         if not (np.array_equal(a.scores, b.scores) and np.array_equal(a.ids, b.ids)):
             raise AssertionError(f"batched request {a.req_id}: kernel and plain paths differ")
@@ -6692,7 +6735,7 @@ def main() -> int:
              sasrec_launches, recsys_launches, *moe_paths, train_launches, *dist_paths,
              *launch_paths, *tp_paths, tt_launches, gr_launches]
     rows = [walk_row, high_row, wide_row, bag_row, sharded_rows[0], attn_row,
-            *event_rows, sharded_rows[1], partial_row]
+            *event_rows, sharded_rows[1], partial_row, *topk_rows]
     for row in rows:
         row["launches"] = sum(p[row["name"]] for p in paths)
     if bag_row["launches"] == 0 or ranked_launches["embedding_bag"] == 0:

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time design variants of the CUDA kernels on one GPU.
 
-    python3 kernel_sweep.py [wide] [bag] [high] [step]
+    python3 kernel_sweep.py [wide] [bag] [high] [step] [topk]
 
 (no argument: every sweep).  Each variant is the committed source
-(``src/repro_torch/kernels/csrc/visit_counter.cu``, ``embedding_bag.cu`` or
-``walk_step.cu``) with a few lines rewritten, built with nvcc into
+(``src/repro_torch/kernels/csrc/visit_counter.cu``, ``embedding_bag.cu``,
+``walk_step.cu`` or ``topk_select.cu``) with a few lines rewritten, built with nvcc into
 ``build/sweep/`` (one process per variant, all at once) and loaded in
 place of the committed library.  Every variant is held bit for bit
 against the plain twin, then timed with ``chip_smoke.device_ms`` (50
@@ -41,6 +41,22 @@ launches back to back), twice, in turns:
   design's blocks and loads); beside the committed
   launcher (blocks sized to the SM count); back to back and one launch at
   a time with a warm and an evicted L2.
+
+* ``topk``: the top-k's selection (``topk_select.cu``) on keys shaped as
+  the walk's boosted counts (140M float32 a row, 150,000 visited pins a
+  row, counts with heavy ties, k = 1,000) at 8 rows (the related cell's
+  batch) and 1 row (homefeed's): units of 4,096 keys (committed), 1,024
+  and 16,384, and 4 loads in flight a lane in place of 8.  Beside them,
+  with the committed kernel: the selection's twin on the card (the
+  ``cumsum`` and ``nonzero`` path it replaced; host-synchronising, so
+  timed with events around 5 calls), the same selection with the tie
+  mask's ``cumsum`` taken over the rows laid end to end as one
+  (``flat_select``: cub's device-wide scan, each row's offset
+  subtracted), ``torch.topk`` alone, the whole ``counter.topk_dense`` by
+  each route, its peak memory above the keys by each route, and the
+  kernel's byte bound (the keys read once at 3.35 TB/s); then
+  ``counter.topk_total`` at the MoE router's (4,096, 64), k = 6, by each
+  route (events around 50 calls, host time included).
 
 Prints one JSON line per variant, then the card's name and power limit.
 The numbers choose between designs; PERF.md section 6 cites them.
@@ -148,9 +164,17 @@ STEP["block32_plain_load"] = STEP["block32_no_hint"] + [(LDG, "{ return *p; }")]
 # the first design's launch (blocks of 128) and loads
 STEP["block128_plain_load"] = STEP["block128_no_hint"] + [(LDG, "{ return *p; }")]
 
+UNIT = "constexpr int kUnit = 4096;"
+TOPK = {"committed": [],
+        "unit_1024": [(UNIT, "constexpr int kUnit = 1024;")],
+        "unit_16384": [(UNIT, "constexpr int kUnit = 16384;")],
+        "4_loads_in_flight": [("constexpr int kBatch = 8;", "constexpr int kBatch = 4;")]}
+TOPK_PINS, TOPK_VISITED, TOPK_K = 140_000_000, 150_000, 1000
+
 # sweep -> (source, variants)
 SWEEPS = {"wide": ("visit_counter", WIDE), "bag": ("embedding_bag", BAG),
-          "high": ("visit_counter", HIGH), "step": ("walk_step", STEP)}
+          "high": ("visit_counter", HIGH), "step": ("walk_step", STEP),
+          "topk": ("topk_select", TOPK)}
 
 
 def lib_path(sweep: str, name: str) -> Path:
@@ -363,6 +387,116 @@ def sweep_step(dev, gen) -> None:
     del graph
 
 
+def boosted_like(rows: int, dev, gen):
+    """``(rows, 140M)`` float32 zeros with 150,000 visited pins a row at
+    random places, their counts ``floor(e**U(0, 4))``: few high counts and
+    heavy ties below, as the walk's boosted counts."""
+    import torch
+
+    keys = torch.zeros((rows, TOPK_PINS), device=dev)
+    for r in range(rows):
+        at = torch.randint(0, TOPK_PINS, (TOPK_VISITED,), generator=gen, device=dev)
+        keys[r, at] = torch.exp(4 * torch.rand(TOPK_VISITED, generator=gen,
+                                               device=dev)).floor()
+    return keys
+
+
+def flat_select(keys, kth, k: int):
+    """The twin's selection (``counter.topk_select_plain``) with the ties
+    counted by one ``cumsum`` over the rows laid end to end, each row's
+    offset (the ties of the rows before it) subtracted: one row goes
+    through cub's device-wide scan where ``rows`` go one block row each.
+    Its ``nonzero`` still waits on the host."""
+    import torch
+
+    above = keys > kth
+    ties = keys == kth
+    need = k - above.sum(-1, keepdim=True)
+    run = torch.cumsum(ties.reshape(-1), 0).view(ties.shape)
+    before = torch.cat([run.new_zeros((1, 1)), run[:-1, -1:]])
+    take = above | (ties & (run - before <= need))
+    return take.nonzero()[:, 1].reshape(-1, k)
+
+
+def sweep_topk(dev, gen) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.core import counter
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import topk_select as ts
+
+    k = TOPK_K
+
+    def old_route(fn, *args, select=counter.topk_select_plain):
+        """``fn`` with the top-k's selection ``select``: by default the
+        twin, the cumsum path."""
+        real = ops.topk_select
+        ops.topk_select = select
+        try:
+            return fn(*args)
+        finally:
+            ops.topk_select = real
+
+    def peak_gb(fn, base):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+    for rows in (8, 1):
+        keys = boosted_like(rows, dev, gen)
+        kth = torch.topk(keys, k, dim=-1, sorted=True).values[:, -1:]
+        want = counter.topk_select_plain(keys, kth, k)
+        ties = int((keys == kth).sum())
+        bound_ms = keys.numel() * 4 / 3.35e12 * 1e3
+        for rnd in range(2):
+            for name in TOPK:
+                _build._libs["topk_select"] = ctypes.CDLL(str(lib_path("topk", name)))
+                if not torch.equal(ts.topk_select(keys, kth, k), want):
+                    raise AssertionError(f"topk_select {name} differs from its twin")
+                cs.log("sweep", kernel="topk_select", variant=name, round=rnd,
+                       rows=rows, n=TOPK_PINS, k=k, ties_at_kth=ties,
+                       ms=cs.device_ms(lambda: ts.topk_select(keys, kth, k), 20),
+                       bound_ms=bound_ms)
+        _build._libs["topk_select"] = ctypes.CDLL(str(lib_path("topk", "committed")))
+        got, old = counter.topk_dense(keys, k), old_route(counter.topk_dense, keys, k)
+        if not all(torch.equal(a, b) for a, b in zip(got, old)):
+            raise AssertionError("topk_dense differs from the cumsum path")
+        if not torch.equal(flat_select(keys, kth, k), want):
+            raise AssertionError("flat_select differs from the twin")
+        base = torch.cuda.memory_allocated(dev)
+        cs.log("sweep", kernel="topk_select", variant="yardsticks", rows=rows,
+               n=TOPK_PINS, k=k, ties_at_kth=ties, bound_ms=bound_ms,
+               plain_select_ms=cs.cuda_ms(
+                   lambda: counter.topk_select_plain(keys, kth, k), 5),
+               flat_select_ms=cs.cuda_ms(lambda: flat_select(keys, kth, k), 5),
+               torch_topk_ms=cs.device_ms(
+                   lambda: torch.topk(keys, k, dim=-1, sorted=True), 5),
+               topk_dense_ms=cs.device_ms(lambda: counter.topk_dense(keys, k), 5),
+               old_topk_dense_ms=cs.cuda_ms(
+                   lambda: old_route(counter.topk_dense, keys, k), 5),
+               flat_topk_dense_ms=cs.cuda_ms(
+                   lambda: old_route(counter.topk_dense, keys, k, select=flat_select), 5),
+               topk_dense_peak_gb=peak_gb(lambda: counter.topk_dense(keys, k), base),
+               old_topk_dense_peak_gb=peak_gb(
+                   lambda: old_route(counter.topk_dense, keys, k), base),
+               flat_topk_dense_peak_gb=peak_gb(
+                   lambda: old_route(counter.topk_dense, keys, k, select=flat_select), base))
+        del keys, kth, want
+        torch.cuda.empty_cache()
+    # the MoE router's shape: many short rows, host-bound on both routes
+    probs = torch.rand((4096, 64), generator=gen, device=dev).softmax(-1)
+    got, old = counter.topk_total(probs, 6), old_route(counter.topk_total, probs, 6)
+    if not all(torch.equal(a, b) for a, b in zip(got, old)):
+        raise AssertionError("topk_total differs from the cumsum path")
+    cs.log("sweep", kernel="topk_select", variant="moe_router", rows=4096, n=64, k=6,
+           topk_total_ms=cs.cuda_ms(lambda: counter.topk_total(probs, 6), 50),
+           old_topk_total_ms=cs.cuda_ms(
+               lambda: old_route(counter.topk_total, probs, 6), 50))
+
+
 def main(argv) -> int:
     import torch
 
@@ -381,7 +515,8 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     build_variants(_build.CSRC, _build._nvcc(), _build.NVCC_FLAGS, sweeps)
     gen = torch.Generator(device=dev).manual_seed(1)
-    run = dict(wide=sweep_wide, bag=sweep_bag, high=sweep_high, step=sweep_step)
+    run = dict(wide=sweep_wide, bag=sweep_bag, high=sweep_high, step=sweep_step,
+               topk=sweep_topk)
     for sweep in sweeps:
         run[sweep](dev, gen)
         torch.cuda.empty_cache()

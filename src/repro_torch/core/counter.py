@@ -22,11 +22,13 @@ Float parity with the reference:
     slot order (XLA's CPU ``segment_sum`` order), which is also the dense
     booster's order, so event mode and dense mode give the same scores.
 
-Three host reads size work by the data; a dry run (fake tensors,
-``repro_torch/abstract.py``) cannot make them and takes a stated static form: the
-top-k's selection (a ``nonzero``) takes ``torch.topk``'s indices, the
-events' live entries are all ``max_unique`` of them, each may start a
-run, and a pin's chain is ``n_slots`` adds long.
+Two host reads size work by the data; a dry run (fake tensors,
+``repro_torch/abstract.py``) cannot make them and takes a stated static
+form: the events' live entries are all ``max_unique`` of them, each may
+start a run, and a pin's chain is ``n_slots`` adds long.  The top-k's
+selection reads nothing on the host on the card's route
+(``ops.topk_select``), which a dry run takes; off the card its twin,
+``topk_select_plain``, sizes a ``nonzero`` by the data.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import abstract
+from repro_torch.device import on_card
 from repro_torch.kernels import ops
 from repro_torch.serving import batch_trace
 
@@ -198,23 +201,29 @@ def order_keys(x: torch.Tensor) -> torch.Tensor:
     return torch.where(bits < 0, bits ^ mag, bits)
 
 
-def _topk(rows: torch.Tensor, keys: torch.Tensor,
-          k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of each row of ``rows`` by ``keys``, ties to the lower index:
-    the k-th key comes from ``torch.topk``; then every entry strictly above
-    it and the lowest-index entries equal to it, so no full sort of the row."""
-    if abstract.is_fake(keys):
-        # the dry run: the selection below sizes a nonzero by the data;
-        # torch.topk's indices stand in for it, the same (n, k) shapes
-        idx = torch.topk(keys, k, dim=-1, sorted=True).indices
-        return torch.gather(rows, 1, idx), idx
-    kth = torch.topk(keys, k, dim=-1, sorted=True).values[:, -1:]
+def topk_select_plain(keys: torch.Tensor, kth: torch.Tensor, k: int) -> torch.Tensor:
+    """The top-k's selection off the card, and the kernel's oracle:
+    ``(rows, k)`` int64, each row's indices above its k-th key ``kth``
+    ``(rows, 1)`` and the lowest-index ties, ascending.  Its ``nonzero``
+    waits on the host (counted)."""
     above = keys > kth
     ties = keys == kth
     need = k - above.sum(-1, keepdim=True)
     take = above | (ties & (torch.cumsum(ties, dim=-1) <= need))
     batch_trace.host_sync("topk.nonzero")              # sized by the data
-    idx = take.nonzero()[:, 1].reshape(-1, k)          # ascending per row
+    return take.nonzero()[:, 1].reshape(-1, k)         # ascending per row
+
+
+def _topk(rows: torch.Tensor, keys: torch.Tensor,
+          k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of each row of ``rows`` by ``keys``, ties to the lower index:
+    the k-th key comes from ``torch.topk``; then every entry strictly above
+    it and the lowest-index entries equal to it (on the card
+    ``ops.topk_select``, a kernel with no host wait; elsewhere
+    ``topk_select_plain``), so no full sort of the row."""
+    kth = torch.topk(keys, k, dim=-1, sorted=True).values[:, -1:]
+    select = ops.topk_select if on_card(keys) else topk_select_plain
+    idx = select(keys, kth, k)                         # ascending per row
     top, perm = torch.sort(torch.gather(keys, 1, idx), dim=-1, descending=True,
                            stable=True)
     idx = torch.gather(idx, 1, perm)

@@ -40,7 +40,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
-           "decode_attention", "decode_attention_partial", "walk_step", "walk_bits")
+           "decode_attention", "decode_attention_partial", "walk_step", "walk_bits",
+           "topk_select")
 
 launches: Dict[str, int] = {
     "walk_steps_fused": 0,
@@ -53,6 +54,7 @@ launches: Dict[str, int] = {
     "visit_counter": 0,
     "walk_step": 0,
     "walk_bits": 0,
+    "topk_select": 0,
 }
 
 # per library built in this process: ptxas's register and spill lines

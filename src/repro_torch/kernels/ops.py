@@ -20,7 +20,10 @@ ops take it from the walk's.
 The bag ops default to ``use_kernel=True``: the device decides, never the
 walk backend, so both walk backends share one stage 2 on a device and
 ranked serving keeps the walk's bit parity (the reference's rule,
-``repro/kernels/ops.py:334``).
+``repro/kernels/ops.py:334``).  ``topk_select`` (the top-k's selection)
+is the card's route alone: ``counter._topk`` takes it for every top-k on
+the card, the plain walk's included, as every top-k of the reference is
+``lax.top_k``, and its twin ``counter.topk_select_plain`` elsewhere.
 
 The walk dispatchers take the walk's key(s) (``walk_chunk_fused[_batched]``,
 with ``step_base`` and ``chunk_steps``) or the chunk's word table with
@@ -44,6 +47,7 @@ import torch
 from repro_torch.device import on_card
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import embedding_bag as eb
+from repro_torch.kernels import topk_select as ts
 from repro_torch.kernels import visit_counter as vc
 from repro_torch.kernels import walk_step as ws
 
@@ -109,6 +113,14 @@ def visit_counts_update_high(
     return fn(counts, slot_events, pin_events, query_events,
               n_slots=n_slots, n_pins=n_pins, n_v=n_v, n_queries=n_queries,
               high=high)
+
+
+def topk_select(keys: torch.Tensor, kth: torch.Tensor, k: int) -> torch.Tensor:
+    """The exact top-k's selection on the card: ``(rows, k)`` int64, each
+    row's indices above its k-th key ``kth`` ``(rows, 1)`` and the
+    lowest-index ties, ascending; the kernel takes ``keys`` made
+    contiguous and makes no host wait."""
+    return ts.topk_select(keys.contiguous(), kth, k)
 
 
 def walk_step(

@@ -64,8 +64,6 @@ over):
     ``pixie_walk_sharded_batched``): every chunk runs;
   * ``recommend_from_events`` (``core/counter.py``): the live event runs
     are all ``max_unique`` of them, and a pin's chain ``n_slots`` adds;
-  * the exact top-k's selection (``counter._topk``, a ``nonzero``; the
-    MoE router's, the walk's and the rankers'): ``torch.topk``'s indices;
   * ``gnn.segment_sum``'s depth: one ``index_add`` (``models/gnn.py``);
   * the decode step's ``pos`` (an int in ``decode_step``): ``seq_len - 1``,
     the cache's last position, so attention reads the whole cache;

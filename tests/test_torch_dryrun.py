@@ -476,7 +476,9 @@ def test_full_deepseek_decode_cells_fit_a_rank_and_gather_no_leaf(full_cells, sh
     from repro_torch.configs import get_arch
 
     rec = full_cells["deepseek"][shape]
-    assert rec["status"] == "ok" and rec["kernels"] == {"decode_attention_partial": 28}
+    n_moe = get_arch("deepseek-moe-16b").config.n_scan     # one router top-k each
+    assert rec["status"] == "ok" and rec["kernels"] == {"decode_attention_partial": 28,
+                                                        "topk_select": n_moe}
     ma = rec["memory_analysis"]
     assert (ma["argument_size"] + ma["temp_size"]) / 1e9 < 80.0
     rows = 128 // 16 if shape == "decode_32k" else 1
@@ -488,8 +490,9 @@ def test_full_pixie_sharded_cell_counts_its_kernels(full_cells):
     rec = full_cells["pixie"]
     assert rec["status"] == "ok" and KEYS <= set(rec)
     sw = 24                          # supersteps of the production recipe, 8 a chunk
+    # the top-k's selection twice: the rank's shard, then the gathered candidates
     assert rec["kernels"] == {"walk_bits": sw // 8, "walk_hop_fused": 2 * sw,
-                              "visit_counter_update_high": sw}
+                              "visit_counter_update_high": sw, "topk_select": 2}
     assert rec["flops_by_dtype"]["int32"] > 0
     assert rec["collectives"]["all-to-all"] > 0 and set(rec["coll_by_axis"]) == {"model"}
     # one shard's CSR a rank: its offsets and 25%-headroom target slices

@@ -65,7 +65,7 @@ def test_port_files_exist():
         assert twin in names
     for src in ("walk_steps_fused.cu", "visit_counter.cu", "embedding_bag.cu",
                 "walk_hop.cu", "decode_attention.cu", "walk_step.cu",
-                "walk_bits.cu", "threefry.cuh"):
+                "walk_bits.cu", "threefry.cuh", "topk_select.cu"):
         assert (PORT / "kernels" / "csrc" / src).exists()
 
 
@@ -213,19 +213,22 @@ def test_launch_counters_name_the_three_kernels_and_reset():
     counter, the sharded engine's hop the fifth, the LM decode step's
     attention the sixth, and the legacy flat histogram and one-superstep
     walk the seventh and eighth: one counter per TPU kernel of the repo,
-    plus the walk's word table drawn on the card (``walk_bits``) and the
+    plus the walk's word table drawn on the card (``walk_bits``), the
     attention kernel's partial form over one ``kv_seq`` block
-    (``decode_attention_partial``, the tensor-parallel decode step's)."""
+    (``decode_attention_partial``, the tensor-parallel decode step's) and
+    the top-k's selection (``topk_select``, which replaces no TPU kernel)."""
     from repro_torch.kernels import _build
 
     assert set(_build.launches) == {
         "walk_steps_fused", "visit_counter_update_high", "visit_counter_wide",
         "embedding_bag", "walk_hop_fused", "decode_attention",
         "decode_attention_partial", "visit_counter", "walk_step", "walk_bits",
+        "topk_select",
     }
     assert set(_build.SOURCES) == {
         "walk_steps_fused", "visit_counter", "embedding_bag", "walk_hop",
         "decode_attention", "decode_attention_partial", "walk_step", "walk_bits",
+        "topk_select",
     }
     _build.launches["visit_counter_wide"] += 3
     _build.reset_launches()
@@ -270,6 +273,8 @@ def test_cuda_sources_name_the_kernel_they_replace():
     assert "decode_attention_partial_plain" in partial
     for src in (attn, partial):   # one kernel source, two libraries
         assert '#include "decode_attention.cuh"' in src and "__global__" not in src
+    topk = (csrc / "topk_select.cu").read_text()
+    assert "Replaces no Pallas kernel" in topk and "topk_select_plain" in topk
     assert "sm_90a" in (PORT / "kernels" / "_build.py").read_text()
 
 
