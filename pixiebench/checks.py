@@ -1,4 +1,6 @@
-"""The comparison that decides ``correct``, and the limit of each number.
+"""The comparison that decides ``correct`` for the kind ``pixie``, and the
+limit of each number.  ``verdict``, ``lines`` and ``as_json`` take any
+kind's limits (Pixie's by default).
 
 Every number is exact, so every limit is 0 (the readings they were set
 from are in PERF.md):
@@ -71,14 +73,14 @@ def compare(served: Dict[int, tuple], expected: Dict[int, tuple]) -> Dict[str, f
     return {"id_mismatch": ids_off, "score_gap": gap}
 
 
-def verdict(numbers: Dict[str, float]) -> bool:
-    return all(numbers[name] <= limit for name, limit in LIMITS.items())
+def verdict(numbers: Dict[str, float], limits: Dict[str, float] = LIMITS) -> bool:
+    return all(numbers[name] <= limit for name, limit in limits.items())
 
 
-def lines(numbers: Dict[str, float]) -> List[str]:
+def lines(numbers: Dict[str, float], limits: Dict[str, float] = LIMITS) -> List[str]:
     """Each number beside its limit, one a line (the run's last stderr lines)."""
-    return [f"check {name} {numbers[name]!r} limit {limit!r}" for name, limit in LIMITS.items()]
+    return [f"check {name} {numbers[name]!r} limit {limit!r}" for name, limit in limits.items()]
 
 
-def as_json(numbers: Dict[str, float]) -> dict:
-    return {name: {"value": numbers[name], "limit": limit} for name, limit in LIMITS.items()}
+def as_json(numbers: Dict[str, float], limits: Dict[str, float] = LIMITS) -> dict:
+    return {name: {"value": numbers[name], "limit": limit} for name, limit in limits.items()}

@@ -2,6 +2,11 @@
 
 A cell (an entry of ``workloads``) names a configuration, whose file is
 ``configs`` entry's ``file``, and a traffic mix, ``traffic/<name>.json``.
+The configuration names its kind (``"kind"``; ``"pixie"`` where absent):
+the module ``kinds/<kind>.py`` that sets the system up, runs the window
+and checks it (``run_cell``), with the limits that decide ``correct``
+(``LIMITS``) and the modules the import guard holds free of the port and
+of JAX (``REFERENCE_MODULES``).
 Each metric is read by ``metrics/<name>.py``, a module with one function
 ``read(run)`` that returns the value or None where it finds nothing to
 read.  A cell reports the end-to-end metrics that list it (or list no
@@ -29,6 +34,7 @@ class Metric(NamedTuple):
 class Cell(NamedTuple):
     name: str
     chips: int
+    kind: str
     config: dict
     traffic: dict
     end_to_end: List[Metric]
@@ -54,6 +60,25 @@ def reader(name: str) -> Callable:
     return module.read
 
 
+KIND_NAMES = ("run_cell", "LIMITS", "REFERENCE_MODULES")
+
+
+def kind(name: str):
+    """``kinds/<name>.py``; exits naming the kinds present where there is
+    none, or where it lacks a name of ``KIND_NAMES``."""
+    present = sorted(p.stem for p in (HERE / "kinds").glob("*.py"))
+    if name not in present:
+        raise SystemExit(f"no kind {name!r} in {HERE.name}/kinds; have {present}")
+    path = HERE / "kinds" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"pixiebench.kinds.{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    missing = [n for n in KIND_NAMES if not hasattr(module, n)]
+    if missing:
+        raise SystemExit(f"kind {name!r} lacks {missing}")
+    return module
+
+
 def _lists(metric: dict, cell: str) -> bool:
     return cell in metric.get("workloads", [cell])
 
@@ -73,5 +98,5 @@ def cell(name: str, root: Path = ROOT) -> Cell:
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in reported)]
     as_metric = lambda m: Metric(m["name"], m["unit"], reader(m["name"]))
-    return Cell(name, int(w["chips"]), config, mix,
+    return Cell(name, int(w["chips"]), config.get("kind", "pixie"), config, mix,
                 [as_metric(m) for m in e2e], [as_metric(m) for m in per_layer])
